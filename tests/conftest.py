@@ -10,3 +10,11 @@ if SRC not in sys.path:
 # repo root too, so the reprolint test modules can import ``tools.reprolint``
 if ROOT not in sys.path:
     sys.path.insert(1, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (skips without one; run on the card with "
+        "`pytest -m cuda tests/test_torch_cuda.py`)",
+    )
