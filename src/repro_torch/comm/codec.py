@@ -32,6 +32,16 @@ class CooFp32:
     def decode(self, payload: Payload, length: int) -> Tuple[torch.Tensor, torch.Tensor]:
         return payload["vals"], payload["idx"].long()
 
+    def decoded_dense(self, payload: Payload, length: int) -> torch.Tensor:
+        """``[W, L]``: each worker's payload scattered into its dense
+        vector, what the receiver reconstructs. Padding slots ``(±0.0,
+        index 0)`` add nothing (see ``repro_torch.comm.collectives``)."""
+        vals, idx = self.decode(payload, length)
+        dense = torch.zeros(
+            (vals.shape[0], length), dtype=vals.dtype, device=vals.device
+        )
+        return dense.scatter_add_(1, idx, vals)
+
     def wire_bits(self, length: int, k: int) -> int:
         return 32 * k + 32 * k
 

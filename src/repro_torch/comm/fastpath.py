@@ -1,10 +1,13 @@
 """Fused select→encode fastpath: fusability, candidate budget and runtime
 routing (counterpart of ``repro.comm.fastpath``).
 
-The port has the modes ``"on"`` (fuse every fusable leaf) and ``"off"``.
-The JAX package's ``"auto"`` prices the two paths with a throughput table
-whose default is a TPU memory rate; it waits until a later slice refits
-that table on the card.
+The trainer has the modes ``"on"`` (fuse every fusable leaf) and
+``"off"``. The JAX package's ``"auto"`` prices the two paths with a
+throughput table whose default is a TPU memory rate; the trainer refuses
+it until a later slice refits that table on the card (ROADMAP queue 1
+item 5). The simulator fuses only its scoring stage
+(:func:`make_score_fn`) and takes ``"auto"`` too, resolved by
+:func:`backend_supports`.
 """
 from __future__ import annotations
 
@@ -121,6 +124,36 @@ def fusable(scfg, codec: str, collective: str, length: int, k: int):
         if not ok:
             return False, why
     return True, "ok"
+
+
+def backend_supports(device) -> bool:
+    """Whether ``fastpath="auto"`` may fuse on ``device``: only where the
+    kernels are compiled, on the card. On the CPU the wrappers compute
+    their plain versions, which are never faster than the unfused path,
+    so "auto" resolves to "off" there ("on" still routes through the
+    wrapper, for tests and parity runs).
+
+    >>> backend_supports("cpu")
+    False
+    """
+    return torch.device(device).type == "cuda"
+
+
+def make_score_fn():
+    """``SparsifierConfig.score_fn`` adapter: the CUDA score kernel in the
+    dense-state simulator, one launch for all N workers' ``[N, L]``
+    vectors. The simulator fuses the scoring stage only (4 reads and 1
+    write instead of about a dozen streams); the select→encode fusion
+    needs the compact state of the trainer."""
+    from repro_torch.kernels import ops
+
+    def score_fn(a, a_prev, s_prev, g_prev, cfg):
+        return ops.regtopk_score(
+            a, a_prev, s_prev, g_prev.expand_as(a),
+            omega=cfg.omega, mu=cfg.mu, q=cfg.q_const, y=cfg.y,
+        )
+
+    return score_fn
 
 
 def fused_hbm_bytes(length: int, k: int, m=None) -> int:

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core.selectors import topk_stable
 from repro_torch.core.sparsify import SparsifierConfig
-from repro_torch.kernels.fused_encode import ieee_div, pow_y
+from repro_torch.kernels.regtopk_score import ieee_div, pow_y
 
 
 class CompactState(NamedTuple):

@@ -1,3 +1,8 @@
-from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.data.pipeline import (
+    LinRegDataset,
+    TokenPipeline,
+    linreg_grad_fn,
+    make_linreg,
+)
 
-__all__ = ["TokenPipeline"]
+__all__ = ["LinRegDataset", "TokenPipeline", "linreg_grad_fn", "make_linreg"]

@@ -5,14 +5,15 @@
 //   score = |a|^y * tanh(|1 + Delta| / mu)
 //
 // op for op as repro.kernels.regtopk_score.score_chain and the port's plain
-// version repro_torch.kernels.fused_encode.score_chain: a zero denominator is
+// version repro_torch.kernels.regtopk_score.score_chain: a zero denominator is
 // guarded to 1, the s_prev > 0 select comes after the division, y == 1 skips
 // the pow and y == 2 is one multiply (as torch's pow special-cases it). The
 // fused path is only equal to the dense fallback bit for bit if this score
 // equals the plain torch score, so every file that includes this header is
 // compiled without --use_fast_math and with -fmad=false: IEEE division,
 // tanhf, and no multiply-add contracted into an FMA. Shared by the fused
-// select->encode kernel and, in a later slice, the elementwise score kernel.
+// select->encode kernel (fused_encode.cu) and the elementwise score kernel
+// (regtopk_score.cu).
 #pragma once
 
 __device__ __forceinline__ float score_chain(float a, float a_prev,

@@ -18,57 +18,10 @@ the CPU. It counts its launches in ``fused_candidates.launches``.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
-
 import torch
 
 from repro_torch.core.selectors import topk_stable
-
-LANES = 1024
-SUBLANES = 8
-TILE = SUBLANES * LANES
-
-
-def pow_y(mag: torch.Tensor, y: float) -> torch.Tensor:
-    """``mag ** y`` as the kernel computes it: no pow for y == 1, one
-    multiply for y == 2, else an elementwise ``powf``."""
-    if y == 1.0:
-        return mag
-    if y == 2.0:
-        return mag * mag
-    return torch.pow(mag, torch.full_like(mag, y))
-
-
-def ieee_div(x: torch.Tensor, c: float) -> torch.Tensor:
-    # IEEE division by a device tensor: PyTorch's CUDA divide multiplies
-    # by the reciprocal when the divisor is a Python scalar.
-    return x / torch.full((), c, dtype=x.dtype, device=x.device)
-
-
-def score_chain(a, a_prev, s_prev, g_prev, *, omega, mu, q, y):
-    """The Alg. 2 selection metric, op for op as ``csrc/score_chain.cuh``
-    computes it (and as ``repro.kernels.regtopk_score.score_chain``)."""
-    denom = omega * a
-    safe = torch.where(denom == 0.0, 1.0, denom)
-    delta_sent = (g_prev - omega * a_prev) / safe
-    delta = torch.where(s_prev > 0.0, delta_sent, q)
-    reg = torch.tanh(ieee_div(torch.abs(1.0 + delta), mu))
-    return pow_y(torch.abs(a), y) * reg
-
-
-def _check_tiles(*xs: torch.Tensor) -> Tuple[int, int]:
-    W, rows, lanes = xs[0].shape
-    if lanes != LANES or rows % SUBLANES:
-        raise ValueError(
-            f"expected [W, rows, {LANES}] tiles with rows % {SUBLANES} == 0,"
-            f" got {tuple(xs[0].shape)}"
-        )
-    for x in xs:
-        if x.shape != xs[0].shape or x.dtype != torch.float32:
-            raise ValueError("inputs must share one [W, rows, 1024] f32 shape")
-        if x.device != xs[0].device or not x.is_contiguous():
-            raise ValueError("inputs must be contiguous on one device")
-    return W, rows // SUBLANES
+from repro_torch.kernels.regtopk_score import TILE, check_tiles, score_chain
 
 
 def fused_candidates_ref(a, a_prev, s_prev, g_prev, *, omega, mu, q=1e9,
@@ -81,7 +34,7 @@ def fused_candidates_ref(a, a_prev, s_prev, g_prev, *, omega, mu, q=1e9,
     NaN score emits ``(NaN, 0, INT32_MAX)`` in every round, as the TPU
     kernel does (its max is NaN and no element equals it), so the
     certificate fails and the dense path answers."""
-    W, nblk = _check_tiles(a, a_prev, s_prev, g_prev)
+    W, nblk = check_tiles(a, a_prev, s_prev, g_prev)
     score = score_chain(
         a, a_prev, s_prev, g_prev, omega=omega, mu=mu, q=q, y=y
     ).reshape(W, nblk, TILE)
@@ -108,7 +61,7 @@ def fused_candidates(a, a_prev, s_prev, g_prev, *, omega, mu, q=1e9, y=1.0,
     triples ``(scores [W, nblk, m], values [W, nblk, m], flat idx [W, nblk,
     m] int32)`` with ``nblk = rows // 8``: one CTA per (worker, tile), one
     launch for all W workers."""
-    W, nblk = _check_tiles(a, a_prev, s_prev, g_prev)
+    W, nblk = check_tiles(a, a_prev, s_prev, g_prev)
     if not 1 <= m <= TILE:
         raise ValueError(f"candidate budget m={m} outside [1, {TILE}]")
     if a.device.type == "cpu":

@@ -10,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import DistributedSim, SparsifierConfig
 from repro_torch.kernels import fused_encode as fe
 from repro_torch.kernels import ops
+from repro_torch.kernels import regtopk_score as rs
 
 KW = dict(omega=0.125, mu=1.0, q=1e9, m=16)
 
@@ -72,3 +74,56 @@ def test_kernel_matches_plain_version_bit_for_bit(card, y, nan):
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
     if nan is not None:
         assert torch.isnan(got[0][1, 1]).all()
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` starting 4 bytes past a 16-byte boundary
+    (the kernel's scalar loop)."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return view.view_as(t).copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nan,aligned", [(None, True), ("one", True), (None, False)])
+@pytest.mark.parametrize("y", [1.0, 2.0])
+def test_score_kernel_matches_plain_version_bit_for_bit(card, y, nan, aligned):
+    xs = _tiles("cuda", nan=nan)
+    if not aligned:
+        xs = [_unaligned(x) for x in xs]
+        assert xs[0].data_ptr() % 16 == 4 and xs[0].is_contiguous()
+    kw = dict(omega=0.125, mu=1.0, q=1e9, y=y)
+    before = rs.regtopk_score.launches
+    got = rs.regtopk_score(*xs, **kw)
+    assert rs.regtopk_score.launches == before + 1
+    want = rs.regtopk_score_ref(*xs, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(got).any() == (nan is not None)
+
+
+@pytest.mark.cuda
+def test_simulator_fastpath_on_equals_off_on_the_card(card):
+    """RegTop-k with the score kernel and with the plain chain: the same
+    masks and the same model, bit for bit, one launch per round."""
+    rng = np.random.default_rng(0)
+    X = torch.tensor(rng.standard_normal((4, 50, 300)), dtype=torch.float32,
+                     device="cuda")
+    yv = torch.tensor(rng.standard_normal((4, 50)), dtype=torch.float32,
+                      device="cuda")
+
+    def grad_fn(theta, widx):
+        r = torch.einsum("ndj,j->nd", X[widx], theta) - yv[widx]
+        return torch.einsum("ndj,nd->nj", X[widx], r) / 25.0
+
+    out = {}
+    for mode in ("off", "on"):
+        sim = DistributedSim(grad_fn, 4, 300,
+                             SparsifierConfig(kind="regtopk", sparsity=0.1, mu=4.0),
+                             aggregation="sparse_allgather", fastpath=mode)
+        before = rs.regtopk_score.launches
+        out[mode] = sim.run(torch.zeros(300), 30,
+                            trace_state_fn=lambda s: s.worker_states.s_prev)
+        launched = rs.regtopk_score.launches - before
+        assert launched == (30 if mode == "on" else 0)
+    assert torch.equal(out["on"][1], out["off"][1])
+    assert torch.equal(out["on"][0].theta, out["off"][0].theta)
