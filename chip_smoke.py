@@ -18,13 +18,28 @@ Phases, each raising on failure (the script then exits non-zero):
               Fig. 3's N = 20 x J = 100, a ragged length, y = 2 and 1.5,
               zero denominators, an all-unsent state and a NaN input; each
               timed beside its plain version and its bound;
-5. trainer  — the port's trainer (``repro_torch.launch.train``) on
+5. select   — the sort-free selection kernels (count_above, global_max,
+              block_topk_candidates) against their plain versions, bit for
+              bit, at kernel_bench's shape (N = 262,144, k = 262, m = 16),
+              the full-width row (the RegTop-k score of paper-resnet-proxy's
+              flat J = 4,458,752 vector, k = 4,459 and 44,588, m = 16), a
+              ragged length, an all-zero score, k >= L and a NaN input; the
+              main path (``ops.threshold_topk_mask`` at both k and
+              ``ops.hierarchical_topk`` on the full-width row, no host sync
+              in the bisection) with its launches counted; the kernel-driven
+              mask held bit for bit against ``core.selectors``' plain
+              bisection; the hierarchical top-k's recall; each kernel, both
+              whole selections, their plain versions and the library calls
+              timed, with the bounds from bytes;
+6. trainer  — the port's trainer (``repro_torch.launch.train``) on
               paper-resnet-proxy at full width, W = 8, RegTop-k at S = 0.01,
               fastpath on, for 10 steps: finite losses, one kernel launch
               per fused leaf per step, the certificate hit rate, one step
               held against the fastpath off, and a small run held against
-              the same run on the CPU;
-6. sim      — the port's simulator (``repro_torch.core.DistributedSim``):
+              the same run on the CPU; then 10 steps each of cyclic, of
+              dense_allreduce and of the threshold selector (set through
+              ``DistConfig``), each with finite losses and its comm line;
+7. sim      — the port's simulator (``repro_torch.core.DistributedSim``):
               the paper's Fig. 1 toy with its assertions; Fig. 3 at its
               published size (N = 20, J = 100, 2500 rounds), RegTop-k with
               the fastpath on and off equal bit for bit and one score kernel
@@ -34,7 +49,8 @@ Phases, each raising on failure (the script then exits non-zero):
               device's busy share.
 
 Each kernel's launch count is set to 0 just before the path that runs it
-(trainer: ``fused_candidates``; sim: ``regtopk_score``) and read just
+(select: ``count_above``, ``global_max``, ``block_topk_candidates``;
+trainer: ``fused_candidates``; sim: ``regtopk_score``) and read just
 after. The line before the last is the card's nvidia-smi line; before it,
 the ``kernels`` JSON line. The last line is the device JSON.
 ``--details FILE`` also writes every phase's results to FILE as JSON.
@@ -239,6 +255,221 @@ def phase_kernels() -> dict:
     return {"rows": rows, "max_abs_err": max_err, "per_step": totals}
 
 
+BENCH_N, BENCH_K = 262_144, 262  # benchmarks/kernel_bench.py's shape
+SELECT_M = 16
+FULL_K = (4_459, 44_588)  # S = 0.001 and 0.01 of the full-width row
+
+
+def _host_ms(fn, iters: int = 10) -> float:
+    """Host-clock milliseconds of one call of ``fn`` that ends in a
+    synchronise: the latency a caller sees, launch overhead included."""
+    fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _select_scores(gen: torch.Generator) -> list:
+    """(name, score [L] on the card, thresholds' k, hierarchical k, main
+    path) for the select phase."""
+    from repro_torch.kernels import regtopk_score as rs
+
+    def abs_normal(n):
+        return (3.0 * torch.randn(n, generator=gen)).abs().to(DEVICE)
+
+    J = sum(_model_leaves().values())
+    xs = _leaf_inputs(J, FULL_K[1], gen, workers=1)
+    wide = rs.score_chain(*xs, omega=1.0 / W, mu=1.0, q=1e9, y=1.0)[0]
+    ragged = 3 * 8192 + 17
+    nan = abs_normal(BENCH_N)
+    nan[BENCH_N // 3] = float("nan")
+    return [
+        ("kernel_bench", abs_normal(BENCH_N), [BENCH_K], BENCH_K, False),
+        ("full width", wide, list(FULL_K), FULL_K[0], True),
+        ("ragged", abs_normal(ragged), [25], 25, False),
+        ("all-zero", torch.zeros(BENCH_N, device=DEVICE), [BENCH_K], BENCH_K, False),
+        ("k >= L", abs_normal(ragged), [ragged], 4 * SELECT_M, False),
+        ("NaN input", nan, [BENCH_K], BENCH_K, False),
+    ]
+
+
+def _select_times(score, st, k_list, k_hier) -> dict:
+    """Device times of each kernel per launch, the whole selections, their
+    plain versions and the library calls, with the bounds from bytes, for
+    one score."""
+    from repro_torch.core import selectors
+    from repro_torch.core.selectors import topk_stable
+    from repro_torch.kernels import block_topk as bt
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import threshold_topk as tt
+
+    P = st.numel()
+    nblk = P // 8192
+    tau = 0.5 * tt.global_max(st)
+
+    def hier_plain():
+        v, i = bt.block_topk_candidates_ref(st, SELECT_M)
+        top, pos = topk_stable(v.reshape(1, -1), k_hier)
+        return top, torch.gather(i.reshape(1, -1), 1, pos)
+
+    out = {"padded": P, "kernels": {
+        "count_above": dict(
+            ms=median_ms(lambda: tt.count_above(st, tau)),
+            plain_ms=median_ms(lambda: tt.count_above_ref(st, tau)),
+            library_ms=None, bound_ms=1e3 * (4 * P + 4) / HBM_BYTES_PER_S),
+        "global_max": dict(
+            ms=median_ms(lambda: tt.global_max(st)),
+            plain_ms=median_ms(lambda: tt.global_max_ref(st)),
+            library_ms=median_ms(lambda: torch.amax(score)),
+            bound_ms=1e3 * (4 * P + 4) / HBM_BYTES_PER_S),
+        "block_topk_candidates": dict(
+            ms=median_ms(lambda: bt.block_topk_candidates(st, SELECT_M)),
+            plain_ms=median_ms(lambda: bt.block_topk_candidates_ref(st, SELECT_M)),
+            library_ms=median_ms(lambda: torch.topk(st.view(-1, 8192), SELECT_M)),
+            bound_ms=1e3 * (4 * P + 8 * nblk * SELECT_M) / HBM_BYTES_PER_S),
+    }, "selections": {}}
+    sel = out["selections"]
+    for k in k_list:
+        sel[f"threshold k={k}"] = dict(
+            ms=median_ms(lambda k=k: ops.threshold_topk_mask(score, k), inner=1),
+            host_ms=_host_ms(lambda k=k: ops.threshold_topk_mask(score, k)),
+            plain_ms=median_ms(
+                lambda k=k: selectors.threshold_topk_mask(score, k), inner=1),
+            plain_host_ms=_host_ms(
+                lambda k=k: selectors.threshold_topk_mask(score, k)),
+            library_ms=median_ms(lambda k=k: torch.topk(score, k)),
+            # one max pass, 24 count passes, the mask's read and write
+            passes_bound_ms=1e3 * 27 * 4 * P / HBM_BYTES_PER_S,
+            # the score read once, the mask written once
+            bound_ms=1e3 * 8 * score.numel() / HBM_BYTES_PER_S)
+    sel[f"hierarchical k={k_hier}"] = dict(
+        ms=median_ms(lambda: ops.hierarchical_topk(score, k_hier, SELECT_M)),
+        host_ms=_host_ms(lambda: ops.hierarchical_topk(score, k_hier, SELECT_M)),
+        plain_ms=median_ms(hier_plain),
+        library_ms=median_ms(lambda: torch.topk(score, k_hier)),
+        bound_ms=1e3 * (4 * score.numel() + 8 * k_hier) / HBM_BYTES_PER_S)
+    for name, row in {**out["kernels"], **sel}.items():
+        log(f"select time {name}: " + json.dumps(row))
+    return out
+
+
+def phase_select() -> dict:
+    """The sort-free selection kernels on the card: the main path counted,
+    every kernel held bit for bit against its plain version, the
+    kernel-driven mask against the plain selector, recall and times."""
+    from repro_torch.core import selectors
+    from repro_torch.core.selectors import topk_stable
+    from repro_torch.kernels import block_topk as bt
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import threshold_topk as tt
+
+    gen = torch.Generator().manual_seed(2)
+    cases = _select_scores(gen)
+    wide = next(c for c in cases if c[4])[1]
+    kernels = (tt.count_above, tt.global_max, bt.block_topk_candidates)
+
+    # the main path: both threshold selections and the hierarchical top-k
+    # of the full-width row; the bisection may not sync with the host
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        masks = {k: ops.threshold_topk_mask(wide, k) for k in FULL_K}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    hier = ops.hierarchical_topk(wide, FULL_K[0], SELECT_M)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    expected = {"count_above": 24 * len(FULL_K), "global_max": len(FULL_K),
+                "block_topk_candidates": 1}
+    if launches != expected:
+        raise AssertionError(f"select: launches {launches}, expected {expected}")
+    log(f"select: main path launches {json.dumps(launches)}")
+
+    # the kernel-driven mask is the plain selector's, bit for bit (k < L)
+    for k, mask in masks.items():
+        want = selectors.threshold_topk_mask(wide, k)
+        if not torch.equal(mask, want):
+            raise AssertionError(
+                f"select: ops.threshold_topk_mask (k={k}) differs from "
+                f"core.selectors' in {int((mask != want).sum())} places")
+        if int(mask.sum()) < k:
+            raise AssertionError(f"select: the k={k} mask holds {int(mask.sum())}")
+    log("select: full width, ops.threshold_topk_mask == core.selectors."
+        "threshold_topk_mask bit for bit at k = " + ", ".join(map(str, FULL_K))
+        + f" (mask sizes {[int(m.sum()) for m in masks.values()]})")
+
+    errs = {fn.__name__: 0.0 for fn in kernels}
+    rows = []
+    for name, score, k_list, k_hier, _ in cases:
+        st, _ = ops._tile(score.reshape(1, -1))
+        gm, gm_ref = tt.global_max(st), tt.global_max_ref(st)
+        tau = 0.5 * gm_ref
+        c, c_ref = tt.count_above(st, tau), tt.count_above_ref(st, tau)
+        cand = bt.block_topk_candidates(st, SELECT_M)
+        cand_ref = bt.block_topk_candidates_ref(st, SELECT_M)
+        mask_bad = 0
+        for k in k_list:
+            mask = tt.threshold_topk_mask(st, k)
+            mask_bad += _bit_mismatches(mask, tt.threshold_topk_mask_ref(st, k))
+        torch.cuda.synchronize()
+        err = {
+            "global_max": _abs_diff(gm, gm_ref),
+            "count_above": float((c - c_ref).abs().max()),
+            "block_topk_candidates": _abs_diff(cand[0], cand_ref[0]),
+        }
+        if (any(v != 0.0 for v in err.values()) or mask_bad
+                or not torch.equal(cand[1], cand_ref[1])):
+            raise AssertionError(
+                f"select {name}: kernels differ from their plain versions "
+                f"({err}, {mask_bad} mask elements, candidate indices equal: "
+                f"{torch.equal(cand[1], cand_ref[1])})")
+        for key, v in err.items():
+            errs[key] = max(errs[key], v)
+        top_v, top_i = ops.hierarchical_topk(score, k_hier, SELECT_M)
+        _, true_i = topk_stable(score.float(), k_hier)
+        found = torch.isin(top_i.long(), true_i).sum()
+        recall = float(found) / k_hier
+        if name == "NaN input":
+            if not (bool(torch.isnan(gm).all()) and bool(torch.isnan(cand[0]).any())):
+                raise AssertionError("select NaN input: the NaN did not propagate")
+        elif not bool(torch.isfinite(top_v).all()):
+            raise AssertionError(f"select {name}: non-finite top-k values")
+        row = dict(case=name, length=score.numel(), padded=st.numel(), k=k_list,
+                   k_hier=k_hier, m=SELECT_M, recall=recall,
+                   mask_sizes=[int(tt.threshold_topk_mask(st, k).sum())
+                               for k in k_list])
+        rows.append(row)
+        log("select: " + json.dumps(row) + " (kernels bit-equal to plain)")
+
+    times = {"full width": _select_times(wide, ops._tile(wide.reshape(1, -1))[0],
+                                         list(FULL_K), FULL_K[0]),
+             "kernel_bench": _select_times(cases[0][1],
+                                           ops._tile(cases[0][1].reshape(1, -1))[0],
+                                           [BENCH_K], BENCH_K)}
+    # where a whole selection's time goes: one call under the profiler,
+    # against its host-clock latency
+    sel = times["full width"]["selections"]
+    k = FULL_K[0]
+    profile = {
+        "threshold": profile_step(lambda: ops.threshold_topk_mask(wide, k),
+                                  sel[f"threshold k={k}"]["host_ms"]),
+        "hierarchical": profile_step(
+            lambda: ops.hierarchical_topk(wide, k, SELECT_M),
+            sel[f"hierarchical k={k}"]["host_ms"]),
+    }
+    return {"launches": launches, "max_abs_err": errs, "rows": rows,
+            "times": times, "profile": profile,
+            "recall_full_width": float(torch.isin(
+                hier[1].long(), topk_stable(wide, FULL_K[0])[1]).sum()) / FULL_K[0]}
+
+
 def phase_trainer() -> dict:
     from repro_torch.core import distributed as td
     from repro_torch.core.sparsify import SparsifierConfig
@@ -312,7 +543,45 @@ def phase_trainer() -> dict:
     return {"losses": losses, "launches": launches, "seconds": seconds,
             "hit_rate": counts.hit_rate, "rounds": counts.rounds,
             "fallbacks": counts.fallbacks, "step_ms": step_ms,
-            "profile": profile, "winners_per_tile": crowd}
+            "profile": profile, "winners_per_tile": crowd,
+            "kinds": trainer_kinds()}
+
+
+def trainer_kinds() -> dict:
+    """10 steps at full width, W = 8, of each selection the compact runtime
+    adds in this slice: cyclic, the dense_allreduce collective, and the
+    threshold selector (which the CLI has no flag for, as the JAX trainer
+    has none: set through ``DistConfig``)."""
+    from repro_torch.core import distributed as td
+    from repro_torch.core.sparsify import SparsifierConfig
+    from repro_torch.launch import train
+    from repro_torch.optim import OptConfig
+
+    base = [a for a in TRAIN_ARGS if a not in ("--fastpath", "on")]
+    base += ["--fastpath", "off", "--steps", str(STEPS)]
+    runs = {
+        "cyclic": (["--sparsifier", "cyclic"], None),
+        "dense_allreduce": (["--collective", "dense_allreduce"], None),
+        "threshold": ([], lambda a: td.DistConfig(
+            sparsifier=SparsifierConfig(kind=a.sparsifier, sparsity=a.sparsity,
+                                        mu=a.mu, selector="threshold"),
+            optimizer=OptConfig(learning_rate=a.lr))),
+    }
+    out = {}
+    for name, (extra, make_dist) in runs.items():
+        log(f"trainer {name}:")
+        args = train.parse_args([*base, *extra])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train.run(args, make_dist(args) if make_dist else None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if len(res.losses) != STEPS or not all(math.isfinite(x) for x in res.losses):
+            raise AssertionError(f"trainer {name}: losses {res.losses}")
+        log(f"trainer {name}: {STEPS} steps in {seconds:.2f} s, losses "
+            f"{res.losses[0]:.4f} -> {res.losses[-1]:.4f}")
+        out[name] = {"losses": res.losses, "seconds": seconds}
+    return out
 
 
 def winners_per_tile(sp_state, plan) -> dict:
@@ -679,10 +948,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
-    name, smi = phase_device()
+    device_name, smi = phase_device()
     builds = phase_build()
     kernels = phase_kernels()
     score = phase_score()
+    select = phase_select()
     trainer = phase_trainer()
     sim = phase_sim()
     per_step = kernels["per_step"]
@@ -712,18 +982,37 @@ def main(argv=None) -> int:
         "bound_by": "bytes",
         "library_ms": None,
     }]}
+    wide = select["times"]["full width"]["kernels"]
+    for kernel, source, replaces in (
+        ("count_above", "threshold_topk.cu", "threshold_topk.py:54"),
+        ("global_max", "threshold_topk.cu", "threshold_topk.py:70"),
+        ("block_topk_candidates", "block_topk.cu", "block_topk.py:48"),
+    ):
+        line["kernels"].append({
+            "name": kernel,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": select["launches"][kernel],
+            "max_abs_err": select["max_abs_err"][kernel],
+            "ms": wide[kernel]["ms"],
+            "plain_ms": wide[kernel]["plain_ms"],
+            "bound_ms": wide[kernel]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": wide[kernel]["library_ms"],
+        })
     if args.details is not None:
         args.details.parent.mkdir(parents=True, exist_ok=True)
         args.details.write_text(json.dumps(
-            {"device": name, "nvidia_smi": smi, "build_seconds": builds,
-             "kernels": kernels, "score": score, "trainer": trainer,
-             "sim": sim, "kernels_line": line},
+            {"device": device_name, "nvidia_smi": smi, "build_seconds": builds,
+             "kernels": kernels, "score": score, "select": select,
+             "trainer": trainer, "sim": sim, "kernels_line": line},
             indent=1,
         ))
     print(json.dumps(line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+        "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
 

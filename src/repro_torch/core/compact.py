@@ -7,15 +7,20 @@ error ``eps [L]`` plus three k-vectors. Every tensor here carries a
 leading worker axis: ``eps [W, L]``, ``sent_* [W, k]``, ``t [W]``. Index
 tensors are int64 (torch's indexing type); the wire codec carries them
 as int32.
+
+The adaptive-k controller's per-round ``k_dyn`` (ROADMAP queue 1 item 6)
+and coordinate weighting's ``den`` (item 4) are not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import selectors as sel_lib
 from repro_torch.core.selectors import topk_stable
-from repro_torch.core.sparsify import SparsifierConfig
+from repro_torch.core.sparsify import DenseState, SparsifierConfig, make_sparsifier
 from repro_torch.kernels.regtopk_score import ieee_div, pow_y
 
 
@@ -57,6 +62,12 @@ def compact_select(
     """Select coordinates for every worker. ``g`` is ``[W, L]``.
     Returns ``(a [W, L], vals [W, k], idx [W, k])``.
 
+    Kinds: ``topk`` and ``regtopk``, scored and then selected by
+    ``cfg.selector`` (``exact``: the stable top-k; ``threshold``: the
+    bisection mask of ``selectors.threshold_topk_mask``, ranked into k
+    slots by ``mask_to_payload``), and ``cyclic``, the coordinated
+    round-robin window ``[t * k, t * k + k) mod L``.
+
     ``fastpath="on"`` routes fusable configs through the fused
     select→encode kernel (``repro_torch.comm.fastpath``); its certificate
     falls back to this dense path per worker, so the payload is the same
@@ -78,10 +89,16 @@ def compact_select(
         ):
             return fp.fused_compact_select(cfg, st, g, k, counts=counts)
     a = st.eps + g.to(st.eps.dtype)
-    if cfg.selector != "exact":
-        raise ValueError(
-            f"selector {cfg.selector!r} is not ported; the port has 'exact'"
-        )
+    if cfg.kind == "none":
+        raise ValueError("'none' bypasses compact_select")
+    if cfg.kind == "cyclic":
+        # coordinated round-robin, the same coordinates on every worker: a
+        # function of (t, k, L) alone. t * k is int32 and wraps where the
+        # JAX package's does; % is the floor modulo in both.
+        start = (st.t * k) % L
+        arange = torch.arange(k, dtype=st.t.dtype, device=a.device)
+        idx = ((start[:, None] + arange) % L).long()
+        return a, torch.gather(a, 1, idx), idx
     amag = torch.abs(a)
     if cfg.kind == "topk":
         score = amag
@@ -101,11 +118,38 @@ def compact_select(
         score = torch.where((st.t == 0)[:, None], amag, scored)
     else:
         raise ValueError(f"unsupported compact kind {cfg.kind!r}")
-    _, idx = topk_stable(score, k)
-    # zero scores are never selected: such slots keep their distinct
-    # top-k index and carry value 0, a no-op on the wire.
-    vals = torch.gather(a, 1, idx) * (torch.gather(score, 1, idx) > 0)
-    return a, vals, idx
+    if cfg.selector == "exact":
+        _, idx = topk_stable(score, k)
+        # zero scores are never selected: such slots keep their distinct
+        # top-k index and carry value 0, a no-op on the wire.
+        vals = torch.gather(a, 1, idx) * (torch.gather(score, 1, idx) > 0)
+        return a, vals, idx
+    if cfg.selector == "threshold":
+        mask = sel_lib.threshold_topk_mask(score, k)
+        vals, idx = sel_lib.mask_to_payload(mask, a, k)
+        return a, vals, idx
+    raise ValueError(
+        f"compact_select does not support selector {cfg.selector!r}; "
+        "available: 'exact', 'threshold'"
+    )
+
+
+def compact_finalize(
+    st: CompactState,
+    a: torch.Tensor,
+    vals: torch.Tensor,
+    idx: torch.Tensor,
+    agg: torch.Tensor,
+) -> CompactState:
+    """Post-aggregation update under worker weighting: ``eps' = a -
+    scatter_add(vals, idx)``, zero at every sent coordinate (``vals ==
+    a[idx]`` there) and the whole of ``a`` at a padding slot's index, so no
+    unsent mass leaves the error feedback. ``agg [L]`` is the common
+    aggregate, recorded at the sent coordinates for the next round's
+    posterior. It is :func:`compact_finalize_sent` with the payload as
+    sent, which is what a lossless wire delivers."""
+    sent_dense = torch.zeros_like(a).scatter_add_(1, idx, vals)
+    return compact_finalize_sent(st, a, vals, idx, sent_dense, agg)
 
 
 def compact_finalize_sent(
@@ -129,3 +173,30 @@ def compact_finalize_sent(
         sent_w=torch.ones_like(st.sent_w),
         t=st.t + 1,
     )
+
+
+def reference_step(
+    cfg: SparsifierConfig,
+    st: CompactState,
+    g: torch.Tensor,
+    g_prev_dense: torch.Tensor,
+    k: int,
+    omega_prev: Optional[torch.Tensor] = None,
+):
+    """The dense-state step on the state the compact one rebuilds, for
+    equivalence tests: ``(ghat [W, L], mask [W, L], DenseState)`` from the
+    exact-selector sparsifier of ``cfg.kind`` with ``g_prev_dense [L]`` the
+    previous aggregate."""
+    W, L = g.shape
+    sent = torch.where(st.t > 0, 1.0, 0.0).to(g.dtype)[:, None].expand(W, k)
+    z = torch.zeros((W, L), dtype=g.dtype, device=g.device)
+    dense = DenseState(
+        eps=st.eps,
+        a_prev=z.scatter(1, st.sent_idx, st.sent_vals),
+        s_prev=z.scatter(1, st.sent_idx, sent),
+        t=st.t,
+    )
+    sp = make_sparsifier(
+        dataclasses.replace(cfg, sparsity=k / L, selector="exact")
+    )
+    return sp.step(dense, g, g_prev_dense, omega_prev=omega_prev)

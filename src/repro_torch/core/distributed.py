@@ -5,14 +5,17 @@ The JAX trainer's W is the size of its data-parallel mesh: it vmaps the W
 workers' gradients in one program and aggregates their payloads over the
 mesh. The port keeps that leading worker axis on one card: W logical
 workers, each with its own batch shard, gradient and ``CompactState``,
-aggregated by the one-card ``sparse_allgather``. It is the counterpart of
-the JAX trainer under ``--xla_force_host_platform_device_count=W``.
+aggregated by the one-card ``sparse_allgather`` or ``dense_allreduce``.
+It is the counterpart of the JAX trainer under
+``--xla_force_host_platform_device_count=W``.
 
 One round per leaf (``_spa_leaf``): accumulate and select
 (``compact_select``, fused through the CUDA kernel on fused leaves),
 encode with the codec, aggregate with weight omega = 1/W, and feed the
-decoded contribution back into the error. Adam then runs once on the
-common aggregate.
+decoded contribution back into the error. Under ``dense_allreduce`` the
+payloads are summed as dense vectors instead and ``compact_finalize``
+feeds back what was selected. Adam then runs once on the common
+aggregate.
 """
 from __future__ import annotations
 
@@ -105,6 +108,16 @@ def _spa_leaf(g, st, p: LeafPlan, scfg, codec, collective, counts):
     a, vals, idx = C.compact_select(
         scfg, st, gl, p.k, fastpath="on" if p.fused else None, counts=counts
     )
+    if collective.name == "dense_allreduce":
+        # the dense vector on the wire: each worker's payload scattered
+        # (added, so padding slots are no-ops) into its ghat, the weighted
+        # sum taken one worker at a time in worker order
+        ghat = torch.zeros_like(a).scatter_add_(1, idx, vals)
+        agg = torch.zeros_like(ghat[0])
+        for w in range(W):
+            agg = agg + ghat[w] * scfg.omega
+        new = C.compact_finalize(st, a, vals, idx, agg)
+        return agg.reshape(p.global_shape).to(g.dtype), new
     payload = (
         codec.encode_fused(vals, idx, p.local_len)
         if p.fused
@@ -160,12 +173,13 @@ def comm_round_bytes(plan, dist: DistConfig, workers: int) -> Tuple[int, int]:
     """(predicted, measured) bytes on the wire per worker per round, summed
     over leaves: predicted from the codec's bit accounting, measured from
     the buffers one ``codec.encode`` returns (``_payload_bytes``). Kind
-    "none" moves the dense f32 vector in a ring all-reduce."""
+    "none" and the ``dense_allreduce`` collective move the dense f32
+    vector in a ring all-reduce."""
     codec = get_codec(dist.codec)
     collective = get_collective(dist.collective)
     pred = meas = 0
     for p in tree_leaves(plan):
-        if dist.sparsifier.kind == "none":
+        if dist.sparsifier.kind == "none" or collective.name == "dense_allreduce":
             dense = math.ceil(2 * (workers - 1) * 4 * p.local_len / workers)
             pred += dense
             meas += dense

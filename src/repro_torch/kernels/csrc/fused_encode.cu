@@ -17,11 +17,10 @@
 // the m <= 128 selection rounds, each a block-wide arg-max with two
 // barriers, dominate. The design keeps that cost off the whole tile: the
 // scores sit in shared memory (32 KiB), each thread keeps the arg-max of its
-// own 32 elements in registers, a round reduces the 256 per-thread maxima
-// (warp shuffles, then one warp over the 8 warp winners), and only the
-// owning thread of the winner masks it to -inf and rescans its 32 elements.
-// Making the rounds cheaper (a radix select of the m-th score, then one
-// pass) is later work.
+// own 32 elements in registers, and the rounds of tile_topm.cuh reduce the
+// 256 per-thread maxima and rescan only the winner's owner. Making the
+// rounds cheaper (a radix select of the m-th score, then one pass) is later
+// work.
 
 #include <cuda_runtime.h>
 
@@ -29,32 +28,13 @@
 #include <cstdint>
 
 #include "score_chain.cuh"
+#include "tile_topm.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 8192;
-constexpr int kPerThread = kTile / kThreads;
-constexpr int kWarps = kThreads / 32;
-
-// (score desc, flat index asc): does (s1, i1) outrank (s2, i2)? The
-// scores here are never NaN: a tile with a NaN score leaves before the
-// selection.
-__device__ __forceinline__ bool outranks(float s1, int i1, float s2, int i2) {
-  return s1 > s2 || (s1 == s2 && i1 < i2);
-}
-
-__device__ __forceinline__ void warp_argmax(float& s, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float os = __shfl_down_sync(0xffffffffu, s, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    if (outranks(os, oi, s, i)) {
-      s = os;
-      i = oi;
-    }
-  }
-}
+using tile_topm::kPerThread;
+using tile_topm::kThreads;
+using tile_topm::kTile;
 
 __global__ void __launch_bounds__(kThreads)
     fused_candidates_kernel(const float* __restrict__ a,
@@ -66,15 +46,10 @@ __global__ void __launch_bounds__(kThreads)
                             int32_t* __restrict__ cand_idx, int nblk, int m,
                             float omega, float mu, float q, float y) {
   __shared__ float score[kTile];
-  __shared__ float warp_s[kWarps];
-  __shared__ int warp_i[kWarps];
-  __shared__ int winner;
 
   const int tile = blockIdx.x;
   const int worker = blockIdx.y;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int tile0 = tile * kTile;  // flat index of the tile's first element
   const size_t base = (size_t)worker * nblk * kTile + tile0;
   const size_t out0 = ((size_t)worker * nblk + tile) * m;
@@ -111,45 +86,14 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
 
-  // selection: m rounds of a block-wide arg-max
-  for (int r = 0; r < m; ++r) {
-    float s = best_s;
-    int i = best_i;
-    warp_argmax(s, i);
-    if (lane == 0) {
-      warp_s[warp] = s;
-      warp_i[warp] = i;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      s = lane < kWarps ? warp_s[lane] : -INFINITY;
-      i = lane < kWarps ? warp_i[lane] : INT_MAX;
-      warp_argmax(s, i);
-      if (lane == 0) {
-        // i is INT_MAX only once the whole tile is masked (m > 8192, which
-        // the wrapper refuses): never read a[] or score[] there
-        winner = i;
-        cand_score[out0 + r] = s;
-        cand_val[out0 + r] = i == INT_MAX ? 0.0f : a[base + (i - tile0)];
-        cand_idx[out0 + r] = i;
-      }
-    }
-    __syncthreads();
-    const int local_w = winner - tile0;
-    if (winner != INT_MAX && (local_w & (kThreads - 1)) == tid) {
-      score[local_w] = -INFINITY;
-      best_s = -INFINITY;
-      best_i = INT_MAX;
-      for (int j = 0; j < kPerThread; ++j) {
-        const int local = j * kThreads + tid;
-        const float sj = score[local];
-        if (sj > best_s) {
-          best_s = sj;
-          best_i = tile0 + local;
-        }
-      }
-    }
-  }
+  // selection: m rounds of a block-wide arg-max. The scores are >= 0, so
+  // every winner is a real element while m <= 8192 (the wrapper's limit).
+  tile_topm::select_rounds(score, best_s, best_i, tile0, m,
+                           [&](int r, float s, int i) {
+                             cand_score[out0 + r] = s;
+                             cand_val[out0 + r] = a[base + (i - tile0)];
+                             cand_idx[out0 + r] = i;
+                           });
 }
 
 }  // namespace

@@ -1,6 +1,6 @@
 """Public wrappers around the kernels (counterpart of
-``repro.kernels.ops``): the layout contract, the score pass and the fused
-pipeline.
+``repro.kernels.ops``): the layout contract, the score pass, the fused
+pipeline and the two sort-free selections.
 
 Layout contract (as in the JAX package): each worker's vector is
 flattened, cast to f32 and zero-padded to a multiple of ``TILE`` = 8192
@@ -16,8 +16,10 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import block_topk as _bt
 from repro_torch.kernels import fused_encode as _fe
 from repro_torch.kernels import regtopk_score as _rs
+from repro_torch.kernels import threshold_topk as _tt
 
 LANES = _rs.LANES
 TILE = _rs.TILE
@@ -64,3 +66,24 @@ def fused_select_encode(
         at, pt, st, gt, omega=omega, mu=mu, q=q, y=y, m=m
     )
     return _fe.select_from_candidates(cs, cv, ci, k)
+
+
+def threshold_topk_mask(score: torch.Tensor, k: int, *, n_iters: int = 24
+                        ) -> torch.Tensor:
+    """~k-cardinality ``{0, 1}`` f32 mask of an arbitrary-shape score by
+    kernel-driven bisection over the whole of it (``repro.kernels.ops``'s
+    signature): flattened, cast to f32 and zero-padded to whole tiles, the
+    mask sliced back to ``score.shape``."""
+    st, n = _tile(score.reshape(1, -1))
+    mask = _tt.threshold_topk_mask(st, k, n_iters=n_iters)
+    return mask.reshape(-1)[:n].reshape(score.shape)
+
+
+def hierarchical_topk(score: torch.Tensor, k: int, m: int = 8
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(vals [k], flat idx [k] int32)`` of an arbitrary-shape score:
+    per-tile top-m candidates, then the exact top-k over them. The
+    indices index the zero-padded flat vector, as in the JAX package."""
+    st, _ = _tile(score.reshape(1, -1))
+    vals, idx = _bt.hierarchical_topk(st, k, m=m)
+    return vals[0], idx[0]

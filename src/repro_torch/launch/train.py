@@ -39,12 +39,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--sparsifier", default="regtopk",
-                    choices=["none", "topk", "regtopk"])
+                    choices=["none", "topk", "regtopk", "cyclic"])
     ap.add_argument("--sparsity", type=float, default=0.01)
     ap.add_argument("--mu", type=float, default=1.0)
     ap.add_argument("--codec", default="coo_fp32", choices=["coo_fp32"])
     ap.add_argument("--collective", default="sparse_allgather",
-                    choices=["sparse_allgather"])
+                    choices=["dense_allreduce", "sparse_allgather"])
     ap.add_argument("--fastpath", default="off", choices=["off", "on", "auto"],
                     help="'on' fuses every fusable leaf through the CUDA "
                          "select->encode kernel (same payload, with a "
@@ -75,8 +75,11 @@ class RunResult(NamedTuple):
     plan: dict
 
 
-def run(args: argparse.Namespace) -> RunResult:
-    """Train for ``args.steps`` steps, logging as the JAX trainer does."""
+def run(args: argparse.Namespace, dist: Optional[DistConfig] = None) -> RunResult:
+    """Train for ``args.steps`` steps, logging as the JAX trainer does.
+    ``dist`` replaces the ``DistConfig`` the flags describe, for what the
+    CLI has no flag for (as the JAX trainer has none for the selector:
+    ``SparsifierConfig(selector="threshold")``)."""
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise RuntimeError(
             f"--device {args.device} requested but CUDA is not available"
@@ -87,7 +90,7 @@ def run(args: argparse.Namespace) -> RunResult:
     W = args.workers
     if args.global_batch % W:
         raise SystemExit(f"--global-batch must be divisible by {W} workers")
-    dist = DistConfig(
+    dist = dist or DistConfig(
         sparsifier=SparsifierConfig(
             kind=args.sparsifier, sparsity=args.sparsity, mu=args.mu
         ),
@@ -97,7 +100,7 @@ def run(args: argparse.Namespace) -> RunResult:
         fastpath=args.fastpath,
     )
     params = lm.init(cfg, seed=0, device=args.device)
-    plan = build_plan(params, args.sparsity, dist)
+    plan = build_plan(params, dist.sparsifier.sparsity, dist)
     counts = FastpathCounts()
     step_fn = make_train_step(cfg, dist, plan, W, counts)
     opt_state = make_optimizer(dist.optimizer).init(params)
@@ -110,7 +113,7 @@ def run(args: argparse.Namespace) -> RunResult:
         flush=True,
     )
     leaves = tree_leaves(plan)
-    if args.fastpath == "on":
+    if dist.fastpath == "on":
         print(
             f"fastpath: {sum(p.fused for p in leaves)}/{len(leaves)} "
             "leaves fused",
@@ -130,7 +133,7 @@ def run(args: argparse.Namespace) -> RunResult:
                 f"({dt / (t + 1):.2f}s/step)",
                 flush=True,
             )
-    if args.fastpath == "on":
+    if dist.fastpath == "on":
         print(
             f"fastpath: certificate hit rate {counts.hit_rate:.4f} "
             f"({counts.rounds - counts.fallbacks}/{counts.rounds} "

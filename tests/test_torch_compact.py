@@ -101,3 +101,81 @@ def test_fastpath_auto_is_not_ported():
         tc.compact_select(
             SparsifierConfig(), st, torch.zeros(1, 16), 2, fastpath="auto"
         )
+
+
+def _jax_cfg(cfg):
+    return JaxSparsifierConfig(**dataclasses.asdict(cfg))
+
+
+def _three_rounds_with_finalize(cfg, st, seed):
+    """Three rounds of the port's ``compact_select`` and
+    ``compact_finalize`` against the JAX package's, worker by worker."""
+    rng = np.random.default_rng(seed)
+    jcfg = _jax_cfg(cfg)
+    for _ in range(3):
+        g = rng.standard_normal((W, L)).astype(np.float32)
+        a, vals, idx = tc.compact_select(cfg, st, torch.from_numpy(g), K)
+        agg = torch.from_numpy(rng.standard_normal(L).astype(np.float32))
+        new = tc.compact_finalize(st, a, vals, idx, agg)
+        for w in range(W):
+            jst = _jax_state(st, w)
+            ja, jv, ji = jc.compact_select(jcfg, jst, jnp.asarray(g[w]), K)
+            np.testing.assert_array_equal(idx[w].numpy(), np.asarray(ji))
+            np.testing.assert_allclose(vals[w].numpy(), np.asarray(jv), rtol=RTOL)
+            jnew = jc.compact_finalize(jst, ja, jv, ji, jnp.asarray(agg.numpy()))
+            _assert_state(new, jnew, w)
+        st = new
+    return st
+
+
+@pytest.mark.parametrize("kind,y", [("topk", 1.0), ("regtopk", 1.0), ("regtopk", 2.0)])
+def test_threshold_selector_three_rounds_match_jax(kind, y):
+    """The bisection mask ranked into k slots by ``mask_to_payload``."""
+    cfg = SparsifierConfig(kind=kind, sparsity=K / L, mu=1.0, y=y, omega=0.5,
+                           selector="threshold")
+    st = _three_rounds_with_finalize(cfg, tc.compact_init(W, L, K, device="cpu"),
+                                     [7, int(y)])
+    assert (st.t == 3).all()
+
+
+@pytest.mark.parametrize("t0", [0, (2**31 - 1) // K])
+def test_cyclic_three_rounds_match_jax(t0):
+    """The round-robin window; from t0 = (2^31 - 1) // k the int32 product
+    t * k wraps in the second round, in both packages alike."""
+    cfg = SparsifierConfig(kind="cyclic", sparsity=K / L)
+    st = tc.compact_init(W, L, K, device="cpu")
+    st = st._replace(t=torch.full((W,), t0, dtype=torch.int32))
+    st = _three_rounds_with_finalize(cfg, st, 11)
+    if t0:  # the last round's t * k was past the int32 range
+        assert ((st.t.long() - 1) * K > 2**31 - 1).all()
+
+
+def test_unknown_selector_raises():
+    st = tc.compact_init(1, 16, 2, device="cpu")
+    with pytest.raises(ValueError, match="does not support selector"):
+        tc.compact_select(SparsifierConfig(selector="bogus"), st,
+                          torch.zeros(1, 16), 2)
+
+
+@pytest.mark.parametrize(
+    "kind,y", [("topk", 1.0), ("regtopk", 1.0), ("regtopk", 0.5), ("regtopk", 2.0)]
+)
+def test_compact_matches_dense_reference_step(kind, y):
+    """The compact path against ``reference_step``, the dense sparsifier
+    on the state the compact one rebuilds, five rounds, both workers."""
+    n, k = 64, 8
+    cfg = SparsifierConfig(kind=kind, sparsity=k / n, mu=1.5, omega=0.1, y=y)
+    st = tc.compact_init(W, n, k, device="cpu")
+    rng = np.random.default_rng(0)
+    g_prev = torch.zeros(n)
+    for _ in range(5):
+        g = torch.from_numpy(rng.standard_normal((W, n)).astype(np.float32))
+        ghat_ref, mask_ref, _ = tc.reference_step(cfg, st, g, g_prev, k)
+        a, vals, idx = tc.compact_select(cfg, st, g, k)
+        ghat = torch.zeros(W, n).scatter(1, idx, vals)
+        np.testing.assert_allclose(ghat.numpy(), ghat_ref.numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        assert torch.equal((ghat != 0).float(), mask_ref * (ghat_ref != 0))
+        agg = 0.1 * ghat.sum(0)
+        st = tc.compact_finalize(st, a, vals, idx, agg)
+        g_prev = agg

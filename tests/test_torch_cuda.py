@@ -11,9 +11,12 @@ import pytest
 import torch
 
 from repro_torch.core import DistributedSim, SparsifierConfig
+from repro_torch.core import selectors
+from repro_torch.kernels import block_topk as bt
 from repro_torch.kernels import fused_encode as fe
 from repro_torch.kernels import ops
 from repro_torch.kernels import regtopk_score as rs
+from repro_torch.kernels import threshold_topk as tt
 
 KW = dict(omega=0.125, mu=1.0, q=1e9, m=16)
 
@@ -127,3 +130,94 @@ def test_simulator_fastpath_on_equals_off_on_the_card(card):
         assert launched == (30 if mode == "on" else 0)
     assert torch.equal(out["on"][1], out["off"][1])
     assert torch.equal(out["on"][0].theta, out["off"][0].theta)
+
+
+def _score_tiles(W=3, n=3 * 8192 + 17, seed=9, case=None):
+    """``|3 N(0, 1)|`` scores tiled to ``[W, rows, 1024]`` on the card;
+    ``case``: "ties" (quarters), "nan" (one NaN in tile 1 of worker 1),
+    "exhausted" (tile 1 of worker 1 holds 3 scores above -inf)."""
+    s = np.abs(3.0 * np.random.default_rng(seed).standard_normal((W, n)))
+    if case == "ties":
+        s = np.rint(4.0 * s) / 4.0
+    elif case == "nan":
+        s[1, 8192 + 5] = np.nan
+    elif case == "exhausted":
+        s[1, 8192:16384] = -np.inf
+        s[1, [8192 + 9, 8192 + 700, 16383]] = [2.0, 5.0, 2.0]
+    return ops._tile(torch.tensor(s, dtype=torch.float32, device="cuda"))[0]
+
+
+def _equal(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("case", [None, "ties", "nan"])
+def test_count_and_max_kernels_match_plain_versions(card, case, aligned):
+    tiles = _score_tiles(case=case)
+    if not aligned:
+        tiles = _unaligned(tiles)
+    before = (tt.count_above.launches, tt.global_max.launches)
+    gm = tt.global_max(tiles)
+    taus = [torch.full((3,), v, device="cuda") for v in (0.0, 1.7, float("nan"))]
+    counts = [tt.count_above(tiles, tau) for tau in taus]
+    assert (tt.count_above.launches, tt.global_max.launches) == (
+        before[0] + 3, before[1] + 1)
+    torch.cuda.synchronize()
+    _equal(gm, tt.global_max_ref(tiles))
+    assert torch.isnan(gm[1]) == (case == "nan")
+    for tau, c in zip(taus, counts, strict=True):
+        assert torch.equal(c, tt.count_above_ref(tiles, tau))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [None, "ties", "nan"])
+def test_threshold_mask_on_the_card_matches_plain_and_selector(card, case):
+    """The kernel-driven bisection: no host sync, the plain version's
+    mask and, per worker, the plain selector's, bit for bit."""
+    tiles = _score_tiles(case=case)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mask = tt.threshold_topk_mask(tiles, 300)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _equal(mask, tt.threshold_topk_mask_ref(tiles, 300))
+    if case != "nan":
+        flat = tiles.reshape(3, -1)
+        assert torch.equal(mask.reshape(3, -1),
+                           selectors.threshold_topk_mask(flat, 300))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 16, 128])
+@pytest.mark.parametrize("case", [None, "ties", "nan", "exhausted"])
+def test_block_topk_kernel_matches_plain_version(card, case, m):
+    tiles = _score_tiles(case=case)
+    before = bt.block_topk_candidates.launches
+    got = bt.block_topk_candidates(tiles, m)
+    assert bt.block_topk_candidates.launches == before + 1
+    want = bt.block_topk_candidates_ref(tiles, m)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want, strict=True):
+        _equal(g, w)
+    if case == "nan":
+        assert (got[1][1, 1] == bt.INT32_MAX).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 128])
+def test_fused_kernel_with_ties_after_the_shared_header(card, m):
+    """Kernel 1 on the shared selection rounds: equal scores (a rounded
+    to quarters with nothing sent, so the score is |a|) still come out
+    lowest index first, bit for bit."""
+    xs = _tiles("cuda")
+    xs[0] = torch.round(4.0 * xs[0]) / 4.0
+    xs[2] = torch.zeros_like(xs[2])
+    kw = dict(KW, m=m)
+    got = fe.fused_candidates(*xs, y=1.0, **kw)
+    want = fe.fused_candidates_ref(*xs, y=1.0, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want, strict=True):
+        _equal(g, w)
