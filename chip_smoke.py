@@ -12,6 +12,9 @@ Phases, each raising on failure (the script then exits non-zero):
               certificate failure, and a tile with one NaN score and one
               of NaN scores only; timed beside its plain version, the
               library top-k of a precomputed dense score, and its bound;
+              then bit for bit on adversarial tiles (one value, four
+              values, signed zeros, subnormals, +inf) at every budget m
+              from 1 to 8192;
 4. score    — the RegTop-k score kernel against its plain PyTorch version,
               bit for bit, at every leaf shape of paper-resnet-proxy with
               W = 8, the model's flat length (the simulator at full width),
@@ -23,7 +26,10 @@ Phases, each raising on failure (the script then exits non-zero):
               bit, at kernel_bench's shape (N = 262,144, k = 262, m = 16),
               the full-width row (the RegTop-k score of paper-resnet-proxy's
               flat J = 4,458,752 vector, k = 4,459 and 44,588, m = 16), a
-              ragged length, an all-zero score, k >= L and a NaN input; the
+              ragged length, an all-zero score, k >= L and a NaN input,
+              and ``block_topk_candidates`` bit for bit on the adversarial
+              tiles (those of the kernels phase and runs of -inf) at every
+              budget m from 1 to 8192; the
               main path (``ops.threshold_topk_mask`` at both k and
               ``ops.hierarchical_topk`` on the full-width row, no host sync
               in the bisection) with its launches counted; the kernel-driven
@@ -54,6 +60,10 @@ trainer: ``fused_candidates``; sim: ``regtopk_score``) and read just
 after. The line before the last is the card's nvidia-smi line; before it,
 the ``kernels`` JSON line. The last line is the device JSON.
 ``--details FILE`` also writes every phase's results to FILE as JSON.
+``--parent DIR`` (a checkout of the parent commit) adds, last, the time of
+kernel 1 per training step and of ``block_topk_candidates`` at full width
+for both trees, measured in turns (parent, change, change, parent) in
+fresh processes on this card, into the details.
 """
 from __future__ import annotations
 
@@ -184,6 +194,72 @@ def _bit_mismatches(x: torch.Tensor, y: torch.Tensor) -> int:
     return int(((x.view(torch.int32) != y.view(torch.int32)) & ~both).sum())
 
 
+ADVERSARIAL = ("equal", "four", "zeros", "-inf", "subnormal", "+inf")
+ADVERSARIAL_M = (1, 8, 16, 36, 128, 257, 512, 8192)
+
+
+def _adversarial(case: str, gen: torch.Generator, workers: int = W,
+                 n: int = 3 * 8192) -> torch.Tensor:
+    """``[workers, n]`` scores on the CPU that stress the per-tile radix
+    select: "equal" (one value), "four" (four values, so the ties straddle
+    the m-th key across threads), "zeros" (-0.0 and +0.0 mixed, a few
+    positives), "-inf" (runs of -inf, a few finite scores in tile 1),
+    "subnormal" (subnormals of both signs, made from their bits) and
+    "+inf" (+inf among |N(0, 1)|)."""
+    shape = (workers, n)
+    u = torch.rand(shape, generator=gen)
+    if case == "equal":
+        return torch.full(shape, 1.5)
+    if case == "four":
+        return torch.tensor([0.5, 1.0, 2.0, 3.0])[
+            torch.randint(0, 4, shape, generator=gen)]
+    if case == "zeros":
+        s = torch.where(u < 0.5, torch.tensor(-0.0), torch.tensor(0.0))
+        return torch.where(torch.rand(shape, generator=gen) < 0.002, 1.0, s)
+    if case == "subnormal":
+        s = torch.randint(1, 64, shape, generator=gen, dtype=torch.int32)
+        return torch.where(u < 0.3, s | -2**31, s).view(torch.float32)
+    s = torch.randn(shape, generator=gen).abs()
+    if case == "-inf":
+        s[:, 8192:16384] = -math.inf
+        s[:, 2000:2500] = -math.inf
+        s[:, [8192 + 9, 8192 + 700, 16383]] = torch.tensor([2.0, 5.0, 2.0])
+        return s
+    return torch.where(u < 0.01, math.inf, s)
+
+
+def kernel1_adversarial(gen: torch.Generator) -> dict:
+    """Kernel 1 against its plain version, bit for bit, on the adversarial
+    tiles at every budget: nothing sent and q = 1e9, so the score is |a|
+    exactly; the gradient takes random signs, so -0.0 a-values must come
+    out as +0.0 (scores are never negative, so no "-inf" tile)."""
+    from repro_torch.kernels import fused_encode as fe
+    from repro_torch.kernels import ops
+
+    checked = 0
+    for case in ADVERSARIAL:
+        if case == "-inf":
+            continue
+        a = _adversarial(case, gen)
+        a = torch.where(torch.rand(a.shape, generator=gen) < 0.5, -a, a)
+        z = torch.zeros_like(a)
+        tiles = [ops._tile(x.to(DEVICE))[0] for x in (a, z, z, z)]
+        for m in ADVERSARIAL_M:
+            kw = dict(omega=1.0 / W, mu=1.0, q=1e9, y=1.0, m=m)
+            got = fe.fused_candidates(*tiles, **kw)
+            want = fe.fused_candidates_ref(*tiles, **kw)
+            torch.cuda.synchronize()
+            bad = sum(_bit_mismatches(g, w) for g, w in zip(got, want, strict=True))
+            if bad:
+                raise AssertionError(f"kernel 1 on {case} tiles, m = {m}: {bad} "
+                                     "outputs differ in bits from the plain version")
+            checked += 1
+    log(f"kernel: adversarial tiles ({', '.join(c for c in ADVERSARIAL if c != '-inf')})"
+        f" at m = {list(ADVERSARIAL_M)}: bit-equal to the plain version")
+    return {"cases": [c for c in ADVERSARIAL if c != "-inf"],
+            "m": list(ADVERSARIAL_M), "checked": checked}
+
+
 def phase_kernels() -> dict:
     """Kernel against plain version at the main path's shapes."""
     from repro_torch.comm import fastpath as fp
@@ -218,10 +294,12 @@ def phase_kernels() -> dict:
             bad = int((ci != ref_i).sum())
             raise AssertionError(f"{name}: {bad} candidate indices differ")
         err = max(_abs_diff(cs, ref_s), _abs_diff(cv, ref_v))
-        if err != 0.0:
+        bad = _bit_mismatches(cs, ref_s) + _bit_mismatches(cv, ref_v)
+        if err != 0.0 or bad:
             raise AssertionError(
-                f"{name}: candidate scores/values differ from the plain "
-                f"version by {err:g}; the score chain must be bit-equal"
+                f"{name}: {bad} candidate scores/values differ from the plain "
+                f"version in bits (max |diff| {err:g}); the score chain must "
+                "be bit-equal"
             )
         max_err = max(max_err, err)
         vals, idx, ok = fe.select_from_candidates(cs, cv, ci, k)
@@ -252,7 +330,9 @@ def phase_kernels() -> dict:
         if main_path:
             for key in totals:
                 totals[key] += row[key]
-    return {"rows": rows, "max_abs_err": max_err, "per_step": totals}
+    adversarial = kernel1_adversarial(gen)
+    return {"rows": rows, "max_abs_err": max_err, "per_step": totals,
+            "adversarial": adversarial}
 
 
 BENCH_N, BENCH_K = 262_144, 262  # benchmarks/kernel_bench.py's shape
@@ -425,6 +505,7 @@ def phase_select() -> dict:
             "block_topk_candidates": _abs_diff(cand[0], cand_ref[0]),
         }
         if (any(v != 0.0 for v in err.values()) or mask_bad
+                or _bit_mismatches(cand[0], cand_ref[0])
                 or not torch.equal(cand[1], cand_ref[1])):
             raise AssertionError(
                 f"select {name}: kernels differ from their plain versions "
@@ -448,6 +529,7 @@ def phase_select() -> dict:
         rows.append(row)
         log("select: " + json.dumps(row) + " (kernels bit-equal to plain)")
 
+    adversarial = block_adversarial(gen)
     times = {"full width": _select_times(wide, ops._tile(wide.reshape(1, -1))[0],
                                          list(FULL_K), FULL_K[0]),
              "kernel_bench": _select_times(cases[0][1],
@@ -465,9 +547,32 @@ def phase_select() -> dict:
             sel[f"hierarchical k={k}"]["host_ms"]),
     }
     return {"launches": launches, "max_abs_err": errs, "rows": rows,
-            "times": times, "profile": profile,
+            "adversarial": adversarial, "times": times, "profile": profile,
             "recall_full_width": float(torch.isin(
                 hier[1].long(), topk_stable(wide, FULL_K[0])[1]).sum()) / FULL_K[0]}
+
+
+def block_adversarial(gen: torch.Generator) -> dict:
+    """``block_topk_candidates`` against its plain version, bit for bit, on
+    every adversarial tile at every budget."""
+    from repro_torch.kernels import block_topk as bt
+    from repro_torch.kernels import ops
+
+    checked = 0
+    for case in ADVERSARIAL:
+        st = ops._tile(_adversarial(case, gen).to(DEVICE))[0]
+        for m in ADVERSARIAL_M:
+            got = bt.block_topk_candidates(st, m)
+            want = bt.block_topk_candidates_ref(st, m)
+            torch.cuda.synchronize()
+            bad = sum(_bit_mismatches(g, w) for g, w in zip(got, want, strict=True))
+            if bad:
+                raise AssertionError(f"select: block_topk_candidates on {case} "
+                                     f"tiles, m = {m}: {bad} outputs differ in bits")
+            checked += 1
+    log(f"select: block_topk_candidates on adversarial tiles ({', '.join(ADVERSARIAL)})"
+        f" at m = {list(ADVERSARIAL_M)}: bit-equal to the plain version")
+    return {"cases": list(ADVERSARIAL), "m": list(ADVERSARIAL_M), "checked": checked}
 
 
 def phase_trainer() -> dict:
@@ -937,16 +1042,78 @@ def sim_round_times(timing: dict, reps: int = 5) -> dict:
     return {"round_ms": round_ms, "samples": times, "profile": profile}
 
 
+def ab_times() -> dict:
+    """Kernel 1's device time per training step (every leaf of the main
+    path, W = 8, the trainer's budgets) and ``block_topk_candidates``' at
+    full width (m = 16), with whatever ``repro_torch`` is on ``sys.path``:
+    only calls that every tree of the port has."""
+    from repro_torch.comm import fastpath as fp
+    from repro_torch.core.selectors import sparsity_to_k
+    from repro_torch.kernels import block_topk as bt
+    from repro_torch.kernels import fused_encode as fe
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import regtopk_score as rs
+
+    gen = torch.Generator().manual_seed(0)
+    leaves = _model_leaves()
+    per_leaf = {}
+    for path, L in leaves.items():
+        k = sparsity_to_k(L, 0.01)
+        kw = dict(omega=1.0 / W, mu=1.0, q=1e9, y=1.0,
+                  m=fp.candidate_budget(L, k))
+        tiles = [ops._tile(x)[0] for x in _leaf_inputs(L, k, gen)]
+        per_leaf[path] = median_ms(
+            lambda t=tiles, kw=kw: fe.fused_candidates(*t, **kw))
+    xs = _leaf_inputs(sum(leaves.values()), FULL_K[1], gen, workers=1)
+    st = ops._tile(rs.score_chain(*xs, omega=1.0 / W, mu=1.0, q=1e9, y=1.0))[0]
+    block_ms = median_ms(lambda: bt.block_topk_candidates(st, SELECT_M))
+    return {"fused_candidates_per_step_ms": sum(per_leaf.values()),
+            "block_topk_candidates_full_width_ms": block_ms,
+            "fused_candidates_per_leaf_ms": per_leaf}
+
+
+def phase_ab(parent: Path) -> dict:
+    """Kernels 1 and 5 of a checkout of the parent commit against this
+    tree's, on this card, in turns (parent, change, change, parent): each
+    turn a fresh process that builds that tree's kernels (into its own
+    ``build/``) and runs ``ab_times`` on its modules."""
+    trees = {"parent": parent.resolve(), "change": ROOT}
+    samples = {name: [] for name in trees}
+    for name in ("parent", "change", "change", "parent"):
+        out = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--ab-tree",
+             str(trees[name])],
+            capture_output=True, text=True, timeout=600,
+        )
+        if out.returncode != 0:
+            raise AssertionError(f"A/B turn {name} failed:\n{out.stdout}\n{out.stderr}")
+        samples[name].append(json.loads(out.stdout.strip().splitlines()[-1]))
+        log(f"A/B {name}: {json.dumps(samples[name][-1])}")
+    return {"order": ["parent", "change", "change", "parent"], "samples": samples}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--details", type=Path, default=None,
                     help="write every phase's results to this JSON file")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of the parent commit: time kernels 1 "
+                         "and 5 of both trees in turns (into --details)")
+    ap.add_argument("--ab-tree", type=Path, default=None,
+                    help="build the kernels of this checkout, print "
+                         "ab_times() of its modules as JSON and stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    tree = args.ab_tree.resolve() if args.ab_tree else ROOT
+    sys.path.insert(0, str(tree / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    if args.ab_tree is not None:
+        phase_build()
+        print(json.dumps(ab_times()), flush=True)
+        return 0
 
     device_name, smi = phase_device()
     builds = phase_build()
@@ -955,6 +1122,7 @@ def main(argv=None) -> int:
     select = phase_select()
     trainer = phase_trainer()
     sim = phase_sim()
+    ab = phase_ab(args.parent) if args.parent is not None else None
     per_step = kernels["per_step"]
     per_round = score["per_round"]
     line = {"kernels": [{
@@ -1006,7 +1174,7 @@ def main(argv=None) -> int:
         args.details.write_text(json.dumps(
             {"device": device_name, "nvidia_smi": smi, "build_seconds": builds,
              "kernels": kernels, "score": score, "select": select,
-             "trainer": trainer, "sim": sim, "kernels_line": line},
+             "trainer": trainer, "sim": sim, "ab": ab, "kernels_line": line},
             indent=1,
         ))
     print(json.dumps(line), flush=True)

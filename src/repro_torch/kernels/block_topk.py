@@ -2,7 +2,8 @@
 (counterpart of ``repro.kernels.block_topk``).
 
 Each 8192-element tile of the score emits its top-``m`` (value, flat index)
-pairs by m rounds of a masked max (``csrc/block_topk.cu``, no sort); the
+pairs, as m rounds of a masked max would (``csrc/block_topk.cu``, a radix
+select of the m-th score and a sort of the m winners); the
 exact top-k over the ``(rows / 8) * m`` candidates is then a problem about
 a thousand times smaller. It is exact whenever no tile holds more than m
 of the top-k (always for k <= m).
@@ -25,20 +26,40 @@ from repro_torch.kernels.regtopk_score import TILE, check_tiles
 INT32_MAX = torch.iinfo(torch.int32).max
 
 
+def masked_max_edges(vals, pos, s):
+    """Fix a stable descending top-m ``(vals, pos)`` of the tiles ``s``
+    ``[W, nblk, TILE]`` to what m rounds of a masked max emit: ``(vals,
+    flat idx int32)``.
+
+    The masked max of a set holding +0.0 is +0.0, so a zero comes out as
+    +0.0 while a +0.0 at or after its index is still in the tile, else as
+    -0.0 (the sort ranks the two zeros by index, as the max's ``==``
+    does); and once the scores above -inf are used up every element
+    matches the max, so a -inf comes out at the tile's first index."""
+    nblk, tile = s.shape[1], s.shape[2]
+    local = torch.arange(tile, device=s.device)
+    pos_zero = (s == 0) & ~torch.signbit(s)
+    last_pz = torch.where(pos_zero, local, -1).amax(dim=2, keepdim=True)
+    zero = torch.where(pos <= last_pz, torch.tensor(0.0, device=s.device),
+                       torch.tensor(-0.0, device=s.device))
+    vals = torch.where(vals == 0, zero, vals)
+    base = torch.arange(nblk, device=s.device)[None, :, None] * tile
+    idx = torch.where(vals == -torch.inf, base, base + pos).to(torch.int32)
+    return vals, idx
+
+
 def block_topk_candidates_ref(tiles: torch.Tensor, m: int = 8):
     """Plain version on ``[W, rows, 1024]`` f32 tiles: ``(vals [W, nblk,
     m] f32, flat idx [W, nblk, m] int32)``.
 
     The masked-max rounds emit a tile's scores in descending order, equal
-    scores lowest index first: a stable descending sort. Two edges follow
-    the TPU body: once a tile's scores above -inf are used up, every round
-    finds the whole tile at -inf and emits (-inf, the tile's first index);
-    a tile that holds a NaN emits (NaN, INT32_MAX) in every round."""
+    scores lowest index first: a stable descending sort, with the edges of
+    :func:`masked_max_edges`. A tile that holds a NaN emits (NaN,
+    INT32_MAX) in every round."""
     W, nblk = check_tiles(tiles)
     s = tiles.reshape(W, nblk, TILE)
     vals, pos = topk_stable(s, m)
-    base = torch.arange(nblk, device=tiles.device)[None, :, None] * TILE
-    idx = torch.where(vals == -torch.inf, base, base + pos).to(torch.int32)
+    vals, idx = masked_max_edges(vals, pos, s)
     nan_tile = torch.isnan(s).any(dim=2, keepdim=True)
     return (
         vals.masked_fill(nan_tile, float("nan")),

@@ -9,18 +9,21 @@
 // Layout: inputs are [W, rows, 1024] f32 (each worker's vector zero-padded
 // to whole tiles, as repro_torch.kernels.ops._tile lays it out); outputs are
 // [W, rows / 8, m]. One CTA per (tile, worker): grid (nblk, W), so one launch
-// covers all W workers of a leaf. 256 threads; thread t owns the tile
-// elements t, t + 256, ..., t + 31 * 256, so the loads are coalesced.
+// covers all W workers of a leaf. 512 threads; thread t reads the tile
+// elements j * 2048 + 4 t .. + 3 (j < 4) of each input as one float4 (four
+// scalar loads where an input is not 16-byte aligned), so the loads are
+// coalesced and 16 bytes wide.
 //
 // What bounds it: the HBM bound is the four f32 input streams (16 bytes per
-// element, about 40 us for the 8 x 1 Mi-element MLP leaf at 3.35 TB/s), but
-// the m <= 128 selection rounds, each a block-wide arg-max with two
-// barriers, dominate. The design keeps that cost off the whole tile: the
-// scores sit in shared memory (32 KiB), each thread keeps the arg-max of its
-// own 32 elements in registers, and the rounds of tile_topm.cuh reduce the
-// 256 per-thread maxima and rescan only the winner's owner. Making the
-// rounds cheaper (a radix select of the m-th score, then one pass) is later
-// work.
+// element, 41 us for the 8 x 1 Mi-element MLP leaf at 3.35 TB/s). The
+// selection (tile_topm.cuh) costs each tile a radix select over its 512
+// threads' maxima, one pass over the tile and a rank among a few dozen
+// survivors, whatever m, where m serial arg-max rounds cost about 1 us
+// each; so the score chain and the loads now set the time. On an H100 at
+// 700 W the MLP leaf takes about 0.07 ms, a one-wave attention leaf
+// (m = 128) about 0.019 ms and a one-tile leaf about 0.012 ms, set by one
+// CTA's latency. The scores never leave the SM: they sit in shared memory
+// as keys (32 KiB), beside the histogram and the survivors.
 
 #include <cuda_runtime.h>
 
@@ -32,9 +35,9 @@
 
 namespace {
 
-using tile_topm::kPerThread;
 using tile_topm::kThreads;
 using tile_topm::kTile;
+using tile_topm::kVecs;
 
 __global__ void __launch_bounds__(kThreads)
     fused_candidates_kernel(const float* __restrict__ a,
@@ -45,7 +48,8 @@ __global__ void __launch_bounds__(kThreads)
                             float* __restrict__ cand_val,
                             int32_t* __restrict__ cand_idx, int nblk, int m,
                             float omega, float mu, float q, float y) {
-  __shared__ float score[kTile];
+  __shared__ tile_topm::Smem sh;
+  extern __shared__ unsigned long long list[];
 
   const int tile = blockIdx.x;
   const int worker = blockIdx.y;
@@ -53,30 +57,41 @@ __global__ void __launch_bounds__(kThreads)
   const int tile0 = tile * kTile;  // flat index of the tile's first element
   const size_t base = (size_t)worker * nblk * kTile + tile0;
   const size_t out0 = ((size_t)worker * nblk + tile) * m;
+  const float* pa = a + base;
+  const float* pp = a_prev + base;
+  const float* ps = s_prev + base;
+  const float* pg = g_prev + base;
+  const bool vec = tile_topm::aligned16(pa) && tile_topm::aligned16(pp) &&
+                   tile_topm::aligned16(ps) && tile_topm::aligned16(pg);
 
-  // scoring: every element once, into shared memory; ascending flat order
-  // with a strict '>' keeps the lowest index among a thread's equal scores
-  float best_s = -INFINITY;
-  int best_i = INT_MAX;
+  // scoring: every element once, into shared memory as keys
+  tile_topm::begin(sh, m);
+  tile_topm::Seen seen;
   bool nan = false;
-#pragma unroll 4
-  for (int j = 0; j < kPerThread; ++j) {
-    const int local = j * kThreads + tid;
-    const size_t o = base + local;
-    const float s =
-        score_chain(a[o], a_prev[o], s_prev[o], g_prev[o], omega, mu, q, y);
-    score[local] = s;
-    nan |= isnan(s);
-    if (s > best_s) {
-      best_s = s;
-      best_i = tile0 + local;
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    const float4 va = tile_topm::load4(pa, j, tid, vec);
+    const float4 vp = tile_topm::load4(pp, j, tid, vec);
+    const float4 vs = tile_topm::load4(ps, j, tid, vec);
+    const float4 vg = tile_topm::load4(pg, j, tid, vec);
+    const float xa[4] = {va.x, va.y, va.z, va.w};
+    const float xp[4] = {vp.x, vp.y, vp.z, vp.w};
+    const float xs[4] = {vs.x, vs.y, vs.z, vs.w};
+    const float xg[4] = {vg.x, vg.y, vg.z, vg.w};
+    float sc[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      sc[c] = score_chain(xa[c], xp[c], xs[c], xg[c], omega, mu, q, y);
+      nan |= isnan(sc[c]);
     }
+    tile_topm::put4(sh, j, make_float4(sc[0], sc[1], sc[2], sc[3]), seen);
   }
+  tile_topm::end_load(sh, seen);
 
   // A NaN score: the TPU kernel's masked max is then NaN in every round,
   // its lowest-index match finds nothing, and it emits (NaN, 0, INT32_MAX)
   // m times, which fails the certificate. Emit the same and skip the
-  // selection, so the rounds compare numbers only.
+  // selection, so it orders numbers only.
   if (__syncthreads_or(nan)) {
     for (int r = tid; r < m; r += kThreads) {
       cand_score[out0 + r] = __int_as_float(0x7fc00000);
@@ -86,14 +101,14 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
 
-  // selection: m rounds of a block-wide arg-max. The scores are >= 0, so
-  // every winner is a real element while m <= 8192 (the wrapper's limit).
-  tile_topm::select_rounds(score, best_s, best_i, tile0, m,
-                           [&](int r, float s, int i) {
-                             cand_score[out0 + r] = s;
-                             cand_val[out0 + r] = a[base + (i - tile0)];
-                             cand_idx[out0 + r] = i;
-                           });
+  // The TPU body emits the a-value as a masked sum, which turns -0.0 into
+  // +0.0: hence the + 0.0f. The a-value comes from L2, read a moment ago.
+  tile_topm::select_top_m(sh, list, seen, m, tile0,
+                          [&](int r, float s, int i) {
+                            cand_score[out0 + r] = s;
+                            cand_val[out0 + r] = pa[i - tile0] + 0.0f;
+                            cand_idx[out0 + r] = i;
+                          });
 }
 
 }  // namespace
@@ -107,7 +122,10 @@ extern "C" int fused_candidates_launch(const void* a, const void* a_prev,
                                        int m, float omega, float mu, float q,
                                        float y, void* stream) {
   const dim3 grid(nblk, workers);
-  fused_candidates_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const size_t smem = tile_topm::list_bytes(m);
+  const int err = tile_topm::prepare(fused_candidates_kernel, smem);
+  if (err) return err;
+  fused_candidates_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)a, (const float*)a_prev, (const float*)s_prev,
       (const float*)g_prev, (float*)cand_score, (float*)cand_val,
       (int32_t*)cand_idx, nblk, m, omega, mu, q, y);

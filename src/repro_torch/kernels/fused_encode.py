@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from repro_torch.core.selectors import topk_stable
+from repro_torch.kernels.block_topk import masked_max_edges
 from repro_torch.kernels.regtopk_score import TILE, check_tiles, score_chain
 
 
@@ -30,18 +31,20 @@ def fused_candidates_ref(a, a_prev, s_prev, g_prev, *, omega, mu, q=1e9,
 
     m rounds of a masked max with the lowest-index tie break emit a tile's
     scores in descending order, equal scores in index order: the first m
-    entries of a stable descending sort of the tile. A tile that holds a
-    NaN score emits ``(NaN, 0, INT32_MAX)`` in every round, as the TPU
-    kernel does (its max is NaN and no element equals it), so the
-    certificate fails and the dense path answers."""
+    entries of a stable descending sort of the tile, with the edges of
+    ``block_topk.masked_max_edges``. The a-value is the masked sum
+    ``sum(where(onehot, a, 0))``, which turns -0.0 into +0.0: hence
+    ``+ 0.0``. A tile that holds a NaN score emits ``(NaN, 0, INT32_MAX)``
+    in every round, as the TPU kernel does (its max is NaN and no element
+    equals it), so the certificate fails and the dense path answers."""
     W, nblk = check_tiles(a, a_prev, s_prev, g_prev)
     score = score_chain(
         a, a_prev, s_prev, g_prev, omega=omega, mu=mu, q=q, y=y
     ).reshape(W, nblk, TILE)
     cs, pos = topk_stable(score, m)
-    cv = torch.gather(a.reshape(W, nblk, TILE), 2, pos)
+    cs, ci = masked_max_edges(cs, pos, score)
     base = torch.arange(nblk, device=a.device)[None, :, None] * TILE
-    ci = (base + pos).to(torch.int32)
+    cv = torch.gather(a.reshape(W, nblk, TILE), 2, ci.long() - base) + 0.0
     nan_tile = torch.isnan(score).any(dim=2, keepdim=True)
     return (
         cs.masked_fill(nan_tile, float("nan")),

@@ -19,6 +19,7 @@ from repro_torch.kernels import regtopk_score as rs
 from repro_torch.kernels import threshold_topk as tt
 
 KW = dict(omega=0.125, mu=1.0, q=1e9, m=16)
+SELECT_M = [1, 8, 16, 36, 128, 257, 512, 8192]  # the radix select at every depth
 
 
 def _tiles(device, W=3, n=3 * 8192 + 17, seed=5, nan=None):
@@ -191,7 +192,7 @@ def test_threshold_mask_on_the_card_matches_plain_and_selector(card, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 16, 128])
+@pytest.mark.parametrize("m", SELECT_M)
 @pytest.mark.parametrize("case", [None, "ties", "nan", "exhausted"])
 def test_block_topk_kernel_matches_plain_version(card, case, m):
     tiles = _score_tiles(case=case)
@@ -207,7 +208,7 @@ def test_block_topk_kernel_matches_plain_version(card, case, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [16, 128])
+@pytest.mark.parametrize("m", SELECT_M)
 def test_fused_kernel_with_ties_after_the_shared_header(card, m):
     """Kernel 1 on the shared selection rounds: equal scores (a rounded
     to quarters with nothing sent, so the score is |a|) still come out
@@ -221,3 +222,88 @@ def test_fused_kernel_with_ties_after_the_shared_header(card, m):
     torch.cuda.synchronize()
     for g, w in zip(got, want, strict=True):
         _equal(g, w)
+
+
+
+def _adversarial(case, W=2, n=3 * 8192, seed=21):
+    """``[W, n]`` numpy scores that stress the radix select: "equal" (one
+    value), "four" (four values, so the ties straddle the m-th key across
+    threads), "zeros" (-0.0 and +0.0 mixed, a few positives), "-inf" (runs
+    of -inf with a few finite scores), "subnormal" (subnormals of both
+    signs) and "+inf" (+inf among |N(0, 1)|)."""
+    rng = np.random.default_rng(seed)
+    if case == "equal":
+        s = np.full((W, n), 1.5)
+    elif case == "four":
+        s = rng.choice([0.5, 1.0, 2.0, 3.0], (W, n))
+    elif case == "zeros":
+        s = np.where(rng.random((W, n)) < 0.5, -0.0, 0.0)
+        s[rng.random((W, n)) < 0.002] = 1.0
+    elif case == "-inf":
+        s = np.abs(rng.standard_normal((W, n)))
+        s[:, 8192:16384] = -np.inf
+        s[:, 2000:2500] = -np.inf
+        s[:, [8192 + 9, 8192 + 700, 16383]] = [2.0, 5.0, 2.0]
+    elif case == "subnormal":
+        s = rng.integers(1, 64, (W, n)) * np.float32(1e-45)
+        s = np.where(rng.random((W, n)) < 0.3, -s, s)
+    else:
+        s = np.abs(rng.standard_normal((W, n)))
+        s[rng.random((W, n)) < 0.01] = np.inf
+    return s.astype(np.float32)
+
+
+def _bits_equal(got, want):
+    """f32 (or int32) outputs equal bit for bit, NaN payloads included."""
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", SELECT_M)
+@pytest.mark.parametrize("case", ["equal", "four", "zeros", "-inf", "subnormal", "+inf"])
+def test_block_topk_radix_select_bit_for_bit(card, case, m):
+    tiles = ops._tile(torch.tensor(_adversarial(case), device="cuda"))[0]
+    before = bt.block_topk_candidates.launches
+    got = bt.block_topk_candidates(tiles, m)
+    assert bt.block_topk_candidates.launches == before + 1
+    want = bt.block_topk_candidates_ref(tiles, m)
+    torch.cuda.synchronize()
+    _bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", SELECT_M)
+@pytest.mark.parametrize("case", ["equal", "four", "zeros", "subnormal", "+inf"])
+def test_fused_radix_select_bit_for_bit(card, case, m):
+    """Kernel 1 on the same tiles: with nothing sent and q = 1e9 the score
+    is |a| exactly, and the gradient takes random signs, so -0.0 a-values
+    come out as +0.0 (scores are never -0.0 or -inf)."""
+    a = _adversarial(case)
+    a = np.where(np.random.default_rng(3).random(a.shape) < 0.5, -a, a)
+    zeros = np.zeros_like(a)
+    xs = [ops._tile(torch.tensor(x, device="cuda"))[0] for x in (a, zeros, zeros, zeros)]
+    kw = dict(KW, m=m)
+    before = fe.fused_candidates.launches
+    got = fe.fused_candidates(*xs, y=1.0, **kw)
+    assert fe.fused_candidates.launches == before + 1
+    want = fe.fused_candidates_ref(*xs, y=1.0, **kw)
+    torch.cuda.synchronize()
+    _bits_equal(got, want)
+    if case == "zeros":
+        assert not bool((got[1].view(torch.int32) == -2**31).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 257])
+def test_selection_kernels_on_unaligned_tiles(card, m):
+    """Tiles 4 bytes past a 16-byte boundary take the kernels' scalar
+    loads instead of float4, with the same bits."""
+    tiles = _unaligned(_score_tiles(case="ties"))
+    assert tiles.data_ptr() % 16 == 4
+    _bits_equal(bt.block_topk_candidates(tiles, m),
+                bt.block_topk_candidates_ref(tiles, m))
+    xs = [_unaligned(x) for x in _tiles("cuda")]
+    kw = dict(KW, m=m)
+    _bits_equal(fe.fused_candidates(*xs, y=1.0, **kw),
+                fe.fused_candidates_ref(*xs, y=1.0, **kw))

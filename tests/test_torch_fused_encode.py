@@ -127,3 +127,49 @@ def test_wrapper_rejects_bad_layout():
     with pytest.raises(ValueError, match="rows"):
         tfe.fused_candidates(x, x, x, x, omega=OMEGA, mu=MU, m=8)
 
+
+
+def _bits_equal(j, t):
+    """JAX candidate triples against the port's worker 0, in f32 bits."""
+    for jx, tx in zip(j, t, strict=True):
+        np.testing.assert_array_equal(
+            tx[0].numpy().view(np.uint32), np.asarray(jx).view(np.uint32)
+        )
+
+
+@pytest.mark.parametrize("m", [4, 8])
+@pytest.mark.parametrize("swap", [False, True])
+def test_signed_zero_values_match_jax_bits(swap, m):
+    """Zero scores picked as candidates: the TPU body emits the a-value as
+    a masked sum, so an a of -0.0 comes out as +0.0, and the port's plain
+    version gives the same bits. One tile of zeros, -0.0 at 3 and 7 and
+    +0.0 at 5 (swapped signs too), 2.0 at 100; nothing sent, so the score
+    is |a| exactly in both stacks."""
+    n = 8192
+    inner, outer = (np.float32(0.0), np.float32(-0.0))
+    if swap:
+        inner, outer = outer, inner
+    a = np.full(n, outer, np.float32)
+    a[5] = inner
+    a[100] = 2.0
+    zeros = np.zeros(n, np.float32)
+    (jc, _), (tc, _) = _both([a, zeros, zeros, zeros], 1, m, 1.0)
+    _bits_equal(jc, tc)
+    assert (tc[1][0, 0, 1:].view(torch.int32) == 0).all()
+
+
+def test_signed_zero_gradient_matches_jax_bits():
+    """A gradient with fewer nonzero entries than the budget: -0.0 entries
+    are selected as candidates, and their a-values come out as +0.0 in
+    both stacks, bit for bit."""
+    n, m = 3 * 8192, 16
+    rng = np.random.default_rng(17)
+    a = np.where(rng.random(n) < 0.5, np.float32(-0.0), np.float32(0.0))
+    a = a.astype(np.float32)
+    a[rng.choice(n, 20, replace=False)] = rng.standard_normal(20)
+    zeros = np.zeros(n, np.float32)
+    (jc, jsel), (tc, tsel) = _both([a, zeros, zeros, zeros], 12, m, 1.0)
+    _bits_equal(jc, tc)
+    picked = tc[2][0].long().reshape(-1)
+    assert bool((torch.from_numpy(a)[picked].view(torch.int32) < 0).any())
+    np.testing.assert_array_equal(tsel[1][0].numpy(), np.asarray(jsel[1]))

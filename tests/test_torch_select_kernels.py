@@ -137,6 +137,32 @@ def test_block_topk_candidates_match_jax(m, case):
         assert (idx[0, 1] == bt.INT32_MAX).all() and torch.isnan(vals[0, 1]).all()
 
 
+def _bits(x):
+    return np.asarray(x).view(np.uint32)
+
+
+@pytest.mark.parametrize("m", [4, 8])
+@pytest.mark.parametrize("swap", [False, True])
+def test_block_topk_signed_zeros_match_jax_bits(swap, m):
+    """The masked max emits +0.0 while a +0.0 at or after the picked zero
+    is still in the tile, whatever the sign of the zero it picks: one tile
+    at -1.0 with zeros at 3, 5 and 7 and 2.0 at 100, compared in f32
+    bits (a value comparison cannot tell -0.0 from +0.0)."""
+    s = np.full(TILE, -1.0, np.float32)
+    inner, outer = (np.float32(0.0), np.float32(-0.0))
+    if swap:
+        inner, outer = outer, inner
+    s[[3, 7]] = outer
+    s[5] = inner
+    s[100] = 2.0
+    vals, idx = bt.block_topk_candidates(_tiles(s), m=m)
+    jv, ji = jbt.block_topk_candidates(jnp.asarray(s.reshape(-1, 1024)), m=m,
+                                       interpret=True)
+    np.testing.assert_array_equal(_bits(vals[0]), _bits(jv))
+    np.testing.assert_array_equal(idx[0].numpy(), np.asarray(ji))
+    assert idx[0, 0, :4].tolist() == [100, 3, 5, 7]
+
+
 @pytest.mark.parametrize("m", [1, 8, 16])
 @pytest.mark.parametrize("n,k,case", [
     (2 * TILE, 2, "ties"),
