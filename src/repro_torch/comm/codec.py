@@ -34,7 +34,7 @@ class CooFp32:
 
     def decoded_dense(self, payload: Payload, length: int) -> torch.Tensor:
         """``[W, L]``: each worker's payload scattered into its dense
-        vector, what the receiver reconstructs. Padding slots ``(±0.0,
+        vector, what the receiver reconstructs. Padding slots ``(+0.0,
         index 0)`` add nothing (see ``repro_torch.comm.collectives``)."""
         vals, idx = self.decode(payload, length)
         dense = torch.zeros(

@@ -13,12 +13,11 @@ scatter-add bit for bit. It runs as one ``index_add_`` per worker into a
 running ``[L]`` sum, in worker order, so the sum over workers is taken in
 the JAX package's sequential order, and CUDA's atomics can only reorder
 additions inside one worker's payload. There every index is distinct
-except the padding slots of ``selectors.mask_to_payload``, ``(±0.0,
+except the padding slots of ``selectors.mask_to_payload``, ``(+0.0,
 index 0)``, which may share index 0 with each other and with one real
-entry. Adding ±0.0 leaves any value unchanged, except that -0.0 becomes
-+0.0, and the running sum starts at +0.0 and so never holds -0.0: the
-result at index 0 is the real entry's contribution whatever order the
-atomics take.
+entry. Adding +0.0 leaves any value but -0.0 unchanged, and the running
+sum starts at +0.0, so it never holds -0.0: the result at index 0 is the
+real entry's contribution whatever order the atomics take.
 
 Only the full-participation, worker-weighted form is ported: a
 ``participation`` mask (ROADMAP queue 1 item 6), coordinate weighting

@@ -121,8 +121,11 @@ def compact_select(
     if cfg.selector == "exact":
         _, idx = topk_stable(score, k)
         # zero scores are never selected: such slots keep their distinct
-        # top-k index and carry value 0, a no-op on the wire.
-        vals = torch.gather(a, 1, idx) * (torch.gather(score, 1, idx) > 0)
+        # top-k index and carry value +0.0 (selected, not multiplied by
+        # the mask, which would keep the sign of a negative a), a no-op
+        # on the wire.
+        live = torch.gather(score, 1, idx) > 0
+        vals = torch.where(live, torch.gather(a, 1, idx), 0.0)
         return a, vals, idx
     if cfg.selector == "threshold":
         mask = sel_lib.threshold_topk_mask(score, k)

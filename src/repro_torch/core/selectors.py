@@ -106,8 +106,10 @@ def mask_to_payload(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """An exactly-``k`` payload of a mask along the last axis: masked
     entries ranked by ``|value|``; a mask of fewer than ``k`` entries pads
-    with ``(±0.0, index 0)`` slots, which a scatter-add leaves without
-    effect (see ``repro_torch.comm.collectives``).
+    with ``(+0.0, index 0)`` slots, which a scatter-add leaves without
+    effect (see ``repro_torch.comm.collectives``). The padding value is
+    selected, not multiplied by the mask: ``-9.0 * False`` is -0.0 in
+    torch, where the JAX package's product is +0.0.
 
     >>> v, i = mask_to_payload(torch.tensor([0.0, 1.0, 0.0, 0.0]),
     ...                        torch.tensor([9.0, -8.0, 7.0, 6.0]), 2)
@@ -118,7 +120,7 @@ def mask_to_payload(
     ranked = torch.where(live, torch.abs(values), -torch.inf)
     _, idx = topk_stable(ranked, int(k))
     sel = torch.gather(live, -1, idx)
-    vals = torch.gather(values, -1, idx) * sel
+    vals = torch.where(sel, torch.gather(values, -1, idx), 0.0)
     return vals, torch.where(sel, idx, 0)
 
 

@@ -103,6 +103,32 @@ def test_fastpath_auto_is_not_ported():
         )
 
 
+def test_zero_score_slots_bits_match_jax():
+    """ROADMAP queue 3's repro of the exact selector's zero-score slots:
+    RegTop-k with y = 2 at t = 1, sent at [1, 3, 5, 6] with sent_vals,
+    sent_g and sent_w all 1, omega 1, and a gradient whose tiny negative
+    entries square to a zero score. Both stacks send [3, 2, +0.0, +0.0]
+    at [1, 3, 0, 2], f32 bits compared; a product with the mask would
+    give -0.0 in the last two slots."""
+    cfg = SparsifierConfig(kind="regtopk", sparsity=0.5, mu=1.0, y=2.0, omega=1.0)
+    n, k = 8, 4
+    ones = torch.ones(1, k)
+    st = tc.CompactState(
+        eps=torch.zeros(1, n), sent_vals=ones, sent_g=ones.clone(),
+        sent_idx=torch.tensor([[1, 3, 5, 6]]), sent_w=ones.clone(),
+        t=torch.ones(1, dtype=torch.int32),
+    )
+    g = np.array([[-1e-25, 3.0, -1e-26, 2.0, 0, 0, 0, 0]], np.float32)
+    _, vals, idx = tc.compact_select(cfg, st, torch.from_numpy(g), k)
+    _, jv, ji = jc.compact_select(_jax_cfg(cfg), _jax_state(st, 0), jnp.asarray(g[0]), k)
+    assert idx[0].tolist() == [1, 3, 0, 2] == np.asarray(ji).tolist()
+    np.testing.assert_array_equal(
+        vals[0].numpy().view(np.uint32), np.asarray(jv).view(np.uint32)
+    )
+    assert vals[0].tolist() == [3.0, 2.0, 0.0, 0.0]
+    assert (vals[0, 2:].view(torch.int32) == 0).all()
+
+
 def _jax_cfg(cfg):
     return JaxSparsifierConfig(**dataclasses.asdict(cfg))
 

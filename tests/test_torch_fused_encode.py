@@ -7,6 +7,7 @@ its ``select_from_candidates`` on the same numpy inputs. Indices and the
 certificate must match exactly; scores and values agree to rtol 1e-6,
 because XLA:CPU's and PyTorch's tanh and pow differ in the last ulp.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -173,3 +174,44 @@ def test_signed_zero_gradient_matches_jax_bits():
     picked = tc[2][0].long().reshape(-1)
     assert bool((torch.from_numpy(a)[picked].view(torch.int32) < 0).any())
     np.testing.assert_array_equal(tsel[1][0].numpy(), np.asarray(jsel[1]))
+
+
+def test_zero_score_candidates_never_certify():
+    """``select_from_candidates`` multiplies the candidate values by
+    ``top_s > 0``, which keeps the sign of a negative value whose score is
+    zero (-0.0 in the port, +0.0 in the JAX package). It cannot reach the
+    wire: a zero among the top-k scores makes tau zero, and tau = 0 never
+    certifies, so the dense path answers, and that payload equals the JAX
+    package's in f32 bits. Here y = 2 and the tiny negative entries of the
+    gradient square to zero scores."""
+    from repro.core import compact as jc
+    from repro.core.sparsify import SparsifierConfig as JaxConfig
+    from repro_torch.comm.fastpath import fused_compact_select
+    from repro_torch.core import compact as tc
+    from repro_torch.core.sparsify import SparsifierConfig
+
+    n, m, k = 8192, 8, 6
+    a = np.zeros(n, np.float32)
+    a[[3, 50, 700]] = [2.0, -3.0, 4.0]
+    a[[0, 1, 2]] = -1e-25  # the lowest indices: the zero scores picked first
+    zeros = np.zeros(n, np.float32)
+    (_, (jv, _, jok)), (_, (tv, _, tok)) = _both([a, zeros, zeros, zeros], k, m, 2.0)
+    assert not bool(jok) and not bool(tok[0])
+    assert (tv[0].view(torch.int32) == np.int32(-2**31)).any()
+
+    cfg = SparsifierConfig(kind="regtopk", sparsity=k / n, mu=MU, y=2.0, omega=OMEGA)
+    st = tc.compact_init(1, n, k, device="cpu")._replace(
+        t=torch.ones(1, dtype=torch.int32), sent_w=torch.ones(1, k))
+    _, vals, idx = fused_compact_select(cfg, st, torch.from_numpy(a)[None], k)
+    jst = jc.CompactState(
+        eps=jnp.zeros(n), sent_vals=jnp.zeros(k), sent_g=jnp.zeros(k),
+        sent_idx=jnp.zeros(k, jnp.int32), sent_w=jnp.ones(k),
+        t=jnp.ones((), jnp.int32))
+    import dataclasses
+    _, jvals, jidx = jc.compact_select(
+        JaxConfig(**dataclasses.asdict(cfg)), jst, jnp.asarray(a), k)
+    np.testing.assert_array_equal(idx[0].numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(
+        vals[0].numpy().view(np.uint32), np.asarray(jvals).view(np.uint32))
+    assert idx[0, 3:].tolist() == [0, 1, 2]
+    assert (vals[0].view(torch.int32)[3:] == 0).all()

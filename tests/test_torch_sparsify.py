@@ -231,6 +231,34 @@ def test_padded_payload_aggregates_bit_equal_to_jax():
         np.testing.assert_array_equal(agg.numpy().view(np.uint32), want.view(np.uint32))
 
 
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("seed", [None, 0, 1, 2])
+def test_mask_to_payload_padding_bits_match_jax(seed):
+    """The padding slots of a short mask carry +0.0 in both stacks, bit for
+    bit, whatever the sign of the value at the padded index. ``seed=None``
+    is ROADMAP queue 3's repro: mask ``[0, 1, 0, 0]``, values ``[-9, -8, 7,
+    6]``, k = 2, where a product with the mask would give -0.0."""
+    if seed is None:
+        mask = np.array([[0.0, 1.0, 0.0, 0.0]], np.float32)
+        values = np.array([[-9.0, -8.0, 7.0, 6.0]], np.float32)
+        k = 2
+    else:
+        rng = np.random.default_rng(seed)
+        values = -np.abs(rng.standard_normal((N, 40))).astype(np.float32)
+        values[:, ::3] = -0.0
+        mask = (rng.random((N, 40)) < 0.1).astype(np.float32)
+        k = 9
+    jv, ji = _rows(lambda m, v: jsel.mask_to_payload(m, v, k), mask, values)
+    tv, ti = tsel.mask_to_payload(torch.from_numpy(mask), torch.from_numpy(values), k)
+    np.testing.assert_array_equal(ti.numpy(), ji)
+    np.testing.assert_array_equal(_bits(tv.numpy()), _bits(jv))
+    pad = mask.sum(axis=1, keepdims=True) <= np.arange(k)
+    assert pad.any() and (_bits(tv.numpy())[pad] == 0).all()
+
+
 @pytest.mark.parametrize("scalar_weight", [False, True])
 def test_dense_allreduce_reference_matches_jax(scalar_weight):
     """The dense reduction of decoded payloads, against the JAX
