@@ -19,17 +19,29 @@ entry. Adding +0.0 leaves any value but -0.0 unchanged, and the running
 sum starts at +0.0, so it never holds -0.0: the result at index 0 is the
 real entry's contribution whatever order the atomics take.
 
-Only the full-participation, worker-weighted form is ported: a
-``participation`` mask (ROADMAP queue 1 item 6), coordinate weighting
-(item 4), ``hierarchical`` and the forms across cards (item 4) come later.
+Aggregation weighting is a second axis (``WEIGHTINGS``): ``"worker"`` is
+the Eq. (8) reduction above, ``"coordinate"`` divides each coordinate's
+weighted sum by the mass of the workers that sent it, ``den[j] = Σ_{n :
+ghat_n[j] != 0} omega_n`` (``reference_coord``, which returns ``(agg,
+den)``; callers thread ``den`` back into RegTop-k's posterior). Presence
+is read from the decoded values, so a padding slot or a ``coo_q8`` value
+that quantizes to zero carries no sender mass.
+
+``hierarchical`` (payloads gathered over the slow outer mesh axes, dense
+partials summed over the fast inner one) has the numbers of
+``sparse_allgather`` in one process: the grouping only matters on a
+mesh.
+
+Only the full-participation form is ported: a ``participation`` mask
+(ROADMAP queue 1 item 6) and the forms across cards (item 4b) come later.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.comm.codec import CooFp32, Payload
+from repro_torch.comm.codec import Codec, Payload
 
 Weights = Union[float, torch.Tensor]
 
@@ -80,13 +92,72 @@ def scatter_add_payloads(
     return agg
 
 
-class SparseAllgather:
-    name = "sparse_allgather"
+WEIGHTINGS = ("worker", "coordinate")
+
+
+def check_weighting(name: str) -> str:
+    """Validate a ``weighting=`` value.
+
+    >>> check_weighting("coordinate")
+    'coordinate'
+    >>> check_weighting("per-worker")
+    Traceback (most recent call last):
+        ...
+    ValueError: unknown weighting 'per-worker'; available: \
+['worker', 'coordinate']
+    """
+    if name not in WEIGHTINGS:
+        raise ValueError(
+            f"unknown weighting {name!r}; available: {list(WEIGHTINGS)}"
+        )
+    return name
+
+
+def _coord_num_den(codec, payloads, weights, length):
+    """Decode an ``[N, ...]`` payload stack into the coordinate-weighting
+    sums ``num[j] = Σ_n w_n·ghat_n[j]`` and ``den[j] = Σ_n w_n·1[ghat_n[j]
+    != 0]``, both ``[L]``, each one worker at a time in worker order (the
+    JAX package's flat scatter-add order, see the module docstring)."""
+    vals, idx = codec.decode(payloads, length)
+    w = _worker_weights(weights, vals.shape[0], vals)
+    presence = (vals != 0).to(vals.dtype)
+    return (
+        scatter_add_payloads(vals, idx, w, length),
+        scatter_add_payloads(presence, idx, w, length),
+    )
+
+
+def _coord_divide(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """``num / den`` with a floor of the dtype's smallest normal: where no
+    worker sent the coordinate, ``den == 0`` and ``num == 0``, so the
+    quotient is 0 and not NaN."""
+    return num / torch.clamp(den, min=torch.finfo(den.dtype).tiny)
+
+
+class Collective:
+    """A reduction of the workers' payloads, in the one-card reference
+    forms: ``reference`` (worker weighting) returns the ``[L]``
+    aggregate, ``reference_coord`` (coordinate weighting) ``(agg, den)``."""
+
+    name: str = "base"
 
     def reference(
-        self, codec: CooFp32, payloads: Payload, weights: Weights, length: int,
+        self, codec: Codec, payloads: Payload, weights: Weights, length: int,
         participation: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        raise NotImplementedError
+
+    def reference_coord(
+        self, codec: Codec, payloads: Payload, weights: Weights, length: int,
+        participation: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError
+
+
+class SparseAllgather(Collective):
+    name = "sparse_allgather"
+
+    def reference(self, codec, payloads, weights, length, participation=None):
         """Decode the ``[N, k]`` payload stack and scatter-add every
         worker's values, times its weight (a scalar or ``[N]``), into one
         ``[L]`` aggregate."""
@@ -94,38 +165,64 @@ class SparseAllgather:
         vals, idx = codec.decode(payloads, length)
         return scatter_add_payloads(vals, idx, weights, length)
 
-    def bytes_per_worker(self, payload_bytes: int, workers: int) -> int:
-        """Bytes each worker receives in a ring all-gather of one payload
-        per worker (``repro.comm.cost``'s sparse_allgather pattern)."""
-        return (workers - 1) * payload_bytes
+    def reference_coord(self, codec, payloads, weights, length,
+                        participation=None):
+        _no_participation(participation)
+        num, den = _coord_num_den(codec, payloads, weights, length)
+        return _coord_divide(num, den), den
 
 
-class DenseAllreduce:
+class Hierarchical(SparseAllgather):
+    """Payloads all-gathered over the outer (slow) mesh axes and decoded,
+    dense partials summed over the innermost (fast) one. In one process
+    the grouping is notional: the numbers are ``sparse_allgather``'s."""
+
+    name = "hierarchical"
+
+
+class DenseAllreduce(Collective):
     """Uncompressed baseline: the dense vector on the wire. The reference
-    form decodes the payloads (exact for ``coo_fp32``) and takes the
-    weighted sum of the dense vectors."""
+    form decodes the payloads (exact for the lossless codecs) and takes
+    the weighted sum of the dense vectors."""
 
     name = "dense_allreduce"
 
-    def reference(
-        self, codec: CooFp32, payloads: Payload, weights: Weights, length: int,
-        participation: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
+    def reference(self, codec, payloads, weights, length, participation=None):
         _no_participation(participation)
         dense = codec.decoded_dense(payloads, length)
         return dense_mean(dense, _worker_weights(weights, dense.shape[0], dense))
 
+    def reference_coord(self, codec, payloads, weights, length,
+                        participation=None):
+        # dense on the wire, but the sparsified gradient is zero off the
+        # selected coordinates: presence still names the senders
+        _no_participation(participation)
+        dense = codec.decoded_dense(payloads, length)
+        w = _worker_weights(weights, dense.shape[0], dense)
+        presence = (dense != 0).to(dense.dtype)
+        num, den = dense_mean(dense, w), dense_mean(presence, w)
+        return _coord_divide(num, den), den
+
 
 COLLECTIVES = {
-    c.name: c for c in (DenseAllreduce(), SparseAllgather())
+    c.name: c for c in (DenseAllreduce(), SparseAllgather(), Hierarchical())
 }
 
 
-def get_collective(name: str):
+def get_collective(name: str) -> Collective:
+    """Look up a collective by name.
+
+    >>> get_collective("hierarchical").name
+    'hierarchical'
+    >>> get_collective("bogus")
+    Traceback (most recent call last):
+        ...
+    ValueError: unknown collective 'bogus'; available: ['dense_allreduce', \
+'hierarchical', 'sparse_allgather']
+    """
     try:
         return COLLECTIVES[name]
     except KeyError:
         raise ValueError(
-            f"collective {name!r} is not ported; the port has "
-            f"{sorted(COLLECTIVES)}"
+            f"unknown collective {name!r}; available: {sorted(COLLECTIVES)}"
         ) from None

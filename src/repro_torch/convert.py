@@ -13,6 +13,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.compact import CompactState
 from repro_torch.core.simulator import SimState
 from repro_torch.core.sparsify import DenseState
 from repro_torch.data.pipeline import LinRegDataset
@@ -46,19 +47,39 @@ def dense_state_from_jax(tree_of_numpy: Any, device="cuda"):
     )
 
 
+def compact_state_from_jax(tree_of_numpy: Any, device="cuda"):
+    """The JAX package's ``CompactState`` with numpy leaves and a leading
+    worker axis on every slot (the per-worker states stacked) → the
+    port's, ``sent_w`` (the sender mass under coordinate weighting)
+    included; indices become int64, the round counter int32."""
+    def t(name, dtype=None):
+        x = torch.tensor(np.array(getattr(tree_of_numpy, name)), device=device)
+        return x if dtype is None else x.to(dtype)
+
+    return CompactState(
+        eps=t("eps"), sent_vals=t("sent_vals"), sent_g=t("sent_g"),
+        sent_idx=t("sent_idx", torch.int64), sent_w=t("sent_w"),
+        t=t("t", torch.int32),
+    )
+
+
 def sim_state_from_jax(tree_of_numpy: Any, device="cuda"):
     """The JAX simulator's state with numpy leaves
-    (``jax.tree.map(np.asarray, state)``) → the port's ``SimState``. Only
-    the full-participation, worker-weighted, static-k state converts: its
-    optional fields must be None."""
-    for name in ("pending", "pending_age", "ctrl", "w_agg_prev"):
+    (``jax.tree.map(np.asarray, state)``) → the port's ``SimState``, with
+    ``w_agg_prev`` (coordinate weighting) when it is set. Only the
+    full-participation, static-k state converts: its participation and
+    controller fields must be None."""
+    for name in ("pending", "pending_age", "ctrl"):
         if getattr(tree_of_numpy, name, None) is not None:
             raise ValueError(f"SimState.{name} is not ported; it must be None")
+    w_agg_prev = getattr(tree_of_numpy, "w_agg_prev", None)
     return SimState(
         theta=torch.tensor(np.array(tree_of_numpy.theta), device=device),
         worker_states=dense_state_from_jax(tree_of_numpy.worker_states, device),
         g_agg_prev=torch.tensor(np.array(tree_of_numpy.g_agg_prev), device=device),
         step=int(tree_of_numpy.step),
+        w_agg_prev=(None if w_agg_prev is None
+                    else torch.tensor(np.array(w_agg_prev), device=device)),
     )
 
 
@@ -74,6 +95,8 @@ def sim_state_to_numpy(state) -> dict:
         },
         "g_agg_prev": state.g_agg_prev.detach().cpu().numpy(),
         "step": int(state.step),
+        "w_agg_prev": (None if state.w_agg_prev is None
+                       else state.w_agg_prev.detach().cpu().numpy()),
     }
 
 

@@ -8,8 +8,11 @@ leading worker axis: ``eps [W, L]``, ``sent_* [W, k]``, ``t [W]``. Index
 tensors are int64 (torch's indexing type); the wire codec carries them
 as int32.
 
-The adaptive-k controller's per-round ``k_dyn`` (ROADMAP queue 1 item 6)
-and coordinate weighting's ``den`` (item 4) are not ported yet.
+Under coordinate weighting, ``compact_finalize(den=...)`` records the
+sender mass the server divided by at the sent coordinates
+(``CompactState.sent_w``), and the next round's posterior weighs this
+worker with ``omega / sent_w`` there. The adaptive-k controller's
+per-round ``k_dyn`` (ROADMAP queue 1 item 6) is not ported yet.
 """
 from __future__ import annotations
 
@@ -29,7 +32,10 @@ class CompactState(NamedTuple):
     sent_vals: torch.Tensor  # [W, k] a^{t-1} at the sent coords
     sent_g: torch.Tensor  # [W, k] g^{t-1} (aggregated) at the sent coords
     sent_idx: torch.Tensor  # [W, k] int64 coords sent at t-1
-    sent_w: torch.Tensor  # [W, k] sender mass at the sent coords (1.0 here)
+    # [W, k] the sender mass den[j] the server divided by at the sent
+    # coords (coordinate weighting); exactly 1.0 under worker weighting, so
+    # omega / sent_w == omega bit for bit there
+    sent_w: torch.Tensor
     t: torch.Tensor  # [W] int32 round counter
 
 
@@ -58,6 +64,7 @@ def compact_select(
     *,
     fastpath: Optional[str] = None,
     counts=None,
+    table=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Select coordinates for every worker. ``g`` is ``[W, L]``.
     Returns ``(a [W, L], vals [W, k], idx [W, k])``.
@@ -71,21 +78,31 @@ def compact_select(
     ``fastpath="on"`` routes fusable configs through the fused
     select→encode kernel (``repro_torch.comm.fastpath``); its certificate
     falls back to this dense path per worker, so the payload is the same
-    either way. ``None``/``"off"`` is dense selection. ``counts`` (a
-    ``fastpath.FastpathCounts``) tallies fused rounds and fallbacks."""
+    either way. ``"auto"`` fuses where the card can run the kernel and
+    ``table`` (a ``fastpath.ThroughputTable``, its defaults when None)
+    prices the fused path faster. ``None``/``"off"`` is dense selection.
+    ``counts`` (a ``fastpath.FastpathCounts``) tallies fused rounds and
+    fallbacks."""
     L = g.shape[1]
     if fastpath not in (None, "off"):
         from repro_torch.comm import fastpath as fp
 
-        if fastpath != "on":
+        if fastpath not in fp.FASTPATH_MODES:
             raise ValueError(
-                f"fastpath {fastpath!r} is not ported; the port has "
-                "'on' and 'off'"
+                f"unknown fastpath {fastpath!r}; "
+                f"available: {fp.FASTPATH_MODES}"
             )
         if (
             st.eps.dtype == torch.float32
             and fp.config_fusable(cfg)[0]
             and fp.shape_fusable(L, k)[0]
+            and (
+                fastpath == "on"
+                or (
+                    fp.backend_supports(g.device)
+                    and (table or fp.ThroughputTable()).prefers_fused(L, k)
+                )
+            )
         ):
             return fp.fused_compact_select(cfg, st, g, k, counts=counts)
     a = st.eps + g.to(st.eps.dtype)
@@ -137,22 +154,33 @@ def compact_select(
     )
 
 
+def _sent_w_at(
+    idx: torch.Tensor, den: Optional[torch.Tensor], like: torch.Tensor
+) -> torch.Tensor:
+    """The sender mass at the sent coords: ``den[idx]`` under coordinate
+    weighting, exactly 1.0 under worker weighting (``den=None``)."""
+    if den is None:
+        return torch.ones_like(like)
+    return den[idx].to(like.dtype)
+
+
 def compact_finalize(
     st: CompactState,
     a: torch.Tensor,
     vals: torch.Tensor,
     idx: torch.Tensor,
     agg: torch.Tensor,
+    den: Optional[torch.Tensor] = None,
 ) -> CompactState:
-    """Post-aggregation update under worker weighting: ``eps' = a -
-    scatter_add(vals, idx)``, zero at every sent coordinate (``vals ==
-    a[idx]`` there) and the whole of ``a`` at a padding slot's index, so no
-    unsent mass leaves the error feedback. ``agg [L]`` is the common
-    aggregate, recorded at the sent coordinates for the next round's
-    posterior. It is :func:`compact_finalize_sent` with the payload as
-    sent, which is what a lossless wire delivers."""
+    """Post-aggregation update: ``eps' = a - scatter_add(vals, idx)``,
+    zero at every sent coordinate (``vals == a[idx]`` there) and the whole
+    of ``a`` at a padding slot's index, so no unsent mass leaves the error
+    feedback. ``agg [L]`` is the common aggregate, recorded at the sent
+    coordinates for the next round's posterior; ``den [L]`` is the sender
+    mass under coordinate weighting. It is :func:`compact_finalize_sent`
+    with the payload as sent, which is what a lossless wire delivers."""
     sent_dense = torch.zeros_like(a).scatter_add_(1, idx, vals)
-    return compact_finalize_sent(st, a, vals, idx, sent_dense, agg)
+    return compact_finalize_sent(st, a, vals, idx, sent_dense, agg, den)
 
 
 def compact_finalize_sent(
@@ -162,18 +190,20 @@ def compact_finalize_sent(
     sent_idx: torch.Tensor,
     sent_dense: torch.Tensor,
     agg: torch.Tensor,
+    den: Optional[torch.Tensor] = None,
 ) -> CompactState:
     """Error feedback against what was actually transmitted: ``eps' = a -
-    sent_dense`` with ``sent_dense [W, L]`` the decoded contribution, and
-    the decoded payload recorded for next round's posterior. ``agg [L]``
-    is the common aggregate; under worker weighting the sender mass at
-    every sent coord is exactly 1."""
+    sent_dense`` with ``sent_dense [W, L]`` the decoded contribution (so a
+    lossy codec's residual stays in the error), and the decoded payload
+    recorded for next round's posterior. ``agg [L]`` is the common
+    aggregate; ``den [L]`` the sender mass under coordinate weighting
+    (``None``: worker weighting, a mass of exactly 1)."""
     return CompactState(
         eps=a - sent_dense.to(a.dtype),
         sent_vals=sent_vals.to(st.sent_vals.dtype),
         sent_g=agg[sent_idx].to(st.sent_g.dtype),
         sent_idx=sent_idx,
-        sent_w=torch.ones_like(st.sent_w),
+        sent_w=_sent_w_at(sent_idx, den, st.sent_w),
         t=st.t + 1,
     )
 

@@ -11,23 +11,26 @@ It is the counterpart of the JAX trainer under
 
 One round per leaf (``_spa_leaf``): accumulate and select
 (``compact_select``, fused through the CUDA kernel on fused leaves),
-encode with the codec, aggregate with weight omega = 1/W, and feed the
-decoded contribution back into the error. Under ``dense_allreduce`` the
-payloads are summed as dense vectors instead and ``compact_finalize``
-feeds back what was selected. Adam then runs once on the common
-aggregate.
+encode with the codec (its fused epilogue on fused leaves), aggregate
+with weight omega = 1/W, and feed the decoded contribution back into the
+error, so a lossy codec's residual stays there. Under ``dense_allreduce``
+the payloads are summed as dense vectors instead and ``compact_finalize``
+feeds back what was selected. Under ``weighting="coordinate"`` each
+coordinate is divided by the mass of the workers that sent it, and that
+mass is recorded in the state for RegTop-k's next posterior. Adam then
+runs once on the common aggregate.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.comm import cost
 from repro_torch.comm import fastpath as fp
 from repro_torch.comm.codec import get_codec
-from repro_torch.comm.collectives import get_collective
+from repro_torch.comm.collectives import _coord_divide, check_weighting, get_collective
 from repro_torch.core import compact as C
 from repro_torch.core.selectors import sparsity_to_k
 from repro_torch.core.sparsify import SparsifierConfig
@@ -53,17 +56,58 @@ class DistConfig:
     collective: str = "sparse_allgather"
     # "on" routes every fusable leaf through the fused select→encode
     # kernel (same payload: its certificate falls back to dense selection
-    # per worker); "off" is dense selection.
+    # per worker); "auto" fuses the leaves a ThroughputTable prices faster,
+    # on the card only; "off" is dense selection.
     fastpath: str = "off"
+    # "worker" is the Eq. (8) reduction; "coordinate" divides each
+    # coordinate by the mass of the workers that sent it and records that
+    # mass (CompactState.sent_w) for RegTop-k's next posterior
+    weighting: str = "worker"
+    # one cost.AlphaBeta per dp mesh axis, outermost first (the CLI's
+    # --link-topo); None prices with cost.AlphaBeta()'s defaults
+    link_topo: Optional[cost.LinkTopo] = None
+
+    def resolved_weighting(self) -> str:
+        """The weighting, with the JAX package's gate: kind 'none' sends
+        every coordinate, so coordinate weighting would degenerate."""
+        check_weighting(self.weighting)
+        if self.weighting == "coordinate" and self.sparsifier.kind == "none":
+            raise ValueError(
+                "weighting='coordinate' needs sparse payloads; kind='none' "
+                "sends every coordinate, so the sender mass is uniformly 1 "
+                "and coordinate weighting degenerates to the worker "
+                "reduction — use weighting='worker'"
+            )
+        return self.weighting
 
     def resolved_fastpath(self) -> str:
+        """The fastpath mode with the config gates applied: the fused
+        kernel scores RegTop-k with a scalar omega, so coordinate
+        weighting refuses "on" and resolves "auto" to "off". Whether the
+        device can run the kernel is ``build_plan``'s to decide."""
         if self.fastpath not in fp.FASTPATH_MODES:
             raise ValueError(
-                f"fastpath {self.fastpath!r} is not ported; the port has "
-                f"{fp.FASTPATH_MODES} ('auto' prices with a TPU memory "
-                "rate and waits for a table refitted on the card)"
+                f"unknown fastpath {self.fastpath!r}; "
+                f"available: {fp.FASTPATH_MODES}"
             )
+        if (
+            self.fastpath != "off"
+            and self.weighting == "coordinate"
+            and self.sparsifier.kind == "regtopk"
+        ):
+            if self.fastpath == "on":
+                raise ValueError(
+                    "fastpath='on' cannot fuse regtopk under "
+                    "weighting='coordinate': the fused score kernel bakes "
+                    "a scalar omega, but coordinate weighting conditions "
+                    "on the per-coordinate sender mass (sent_w) — use "
+                    "fastpath='off'/'auto'"
+                )
+            return "off"
         return self.fastpath
+
+    def resolved_link_model(self) -> cost.LinkModel:
+        return self.link_topo if self.link_topo is not None else cost.AlphaBeta()
 
 
 class LeafPlan(NamedTuple):
@@ -73,18 +117,27 @@ class LeafPlan(NamedTuple):
     fused: bool = False
 
 
-def build_plan(params, sparsity: float, dist: Optional[DistConfig] = None):
-    """Per-leaf static plan: length, ``k = sparsity_to_k(length, S)`` and,
-    with ``dist.fastpath == "on"``, whether the fusability matrix admits
-    the leaf to the fused kernel."""
+def build_plan(params, sparsity: float, dist: Optional[DistConfig] = None,
+               table: Optional[fp.ThroughputTable] = None):
+    """Per-leaf static plan: length, ``k = sparsity_to_k(length, S)`` and
+    whether the leaf is fused (``fastpath.leaf_fused`` under
+    ``dist.resolved_fastpath()``). ``"auto"`` prices each leaf with
+    ``table`` (its defaults when None), and fuses only where the leaf's
+    device can run the kernel (``fastpath.backend_supports``)."""
     mode = "off" if dist is None else dist.resolved_fastpath()
+    if dist is not None:
+        dist.resolved_weighting()
 
     def mk(leaf):
         n = leaf.numel()
         k = sparsity_to_k(n, sparsity)
-        fused = mode == "on" and fp.fusable(
-            dist.sparsifier, dist.codec, dist.collective, n, k
-        )[0]
+        leaf_mode = mode
+        if mode == "auto" and not fp.backend_supports(leaf.device):
+            leaf_mode = "off"
+        fused = leaf_mode != "off" and fp.leaf_fused(
+            leaf_mode, dist.codec, dist.collective, n, k, table,
+            scfg=dist.sparsifier,
+        )
         return LeafPlan(tuple(leaf.shape), n, k, fused)
 
     return tree_map(mk, params)
@@ -96,7 +149,7 @@ def init_sparsifier_state(plan, workers: int, device="cuda"):
     )
 
 
-def _spa_leaf(g, st, p: LeafPlan, scfg, codec, collective, counts):
+def _spa_leaf(g, st, p: LeafPlan, scfg, codec, collective, coord, counts):
     """One leaf's round for all W workers: ``g [W, *shape]``. Returns
     (aggregate ``[*shape]``, new state)."""
     W = g.shape[0]
@@ -108,15 +161,24 @@ def _spa_leaf(g, st, p: LeafPlan, scfg, codec, collective, counts):
     a, vals, idx = C.compact_select(
         scfg, st, gl, p.k, fastpath="on" if p.fused else None, counts=counts
     )
+    den = None  # the sender mass, under coordinate weighting
     if collective.name == "dense_allreduce":
         # the dense vector on the wire: each worker's payload scattered
         # (added, so padding slots are no-ops) into its ghat, the weighted
-        # sum taken one worker at a time in worker order
+        # sums taken one worker at a time in worker order
         ghat = torch.zeros_like(a).scatter_add_(1, idx, vals)
         agg = torch.zeros_like(ghat[0])
-        for w in range(W):
-            agg = agg + ghat[w] * scfg.omega
-        new = C.compact_finalize(st, a, vals, idx, agg)
+        if coord:
+            presence = (ghat != 0).to(ghat.dtype)
+            den = torch.zeros_like(agg)
+            for w in range(W):
+                agg = agg + ghat[w] * scfg.omega
+                den = den + presence[w] * scfg.omega
+            agg = _coord_divide(agg, den)
+        else:
+            for w in range(W):
+                agg = agg + ghat[w] * scfg.omega
+        new = C.compact_finalize(st, a, vals, idx, agg, den=den)
         return agg.reshape(p.global_shape).to(g.dtype), new
     payload = (
         codec.encode_fused(vals, idx, p.local_len)
@@ -125,8 +187,14 @@ def _spa_leaf(g, st, p: LeafPlan, scfg, codec, collective, counts):
     )
     dvals, didx = codec.decode(payload, p.local_len)
     sent_dense = torch.zeros_like(a).scatter_add_(1, didx, dvals.to(a.dtype))
-    agg = collective.reference(codec, payload, scfg.omega, p.local_len)
-    new = C.compact_finalize_sent(st, a, dvals, didx, sent_dense, agg)
+    if coord:
+        agg, den = collective.reference_coord(
+            codec, payload, scfg.omega, p.local_len
+        )
+        agg, den = agg.to(a.dtype), den.to(a.dtype)
+    else:
+        agg = collective.reference(codec, payload, scfg.omega, p.local_len)
+    new = C.compact_finalize_sent(st, a, dvals, didx, sent_dense, agg, den=den)
     return agg.reshape(p.global_shape).to(g.dtype), new
 
 
@@ -137,6 +205,7 @@ def make_sparsify_aggregate(plan, dist: DistConfig, n_workers: int,
     scfg = dataclasses.replace(dist.sparsifier, omega=1.0 / n_workers)
     codec = get_codec(dist.codec)
     collective = get_collective(dist.collective)
+    coord = dist.resolved_weighting() == "coordinate"
     for p in tree_leaves(plan):
         if p.fused:
             ok, why = fp.fusable(
@@ -150,7 +219,9 @@ def make_sparsify_aggregate(plan, dist: DistConfig, n_workers: int,
 
     def spa(grads, state):
         outs = tree_map(
-            lambda g, s, p: _spa_leaf(g, s, p, scfg, codec, collective, counts),
+            lambda g, s, p: _spa_leaf(
+                g, s, p, scfg, codec, collective, coord, counts
+            ),
             grads, state, plan,
         )
         return tree_unzip(outs, 2)
@@ -158,38 +229,60 @@ def make_sparsify_aggregate(plan, dist: DistConfig, n_workers: int,
     return spa
 
 
+def _one_payload(codec, length: int, k: int):
+    """One worker's encoded payload of a k-entry selection (a worker axis
+    of 1): its buffers' shapes and dtypes depend on ``(length, k)`` alone,
+    so their bytes are what every round moves (the counterpart of the JAX
+    package's ``jax.eval_shape``)."""
+    return codec.encode(
+        torch.zeros(1, k), torch.zeros(1, k, dtype=torch.int64), length
+    )
+
+
 def _payload_bytes(codec, length: int, k: int) -> int:
-    """Bytes of one worker's encoded payload, summed over the buffers that
-    ``codec.encode`` returns for a k-entry selection. It runs on the meta
-    device, which gives the buffers' shapes and dtypes without data (the
-    counterpart of the JAX package's ``jax.eval_shape``)."""
-    vals = torch.empty(k, dtype=torch.float32, device="meta")
-    idx = torch.empty(k, dtype=torch.int64, device="meta")
-    payload = codec.encode(vals, idx, length)
-    return sum(b.numel() * b.element_size() for b in payload.values())
+    """Bytes of one worker's encoded payload."""
+    return cost.payload_nbytes(_one_payload(codec, length, k))
+
+
+def _leaf_wire_patterns(plan, dist: DistConfig):
+    """``(leaf, effective collective, dense wire)`` per leaf: kind "none"
+    and ``dense_allreduce`` put the dense f32 vector on the wire."""
+    for p in tree_leaves(plan):
+        dense = dist.sparsifier.kind == "none" or (
+            dist.collective == "dense_allreduce"
+        )
+        yield p, "dense_allreduce" if dense else dist.collective, dense
 
 
 def comm_round_bytes(plan, dist: DistConfig, workers: int) -> Tuple[int, int]:
     """(predicted, measured) bytes on the wire per worker per round, summed
-    over leaves: predicted from the codec's bit accounting, measured from
-    the buffers one ``codec.encode`` returns (``_payload_bytes``). Kind
-    "none" and the ``dense_allreduce`` collective move the dense f32
-    vector in a ring all-reduce."""
+    over leaves, from ``repro_torch.comm.cost``: predicted from the
+    codec's bit accounting, measured from the buffers one
+    ``codec.encode`` returns. The W workers form one dp axis."""
     codec = get_codec(dist.codec)
-    collective = get_collective(dist.collective)
     pred = meas = 0
-    for p in tree_leaves(plan):
-        if dist.sparsifier.kind == "none" or collective.name == "dense_allreduce":
-            dense = math.ceil(2 * (workers - 1) * 4 * p.local_len / workers)
-            pred += dense
-            meas += dense
-            continue
-        pb = math.ceil(codec.wire_bits(p.local_len, p.k) / 8)
-        pred += collective.bytes_per_worker(pb, workers)
-        meas += collective.bytes_per_worker(
-            _payload_bytes(codec, p.local_len, p.k), workers
-        )
+    for p, coll, dense in _leaf_wire_patterns(plan, dist):
+        pred += cost.predicted_bytes(codec, coll, p.local_len, p.k, (workers,))
+        payload = {} if dense else _one_payload(codec, p.local_len, p.k)
+        meas += cost.measured_bytes(coll, p.local_len, payload, (workers,))
     return pred, meas
+
+
+def comm_round_cost(plan, dist: DistConfig, workers: int) -> cost.CostEstimate:
+    """Predicted per-worker alpha–beta cost of one round, summed over
+    leaves under ``dist.resolved_link_model()``."""
+    codec = get_codec(dist.codec)
+    model = dist.resolved_link_model()
+    total_bytes = total_msgs = 0
+    total_seconds = 0.0
+    for p, coll, _ in _leaf_wire_patterns(plan, dist):
+        est = cost.predict(codec, coll, p.local_len, p.k, (workers,), model)
+        total_bytes += est.bytes_on_wire
+        total_msgs += est.n_messages
+        total_seconds += est.seconds
+    return cost.CostEstimate(
+        bytes_on_wire=total_bytes, n_messages=total_msgs, seconds=total_seconds
+    )
 
 
 def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,

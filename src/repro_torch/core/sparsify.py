@@ -28,9 +28,14 @@ counter), so every rewrite of them lives here, behind the two hooks
 ``DenseState``; ``tools/reprolint`` rule RPL106 keeps ``SparsifierState``
 writes inside the JAX module.
 
-``step_dyn`` (the adaptive-k controller's traced k) and ``omega_prev``
-(coordinate weighting) are not ported yet (ROADMAP queue 1, items 6
-and 4).
+``omega_prev`` (``[L]``) is the previous round's per-coordinate sender
+mass ``den[j]`` under ``weighting="coordinate"``
+(``repro_torch.comm.collectives``): the server divided coordinate ``j``
+by ``den[j]``, so RegTop-k's posterior subtracts this worker's
+contribution with the weight ``omega / den[j]``. ``None`` is worker
+weighting; the other kinds ignore it, as in the JAX package.
+``step_dyn`` (the adaptive-k controller's traced k) is not ported yet
+(ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -86,14 +91,6 @@ class SparsifierConfig:
     threshold: float = 1e-3
     momentum: float = 0.9
     score_fn: Optional[object] = None
-
-
-def _no_omega_prev(omega_prev) -> None:
-    if omega_prev is not None:
-        raise ValueError(
-            "omega_prev (weighting='coordinate') is not ported; ROADMAP "
-            "queue 1 item 4 ports it with reference_coord"
-        )
 
 
 class Sparsifier:
@@ -160,7 +157,6 @@ class NoneSparsifier(Sparsifier):
     """Identity compressor: distributed SGD without sparsification."""
 
     def step(self, state, g_local, g_agg_prev, omega_prev=None):
-        _no_omega_prev(omega_prev)
         return g_local, torch.ones_like(g_local), state._replace(t=state.t + 1)
 
     def on_dropped(self, old_state, new_state, ghat):
@@ -172,7 +168,6 @@ class TopK(Sparsifier):
     """Alg. 1: a = eps + g; mask = Top_k(|a|); eps' = a - mask * a."""
 
     def step(self, state, g_local, g_agg_prev, omega_prev=None):
-        _no_omega_prev(omega_prev)
         a = state.eps + g_local
         return self._finish(state, a, self._select(torch.abs(a)))
 
@@ -189,13 +184,27 @@ class RegTopK(Sparsifier):
     """
 
     def _score(self, state, a, g_prev, omega_prev=None):
-        _no_omega_prev(omega_prev)
         cfg = self.cfg
         if cfg.score_fn is not None:
+            if omega_prev is not None:
+                raise ValueError(
+                    "the fused score kernel bakes a scalar omega; "
+                    "coordinate weighting (omega_prev) requires the "
+                    "reference score path (fastpath off)"
+                )
             return cfg.score_fn(a, state.a_prev, state.s_prev, g_prev, cfg)
+        omega = cfg.omega
+        if omega_prev is not None:
+            # the server divided coordinate j by den[j], so this worker's
+            # weight there was omega / den[j]; where den == 0 nobody sent
+            # j, s_prev is 0 there and the guard never reaches the score.
+            # A tensor numerator: torch divides a Python scalar by a
+            # tensor as a reciprocal times the scalar.
+            w = torch.where(omega_prev > 0, omega_prev, 1.0)
+            omega = torch.full_like(w, cfg.omega) / w
         return score_chain(
             a, state.a_prev, state.s_prev, g_prev,
-            omega=cfg.omega, mu=cfg.mu, q=cfg.q_const, y=cfg.y,
+            omega=omega, mu=cfg.mu, q=cfg.q_const, y=cfg.y,
         )
 
     def step(self, state, g_local, g_agg_prev, omega_prev=None):
@@ -223,7 +232,6 @@ class HardThreshold(Sparsifier):
     so the simulator aggregates it dense only."""
 
     def step(self, state, g_local, g_agg_prev, omega_prev=None):
-        _no_omega_prev(omega_prev)
         a = state.eps + g_local
         mask = (torch.abs(a) >= self.cfg.threshold).to(a.dtype)
         return self._finish(state, a, mask)
@@ -237,7 +245,6 @@ class CoordTopK(Sparsifier):
     slot), so all workers select the same coordinates."""
 
     def step(self, state, g_local, g_agg_prev, omega_prev=None):
-        _no_omega_prev(omega_prev)
         a = state.eps + g_local
         stale = state.a_prev
         gmag = torch.abs(g_agg_prev)
@@ -267,7 +274,6 @@ class DGC(Sparsifier):
     """
 
     def step(self, state, g_local, g_agg_prev, omega_prev=None):
-        _no_omega_prev(omega_prev)
         u = self.cfg.momentum * state.a_prev + g_local  # a_prev holds u
         v = state.eps + u
         mask = self._select(torch.abs(v))

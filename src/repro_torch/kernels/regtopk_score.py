@@ -43,7 +43,9 @@ def ieee_div(x: torch.Tensor, c: float) -> torch.Tensor:
 
 def score_chain(a, a_prev, s_prev, g_prev, *, omega, mu, q, y):
     """The Alg. 2 selection metric, op for op as ``csrc/score_chain.cuh``
-    computes it (and as ``repro.kernels.regtopk_score.score_chain``)."""
+    computes it (and as ``repro.kernels.regtopk_score.score_chain``).
+    ``omega`` is a scalar, or, on this plain path only, an ``[L]`` tensor
+    (coordinate weighting)."""
     denom = omega * a
     safe = torch.where(denom == 0.0, 1.0, denom)
     delta_sent = (g_prev - omega * a_prev) / safe

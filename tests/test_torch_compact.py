@@ -17,7 +17,7 @@ import torch
 
 from repro.core import compact as jc
 from repro.core.sparsify import SparsifierConfig as JaxSparsifierConfig
-from repro_torch.comm.fastpath import FastpathCounts, candidate_budget
+from repro_torch.comm.fastpath import FastpathCounts, ThroughputTable, candidate_budget
 from repro_torch.core import compact as tc
 from repro_torch.core.sparsify import SparsifierConfig
 
@@ -96,11 +96,21 @@ def test_three_rounds_match_jax(kind, y, concentrated):
 
 
 def test_fastpath_auto_is_not_ported():
-    st = tc.compact_init(1, 16, 2, device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        tc.compact_select(
-            SparsifierConfig(), st, torch.zeros(1, 16), 2, fastpath="auto"
-        )
+    """``fastpath="auto"`` is ported; on the CPU it declines the kernel
+    (``fastpath.backend_supports``), so it is the dense path with no
+    fused round counted, whatever the table prices. An unknown mode
+    raises."""
+    cfg = SparsifierConfig(kind="regtopk", sparsity=K / L, mu=1.0, omega=0.5)
+    st = tc.compact_init(W, L, K, device="cpu")
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal((W, L)).astype(np.float32))
+    counts = FastpathCounts()
+    fast = ThroughputTable(fused_bps=1e30, unfused_bps=1.0)
+    auto = tc.compact_select(cfg, st, g, K, fastpath="auto", counts=counts, table=fast)
+    off = tc.compact_select(cfg, st, g, K, fastpath="off")
+    assert all(torch.equal(x, y) for x, y in zip(auto, off, strict=True))
+    assert counts.rounds == 0
+    with pytest.raises(ValueError, match="unknown fastpath"):
+        tc.compact_select(cfg, st, g, K, fastpath="always")
 
 
 def test_zero_score_slots_bits_match_jax():

@@ -307,3 +307,64 @@ def test_selection_kernels_on_unaligned_tiles(card, m):
     kw = dict(KW, m=m)
     _bits_equal(fe.fused_candidates(*xs, y=1.0, **kw),
                 fe.fused_candidates_ref(*xs, y=1.0, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["coo_fp32", "coo_idx_delta", "bitmap_dense", "coo_q8"])
+@pytest.mark.parametrize("L", [127, 32768, 4_458_752])
+def test_codecs_on_the_card_equal_the_cpu_bits(card, name, L):
+    """Every codec's payload, decode and ``decoded_dense`` on the card
+    equal the CPU's in bits, padding slots (index 0, -0.0) included: the
+    CUDA scatter-add may reorder the additions at index 0, and they add
+    only zeros there."""
+    from repro_torch.comm.codec import get_codec
+
+    rng = np.random.default_rng(L)
+    W, k = 8, max(8, L // 100)
+    vals = rng.standard_normal((W, k)).astype(np.float32)
+    idx = np.stack([rng.choice(L, k, replace=False) for _ in range(W)])
+    vals[:, -3:], idx[:, -3:] = -0.0, 0
+    codec = get_codec(name)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        v = torch.tensor(vals, device=dev)
+        i = torch.tensor(idx, dtype=torch.int64, device=dev)
+        pay = codec.encode(v, i, L)
+        out[dev] = (pay, codec.decode(pay, L), codec.decoded_dense(pay, L))
+    for key in out["cpu"][0]:
+        a, b = out["cpu"][0][key], out["cuda"][0][key].cpu()
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b), key
+    for a, b in zip(out["cpu"][1] + (out["cpu"][2],),
+                    out["cuda"][1] + (out["cuda"][2],), strict=True):
+        b = b.cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_coordinate_weighting_on_the_card_equals_the_cpu(card):
+    """The simulator under coordinate weighting: ``"auto"`` declines the
+    score kernel on the card, and the run equals the CPU run's masks."""
+    rng = np.random.default_rng(1)
+    X = rng.standard_normal((4, 50, 300)).astype(np.float32)
+    yv = rng.standard_normal((4, 50)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        Xd, yd = torch.tensor(X, device=dev), torch.tensor(yv, device=dev)
+
+        def grad_fn(theta, widx, Xd=Xd, yd=yd):
+            r = torch.einsum("ndj,j->nd", Xd[widx], theta) - yd[widx]
+            return torch.einsum("ndj,nd->nj", Xd[widx], r) / 25.0
+
+        sim = DistributedSim(grad_fn, 4, 300,
+                             SparsifierConfig(kind="regtopk", sparsity=0.1, mu=4.0),
+                             aggregation="sparse_allgather", fastpath="auto",
+                             weighting="coordinate", device=dev)
+        assert sim.sparsifier.cfg.score_fn is None
+        before = rs.regtopk_score.launches
+        out[dev] = sim.run(torch.zeros(300), 5,
+                           trace_state_fn=lambda s: s.worker_states.s_prev)
+        assert rs.regtopk_score.launches == before
+    assert torch.equal(out["cpu"][1], out["cuda"][1].cpu())

@@ -116,11 +116,21 @@ def test_hooks_match_jax(kind):
 
 
 def test_omega_prev_is_not_ported():
-    sp = tsp.make_sparsifier(_cfg("regtopk"))
-    st = sp.init(N, L, device="cpu")
+    """Coordinate weighting's ``omega_prev`` is ported on the plain score
+    path (``test_torch_coord_weights.py``); with a ``score_fn`` (the score
+    kernel, which takes a scalar omega) it raises the JAX package's
+    error, word for word."""
+    cfg = dataclasses.replace(_cfg("regtopk"), score_fn=lambda *a: None)
+    st = tsp.make_sparsifier(cfg).init(N, L, device="cpu")._replace(
+        t=torch.ones(N, dtype=torch.int32))
     z = torch.zeros(N, L)
-    with pytest.raises(ValueError, match="queue 1 item 4"):
-        sp.step(st, z, z[0], omega_prev=torch.ones(L))
+    with pytest.raises(ValueError) as got:
+        tsp.make_sparsifier(cfg).step(st, z, z[0], omega_prev=torch.ones(L))
+    jsp_ = jsp.make_sparsifier(jsp.SparsifierConfig(
+        **{**dataclasses.asdict(_cfg("regtopk")), "score_fn": lambda *a: None}))
+    with pytest.raises(ValueError) as want:
+        jsp_._score(jsp_.init(L), jnp.zeros(L), jnp.zeros(L), jnp.ones(L))
+    assert str(got.value) == str(want.value)
 
 
 def test_unknown_kind_raises():

@@ -13,7 +13,10 @@ batches.
 * W = 2: two sparsify-aggregate rounds against the in-process JAX
   composition the runtime performs per worker: ``compact_select`` →
   ``CooFp32`` → ``SparseAllgather.reference`` → ``compact_finalize_sent``.
-  The arithmetic is the same there, so aggregate and state must be equal.
+  The arithmetic is the same there, so aggregate and state must be equal;
+  so for every codec, for ``hierarchical`` and for coordinate weighting
+  (``reference_coord``, the sender mass into ``compact_finalize*``), in
+  f32 bits.
 """
 import dataclasses
 
@@ -327,3 +330,164 @@ def test_measured_payload_bytes_match_jax(length, k):
         for s in jax.tree.leaves(shapes)
     )
     assert td._payload_bytes(td.get_codec("coo_fp32"), length, k) == want
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("codec,collective,weighting,fastpath", [
+    ("coo_idx_delta", "sparse_allgather", "worker", "off"),
+    ("coo_idx_delta", "sparse_allgather", "worker", "on"),
+    ("bitmap_dense", "sparse_allgather", "worker", "off"),
+    ("coo_q8", "sparse_allgather", "worker", "off"),
+    ("coo_q8", "sparse_allgather", "worker", "on"),
+    ("coo_idx_delta", "hierarchical", "worker", "off"),
+    ("coo_fp32", "sparse_allgather", "coordinate", "off"),
+    ("coo_q8", "hierarchical", "coordinate", "off"),
+    ("coo_fp32", "dense_allreduce", "coordinate", "off"),
+])
+def test_two_worker_wire_matches_jax(codec, collective, weighting, fastpath):
+    """Two rounds of ``make_sparsify_aggregate`` against the JAX package's
+    per-worker composition: ``compact_select`` → the codec's encode and
+    decode → the collective's ``reference`` or ``reference_coord`` (under
+    ``dense_allreduce`` the worker-order sums of the dense vector, and of
+    its presence for the sender mass) → ``compact_finalize_sent`` or
+    ``compact_finalize`` with ``den``. Aggregates and every state slot in
+    f32 bits; ``coo_q8``'s residual stays in ``eps``."""
+    from repro.comm import codec as jcodec
+    from repro.comm import collectives as jcoll
+
+    W, sparsity = 2, 0.005
+    shapes = {"big": (3 * 8192 + 17,), "small": (4, 33)}
+    rng = np.random.default_rng(9)
+    cfg = SparsifierConfig(kind="regtopk", sparsity=sparsity, mu=1.0)
+    dist = td.DistConfig(sparsifier=cfg, codec=codec, collective=collective,
+                         weighting=weighting, fastpath=fastpath)
+    plan = td.build_plan(
+        {n: torch.zeros(s) for n, s in shapes.items()}, sparsity, dist
+    )
+    assert plan["big"].fused == (fastpath == "on")
+    spa = td.make_sparsify_aggregate(plan, dist, W)
+    state = td.init_sparsifier_state(plan, W, "cpu")
+    jcfg = dataclasses.replace(
+        JaxSparsifierConfig(**dataclasses.asdict(cfg)), omega=1.0 / W
+    )
+    jcd, coll = jcodec.get_codec(codec), jcoll.get_collective(collective)
+    coord = weighting == "coordinate"
+    jstate = {
+        n: [jc.compact_init(plan[n].local_len, plan[n].k) for _ in range(W)]
+        for n in shapes
+    }
+    for _ in range(2):
+        grads = {
+            n: rng.standard_normal((W, *s)).astype(np.float32)
+            for n, s in shapes.items()
+        }
+        agg, state = spa({n: torch.from_numpy(g) for n, g in grads.items()}, state)
+        for n, p in plan.items():
+            L, payloads, parts = p.local_len, [], []
+            for w in range(W):
+                a, v, i = jc.compact_select(
+                    jcfg, jstate[n][w], jnp.asarray(grads[n][w].reshape(L)), p.k
+                )
+                payload = jcd.encode(v, i, L)
+                dv, di = jcd.decode(payload, L)
+                payloads.append(payload)
+                parts.append((a, v, i, dv, di))
+            den = None
+            if collective == "dense_allreduce":
+                jagg = den = jnp.zeros(L)
+                for a, v, i, _, _ in parts:
+                    ghat = jnp.zeros(L).at[i].add(v)
+                    jagg = jagg + ghat * (1.0 / W)
+                    den = den + (ghat != 0).astype(ghat.dtype) * (1.0 / W)
+                jagg = jagg / jnp.maximum(den, jnp.finfo(den.dtype).tiny)
+            else:
+                stacked = jax.tree.map(lambda *x: jnp.stack(x), *payloads)
+                if coord:
+                    jagg, den = coll.reference_coord(jcd, stacked, 1.0 / W, L)
+                else:
+                    jagg = coll.reference(jcd, stacked, 1.0 / W, L)
+            np.testing.assert_array_equal(
+                _bits(agg[n].numpy().reshape(L)), _bits(jagg), err_msg=n)
+            for w, (a, v, i, dv, di) in enumerate(parts):
+                if collective == "dense_allreduce":
+                    jstate[n][w] = jc.compact_finalize(
+                        jstate[n][w], a, v, i, jagg, den=den)
+                else:
+                    jstate[n][w] = jc.compact_finalize_sent(
+                        jstate[n][w], a, dv, di, jnp.zeros(L).at[di].add(dv),
+                        jagg, den=den)
+                for name in ("eps", "sent_vals", "sent_g", "sent_w"):
+                    np.testing.assert_array_equal(
+                        _bits(getattr(state[n], name)[w].numpy()),
+                        _bits(getattr(jstate[n][w], name)), err_msg=f"{n}.{name}")
+                np.testing.assert_array_equal(
+                    state[n].sent_idx[w].numpy(), np.asarray(jstate[n][w].sent_idx))
+    if coord:
+        assert not bool((state["big"].sent_w == 1.0).all())
+
+
+@pytest.mark.parametrize("codec", ["coo_idx_delta", "bitmap_dense", "coo_q8"])
+def test_comm_round_bytes_and_cost_match_jax(codec):
+    """``comm_round_bytes`` and ``comm_round_cost`` from ``comm/cost.py``,
+    against the JAX package's on the same plan (one dp axis of W = 8,
+    a scalar and a per-axis link model)."""
+    from jax.sharding import PartitionSpec as P
+
+    from repro.comm import cost as jcost
+    from repro_torch.comm import cost as tcost
+
+    class _Mesh:
+        shape = {"data": 8}
+
+    shapes = {"big": (3 * 8192 + 17,), "small": (4, 33)}
+    for coll in ("sparse_allgather", "hierarchical", "dense_allreduce"):
+        for topo in (None, "2e-6,5e-12"):
+            dist = td.DistConfig(
+                sparsifier=SparsifierConfig(kind="regtopk", sparsity=0.01),
+                codec=codec, collective=coll,
+                link_topo=None if topo is None else tcost.parse_link_topo(topo, ("data",)))
+            plan = td.build_plan({n: torch.zeros(s) for n, s in shapes.items()}, 0.01, dist)
+            jdist = jd.DistConfig(
+                sparsifier=JaxSparsifierConfig(kind="regtopk", sparsity=0.01),
+                codec=codec, collective=coll,
+                link_topo=None if topo is None else jcost.parse_link_topo(topo, ("data",)))
+            jplan = {n: jd.LeafPlan(s, s, p.local_len, p.k, P(None))
+                     for (n, s), p in zip(shapes.items(), plan.values(), strict=True)}
+            assert td.comm_round_bytes(plan, dist, 8) == jd.comm_round_bytes(
+                jplan, jdist, _Mesh())
+            got, want = td.comm_round_cost(plan, dist, 8), jd.comm_round_cost(
+                jplan, jdist, _Mesh())
+            assert (got.bytes_on_wire, got.n_messages, got.seconds) == (
+                want.bytes_on_wire, want.n_messages, want.seconds)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--codec", "coo_q8", "--fastpath", "on"],
+    ["--codec", "bitmap_dense", "--fastpath", "on"],
+    ["--codec", "coo_idx_delta", "--coord-weights", "--fastpath", "auto",
+     "--link-topo", "data:2e-6,5e-12"],
+    ["--collective", "hierarchical", "--coord-weights"],
+])
+def test_cli_takes_the_wire_flags(flags, capsys):
+    """The trainer's wire flags, two smoke steps on the CPU: the comm line
+    in the JAX trainer's format, the fastpath line, finite losses."""
+    from repro_torch.launch import train
+
+    args = train.parse_args(["--smoke", "--workers", "2", "--steps", "2",
+                             "--seq", "16", "--device", "cpu", *flags])
+    res = train.run(args)
+    out = capsys.readouterr().out
+    assert all(np.isfinite(res.losses)) and len(res.losses) == 2
+    assert "MB/worker/round (predicted " in out
+    assert "ms/round under the link model)" in out
+    if "on" in flags:
+        assert "comm:   fastpath:" in out
+        assert (res.counts.rounds > 0) == ("coo_q8" in flags)
+    if "--coord-weights" in flags:
+        assert "weighting: coordinate" in out
+        assert res.counts.rounds == 0
+    if "--link-topo" in flags:
+        assert "link-topo data: alpha=2.000e-06 s/msg beta=5.000e-12 s/B" in out
