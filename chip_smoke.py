@@ -52,12 +52,26 @@ Phases, each raising on failure (the script then exits non-zero):
               launch per round; and whole-model selection at full width
               (N = 8, J = 4,458,752, RegTop-k at S = 0.01, 5 rounds), fastpath
               on against off round by round, with the round times and the
-              device's busy share.
+              device's busy share;
+8. wire     — the wire at full width: the trainer (W = 8, RegTop-k at
+              S = 0.01) with coo_idx_delta and coo_q8 through the fused
+              kernel (launches counted, one step's encoded payloads on ==
+              off bit for bit, measured bytes <= 1.05 x predicted),
+              bitmap_dense (which never fuses: no launch), coordinate
+              weighting (sent_w recorded), fastpath auto under the table
+              ThroughputTable.measure() fits on this card (payloads ==
+              off), and a smoke run per codec against the same run on the
+              CPU; the simulator (N = 8, J = 4,458,752, 5 rounds each)
+              with coo_q8 on == off in theta and eps, coordinate weighting
+              (auto == off, no score launch), hierarchical == sparse_allgather
+              with coo_idx_delta, and wire_bytes_per_round per codec; the
+              step and round time of each path.
 
 Each kernel's launch count is set to 0 just before the path that runs it
 (select: ``count_above``, ``global_max``, ``block_topk_candidates``;
-trainer: ``fused_candidates``; sim: ``regtopk_score``) and read just
-after. The line before the last is the card's nvidia-smi line; before it,
+trainer and each fused wire run: ``fused_candidates``; sim and the wire
+simulator's fastpath-on run: ``regtopk_score``) and read just after; the
+``kernels`` line sums each kernel's main-path launches. The line before the last is the card's nvidia-smi line; before it,
 the ``kernels`` JSON line. The last line is the device JSON.
 ``--details FILE`` also writes every phase's results to FILE as JSON.
 ``--parent DIR`` (a checkout of the parent commit) adds, last, the time of
@@ -937,16 +951,12 @@ def sim_fig3(rounds: int = 2500) -> dict:
     }}
 
 
-def sim_full_width(rounds: int = 5, cfg=None) -> dict:
-    """Whole-model selection over paper-resnet-proxy's flat parameter
-    vector, as benchmarks/fig6_nn_proxy.py does: N = 8 workers, RegTop-k
-    at S = 0.01. The grad_fn is composed here from the port's lm.loss_fn,
-    TokenPipeline and tree utilities. The fastpath-on run computes the
-    gradients and the off run replays them, round by round, so the two
-    see the same gradients even if the backward is not deterministic."""
+def _flat_model(cfg=None):
+    """``(grad_fn, theta0, J)`` of paper-resnet-proxy's flat parameter
+    vector, as benchmarks/fig6_nn_proxy.py selects over it: the grad_fn is
+    composed here from the port's lm.loss_fn, TokenPipeline and tree
+    utilities, one batch shard of the global batch of 32 per worker."""
     from repro_torch import configs
-    from repro_torch.core import DistributedSim, SparsifierConfig
-    from repro_torch.core.selectors import sparsity_to_k
     from repro_torch.data import TokenPipeline
     from repro_torch.models import lm
     from repro_torch.nn.layers import set_fp32_matmul
@@ -957,7 +967,6 @@ def sim_full_width(rounds: int = 5, cfg=None) -> dict:
     params = lm.init(cfg, seed=0, device=DEVICE)
     shapes = [p.shape for p in tree_leaves(params)]
     sizes = [p.numel() for p in tree_leaves(params)]
-    J = sum(sizes)
     batch = TokenPipeline(cfg, 32, 128, seed=1, device=DEVICE).batch_at(0)
     per = 32 // W
 
@@ -975,6 +984,19 @@ def sim_full_width(rounds: int = 5, cfg=None) -> dict:
         return torch.stack(out)
 
     theta0 = torch.cat([p.reshape(-1) for p in tree_leaves(params)])
+    return grad_fn, theta0, sum(sizes)
+
+
+def sim_full_width(rounds: int = 5, cfg=None) -> dict:
+    """Whole-model selection over paper-resnet-proxy's flat parameter
+    vector (``_flat_model``): N = 8 workers, RegTop-k at S = 0.01. The
+    fastpath-on run computes the gradients and the off run replays them,
+    round by round, so the two see the same gradients even if the
+    backward is not deterministic."""
+    from repro_torch.core import DistributedSim, SparsifierConfig
+    from repro_torch.core.selectors import sparsity_to_k
+
+    grad_fn, theta0, J = _flat_model(cfg)
     widx = torch.arange(W, device=DEVICE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1040,6 +1062,364 @@ def sim_round_times(timing: dict, reps: int = 5) -> dict:
     )
     profile = {mode: profile_step(run, round_ms[mode]) for mode, run in runs.items()}
     return {"round_ms": round_ms, "samples": times, "profile": profile}
+
+
+WIRE_STEPS = 5
+
+
+def _bits_equal(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (floats compared as int32 bits)."""
+    if x.dtype != y.dtype or x.shape != y.shape:
+        return False
+    if x.dtype == torch.float32:
+        x, y = x.view(torch.int32), y.view(torch.int32)
+    return torch.equal(x, y)
+
+
+class _PayloadRecorder:
+    """Records every payload ``codec.encode`` returns while installed,
+    in call order (``encode_fused`` of every fusing codec calls
+    ``encode``, so each leaf's payload is recorded once)."""
+
+    def __init__(self, codec):
+        self.codec, self.payloads = codec, []
+
+    def __enter__(self):
+        encode = type(self.codec).encode
+
+        def recording(vals, idx, length):
+            payload = encode(self.codec, vals, idx, length)
+            self.payloads.append(payload)
+            return payload
+
+        self.codec.encode = recording
+        return self
+
+    def __exit__(self, *exc):
+        del self.codec.encode
+
+
+def _timed_step(step, params, sp_state, batch, reps: int = 3):
+    """Run ``step`` from the same state ``reps`` times; returns (the last
+    outputs, the median host-clock milliseconds of one step)."""
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(params, sp_state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return out, statistics.median(times)
+
+
+def _model_cfg(args):
+    from repro_torch import configs
+
+    cfg = configs.get_config(args.arch)
+    return cfg.smoke_variant() if args.smoke else cfg
+
+
+def _one_step(args, res, dist, table=None):
+    """One training step from the state a run ``res`` of ``args`` reached,
+    under ``dist``, on a batch that run did not see: (the new sparsifier
+    state, the payloads the codec encoded, the plan, the step's median
+    host-clock milliseconds, the step as a callable)."""
+    from repro_torch.comm.codec import get_codec
+    from repro_torch.core import distributed as td
+    from repro_torch.data import TokenPipeline
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_leaves
+
+    cfg = _model_cfg(args)
+    batch = TokenPipeline(cfg, args.global_batch, args.seq, 1,
+                          args.device).batch_at(0)
+    plan = td.build_plan(res.params, dist.sparsifier.sparsity, dist, table)
+    step = td.make_train_step(cfg, dist, plan, W)
+    opt_state = make_optimizer(dist.optimizer).init(res.params)
+    with _PayloadRecorder(get_codec(dist.codec)) as rec:
+        out, ms = _timed_step(lambda p, s, b: step(p, opt_state, s, b),
+                              res.params, res.sp_state, batch)
+    return (out[2], rec.payloads[-len(tree_leaves(plan)):], plan, ms,
+            lambda: step(res.params, opt_state, res.sp_state, batch))
+
+
+def _payloads_equal(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        sorted(x) == sorted(y) and all(_bits_equal(x[k], y[k]) for k in x)
+        for x, y in zip(a, b, strict=True))
+
+
+def _wire_train(name: str, extra: list, steps: int = WIRE_STEPS, table=None):
+    """``steps`` full-width training steps with ``TRAIN_ARGS`` and
+    ``extra`` flags, kernel 1's launches counted from 0 around the run."""
+    from repro_torch.kernels import fused_encode as fe
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+
+    base = [a for a in TRAIN_ARGS if a not in ("--fastpath", "on")]
+    args = train.parse_args([*base, "--steps", str(steps), *extra])
+    log(f"wire trainer {name}:")
+    fe.fused_candidates.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train.run(args, table=table)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fe.fused_candidates.launches
+    if len(res.losses) != steps or not all(math.isfinite(x) for x in res.losses):
+        raise AssertionError(f"wire trainer {name}: losses {res.losses}")
+    n_fused = sum(p.fused for p in tree_leaves(res.plan))
+    if launches != steps * n_fused:
+        raise AssertionError(f"wire trainer {name}: {launches} kernel 1 launches, "
+                             f"expected {steps} steps x {n_fused} fused leaves")
+    return args, res, {"losses": res.losses, "seconds": seconds,
+                       "launches": launches, "fused_leaves": n_fused,
+                       "hit_rate": res.counts.hit_rate}
+
+
+def wire_trainer(smi: str) -> dict:
+    """The trainer's new wire paths at full width (see the module
+    docstring, phase 8)."""
+    from repro_torch.comm import cost
+    from repro_torch.comm.fastpath import ThroughputTable
+    from repro_torch.core import distributed as td
+    from repro_torch.core.sparsify import SparsifierConfig
+    from repro_torch.launch import train
+    from repro_torch.optim import OptConfig
+    from repro_torch.tree import tree_items, tree_leaves
+
+    out, launches = {}, 0
+
+    def dist_of(args, **kw):
+        return td.DistConfig(
+            sparsifier=SparsifierConfig(kind=args.sparsifier, sparsity=args.sparsity,
+                                        mu=args.mu),
+            optimizer=OptConfig(learning_rate=args.lr), codec=args.codec,
+            collective=args.collective, **kw)
+
+    for codec in ("coo_idx_delta", "coo_q8"):
+        args, res, row = _wire_train(codec, ["--codec", codec, "--fastpath", "on"])
+        if row["launches"] == 0:
+            raise AssertionError(f"wire trainer {codec}: kernel 1 never launched")
+        launches += row["launches"]
+        (st_on, pay_on, plan, ms_on, run_on), (st_off, pay_off, _, ms_off, _) = (
+            _one_step(args, res, dist_of(args, fastpath=mode)) for mode in ("on", "off"))
+        if not _payloads_equal(pay_on, pay_off):
+            raise AssertionError(f"wire trainer {codec}: fastpath on/off payloads differ")
+        for (path, a), (_, b) in zip(tree_items(st_on), tree_items(st_off), strict=True):
+            if not (_bits_equal(a.sent_vals, b.sent_vals)
+                    and torch.equal(a.sent_idx, b.sent_idx)):
+                raise AssertionError(f"wire trainer {codec}: {path} sent_vals differ")
+        pred, _ = td.comm_round_bytes(plan, dist_of(args), W)
+        meas = sum(
+            cost.measured_bytes(args.collective, p.local_len,
+                                {k: v[:1] for k, v in pay.items()}, (W,))
+            for p, pay in zip(tree_leaves(plan), pay_on, strict=True))
+        if meas > 1.05 * pred:
+            raise AssertionError(f"wire trainer {codec}: measured {meas} B > "
+                                 f"1.05 x predicted {pred} B")
+        row.update(step_ms={"on": ms_on, "off": ms_off}, measured_bytes=meas,
+                   predicted_bytes=pred, profile=profile_step(run_on, ms_on))
+        log(f"wire trainer {codec}: {row['launches']} kernel 1 launches in "
+            f"{WIRE_STEPS} steps ({row['fused_leaves']} fused leaves), hit rate "
+            f"{row['hit_rate']:.4f}; one step on == off (encoded payloads and "
+            f"sent_vals bit-equal); measured {meas} B <= 1.05 x predicted {pred} B "
+            f"per worker per round; step {ms_on:.1f} ms on, {ms_off:.1f} ms off "
+            f"(host clock; {smi})")
+        out[codec] = row
+
+    args, res, row = _wire_train("bitmap_dense",
+                                 ["--codec", "bitmap_dense", "--fastpath", "on"])
+    if row["launches"] or row["fused_leaves"]:
+        raise AssertionError("wire trainer bitmap_dense: fused, but it never fuses")
+    *_, row["step_ms"], run = _one_step(args, res, dist_of(args, fastpath="on"))
+    row["profile"] = profile_step(run, row["step_ms"])
+    log(f"wire trainer bitmap_dense: 0 kernel launches (never fuses), losses "
+        f"{res.losses[0]:.4f} -> {res.losses[-1]:.4f}; step {row['step_ms']:.1f} ms "
+        f"(host clock; {smi})")
+    out["bitmap_dense"] = row
+
+    args, res, row = _wire_train("coord-weights", ["--coord-weights"])
+    sent_w = torch.cat([st.sent_w.reshape(-1) for _, st in tree_items(res.sp_state)])
+    if bool((sent_w == 1.0).all()) or not bool(torch.isfinite(sent_w).all()):
+        raise AssertionError("wire trainer coord-weights: sent_w is all 1")
+    *_, row["step_ms"], run = _one_step(args, res, dist_of(args, weighting="coordinate"))
+    row["profile"] = profile_step(run, row["step_ms"])
+    row["sent_w_not_one"] = float((sent_w != 1.0).float().mean())
+    log(f"wire trainer coord-weights: losses {res.losses[0]:.4f} -> "
+        f"{res.losses[-1]:.4f}, sent_w != 1 at {row['sent_w_not_one']:.4f} of the "
+        f"sent slots; step {row['step_ms']:.1f} ms (host clock; {smi})")
+    out["coord_weights"] = row
+
+    table = ThroughputTable.measure(device=DEVICE)
+    args, res, row = _wire_train("auto", ["--fastpath", "auto"], table=table)
+    launches += row["launches"]
+    fused = [path for path, p in tree_items(res.plan) if p.fused]
+    log(f"wire trainer auto: ThroughputTable.measure() on this card: fused "
+        f"{table.fused_bps:.4e} B/s, unfused {table.unfused_bps:.4e} B/s; auto "
+        f"fuses {len(fused)}/{len(tree_leaves(res.plan))} leaves {fused} ({smi})")
+    steps = {mode: _one_step(args, res, dist_of(args, fastpath=mode), table)
+             for mode in ("auto", "off")}
+    if not _payloads_equal(steps["auto"][1], steps["off"][1]):
+        raise AssertionError("wire trainer auto: payloads differ from fastpath off")
+    row.update(table={"fused_bps": table.fused_bps, "unfused_bps": table.unfused_bps},
+               fused_paths=fused,
+               step_ms={"auto": steps["auto"][3], "off": steps["off"][3]})
+    log(f"wire trainer auto: one step auto == off (payloads bit-equal); step "
+        f"{steps['auto'][3]:.1f} ms auto, {steps['off'][3]:.1f} ms off "
+        f"(host clock; {smi})")
+    out["auto"] = row
+
+    smoke = {}  # coo_fp32's is phase_trainer's
+    for codec in ("coo_idx_delta", "bitmap_dense", "coo_q8"):
+        small = ["--smoke", "--workers", "2", "--steps", "3", "--seq", "32",
+                 "--fastpath", "on", "--log-every", "100", "--codec", codec]
+        gpu = train.run(train.parse_args([*small, "--device", DEVICE])).losses
+        cpu = train.run(train.parse_args([*small, "--device", "cpu"])).losses
+        for g, c in zip(gpu, cpu, strict=True):
+            if abs(g - c) > 1e-4 * abs(c):
+                raise AssertionError(f"wire smoke {codec}: card {gpu} vs CPU {cpu}")
+        smoke[codec] = {"card": gpu, "cpu": cpu}
+    log("wire trainer: smoke run per codec on the card matches the CPU run "
+        "(losses within 1e-4 relative)")
+    out["smoke"] = smoke
+    out["launches"] = launches
+    return out
+
+
+def _paired_sims(grad_fn, theta0, J, rounds, kw_a, kw_b, check, label):
+    """Two simulators over the same gradients (``a`` computes them, ``b``
+    replays them) for ``rounds`` rounds; ``check(r, (state, g_agg) of a,
+    of b)`` raises on a difference. Returns the two simulators and their
+    last states."""
+    from repro_torch.core import DistributedSim, SparsifierConfig
+
+    recorded = []
+
+    def record(theta, widx):
+        recorded.append(grad_fn(theta, widx))
+        return recorded[-1]
+
+    def replay(theta, widx):
+        return recorded.pop(0)
+
+    scfg = SparsifierConfig(kind="regtopk", sparsity=0.01)
+    sims = [DistributedSim(fn, W, J, scfg, learning_rate=0.05, device=DEVICE, **kw)
+            for fn, kw in ((record, kw_a), (replay, kw_b))]
+    states = [sim.init(theta0) for sim in sims]
+    for r in range(rounds):
+        outs = [sim.step_fn(st) for sim, st in zip(sims, states, strict=True)]
+        for st, g in outs:
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"wire sim {label} round {r}: non-finite g_agg")
+        check(r, *outs)
+        states = [o[0] for o in outs]
+    return sims, states
+
+
+def _round_ms(sim, state, g_fixed, reps: int = 5) -> dict:
+    """Host-clock milliseconds of one round from ``state`` with the
+    gradient held fixed (the round's own work), and one such round under
+    the profiler."""
+    sim.grad_fn = lambda theta, widx: g_fixed
+    sim.step_fn(state)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.step_fn(state)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    ms = statistics.median(times)
+    return {"ms": ms, "profile": profile_step(lambda: sim.step_fn(state), ms)}
+
+
+def wire_sim(smi: str, rounds: int = 5, cfg=None) -> dict:
+    """The simulator's new wire paths at full width (phase 8); ``cfg``
+    replaces paper-resnet-proxy for a rehearsal on the CPU."""
+    from repro_torch.core import DistributedSim, SparsifierConfig
+    from repro_torch.kernels import regtopk_score as rs
+
+    grad_fn, theta0, J = _flat_model(cfg)
+    g0 = grad_fn(theta0, torch.arange(W, device=DEVICE))
+    out = {}
+
+    def same(fields):
+        def check(r, a, b):
+            (sa, ga), (sb, gb) = a, b
+            pairs = {"g_agg": (ga, gb), "theta": (sa.theta, sb.theta),
+                     "eps": (sa.worker_states.eps, sb.worker_states.eps),
+                     "masks": (sa.worker_states.s_prev, sb.worker_states.s_prev)}
+            for f in fields:
+                if not _bits_equal(*pairs[f]):
+                    raise AssertionError(f"wire sim round {r}: {f} differ")
+        return check
+
+    rs.regtopk_score.launches = 0
+    kw = dict(codec="coo_q8", aggregation="sparse_allgather")
+    sims, states = _paired_sims(grad_fn, theta0, J, rounds, {**kw, "fastpath": "on"},
+                                {**kw, "fastpath": "off"},
+                                same(("g_agg", "theta", "eps", "masks")), "coo_q8")
+    launches = rs.regtopk_score.launches
+    if launches != rounds:
+        raise AssertionError(f"wire sim coo_q8: {launches} score launches, "
+                             f"expected {rounds}")
+    out["coo_q8"] = {"rounds": rounds, "launches": launches,
+                     "round": {m: _round_ms(s, st, g0) for m, s, st in
+                               zip(("on", "off"), sims, states, strict=True)}}
+    log(f"wire sim coo_q8: fastpath on == off for {rounds} rounds (theta, eps, "
+        f"masks and g_agg bit-equal), {launches} score launches; round "
+        + ", ".join(f"{m} {r['ms']:.2f} ms" for m, r in out["coo_q8"]["round"].items())
+        + f" (gradient fixed, host clock; {smi})")
+
+    before = rs.regtopk_score.launches
+    kw = dict(aggregation="sparse_allgather", weighting="coordinate")
+    sims, states = _paired_sims(grad_fn, theta0, J, rounds, {**kw, "fastpath": "off"},
+                                {**kw, "fastpath": "auto"},
+                                same(("g_agg", "theta", "eps", "masks")), "coordinate")
+    if rs.regtopk_score.launches != before:
+        raise AssertionError("wire sim coordinate: auto launched the score kernel")
+    den = states[0].w_agg_prev
+    if den is None or bool((den == 1.0).all()):
+        raise AssertionError("wire sim coordinate: no sender mass recorded")
+    out["coordinate"] = {"rounds": rounds,
+                         "round": _round_ms(sims[0], states[0], g0),
+                         "den_max": float(den.max())}
+    log(f"wire sim coordinate: {rounds} rounds, auto == off (no score launch), "
+        f"sender mass up to {out['coordinate']['den_max']:.4f}; round "
+        f"{out['coordinate']['round']['ms']:.2f} ms (gradient fixed, host clock; {smi})")
+
+    kw = dict(codec="coo_idx_delta", fastpath="off")
+    sims, states = _paired_sims(
+        grad_fn, theta0, J, rounds, {**kw, "collective": "hierarchical", "dp_shape": (2, 4)},
+        {**kw, "collective": "sparse_allgather"}, same(("g_agg", "theta", "eps")),
+        "hierarchical")
+    out["hierarchical"] = {"rounds": rounds,
+                           "round": _round_ms(sims[0], states[0], g0)}
+    log(f"wire sim hierarchical (coo_idx_delta, dp 2 x 4): == sparse_allgather for "
+        f"{rounds} rounds (g_agg, theta, eps bit-equal); round "
+        f"{out['hierarchical']['round']['ms']:.2f} ms (gradient fixed, host clock; "
+        f"{smi})")
+
+    wire = {}
+    for codec in ("coo_fp32", "coo_idx_delta", "bitmap_dense", "coo_q8"):
+        for coll in ("sparse_allgather", "hierarchical", "dense_allreduce"):
+            est = DistributedSim(None, W, J, SparsifierConfig(sparsity=0.01),
+                                 codec=codec, collective=coll, dp_shape=(2, 4),
+                                 device=DEVICE).wire_bytes_per_round()
+            wire[f"{codec}/{coll}"] = {"bytes": est.bytes_on_wire,
+                                      "messages": est.n_messages,
+                                      "seconds": est.seconds}
+    for name, row in wire.items():
+        log(f"wire sim wire_bytes_per_round {name} (dp 2 x 4, default link): "
+            + json.dumps(row))
+    out["wire_bytes_per_round"] = wire
+    out["launches"] = launches
+    return out
+
+
+def phase_wire(smi: str) -> dict:
+    return {"trainer": wire_trainer(smi), "sim": wire_sim(smi)}
 
 
 def ab_times() -> dict:
@@ -1122,6 +1502,7 @@ def main(argv=None) -> int:
     select = phase_select()
     trainer = phase_trainer()
     sim = phase_sim()
+    wire = phase_wire(smi)
     ab = phase_ab(args.parent) if args.parent is not None else None
     per_step = kernels["per_step"]
     per_round = score["per_round"]
@@ -1130,7 +1511,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_encode.cu",
         "replaces": "src/repro/kernels/fused_encode.py:111",
-        "launches": trainer["launches"],
+        "launches": trainer["launches"] + wire["trainer"]["launches"],
         "max_abs_err": kernels["max_abs_err"],
         "ms": per_step["ms"],
         "plain_ms": per_step["plain_ms"],
@@ -1142,7 +1523,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/regtopk_score.cu",
         "replaces": "src/repro/kernels/regtopk_score.py:82",
-        "launches": sim["launches"],
+        "launches": sim["launches"] + wire["sim"]["launches"],
         "max_abs_err": score["max_abs_err"],
         "ms": per_round["ms"],
         "plain_ms": per_round["plain_ms"],
@@ -1174,7 +1555,8 @@ def main(argv=None) -> int:
         args.details.write_text(json.dumps(
             {"device": device_name, "nvidia_smi": smi, "build_seconds": builds,
              "kernels": kernels, "score": score, "select": select,
-             "trainer": trainer, "sim": sim, "ab": ab, "kernels_line": line},
+             "trainer": trainer, "sim": sim, "wire": wire, "ab": ab,
+             "kernels_line": line},
             indent=1,
         ))
     print(json.dumps(line), flush=True)

@@ -64,7 +64,6 @@ def compact_select(
     *,
     fastpath: Optional[str] = None,
     counts=None,
-    table=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Select coordinates for every worker. ``g`` is ``[W, L]``.
     Returns ``(a [W, L], vals [W, k], idx [W, k])``.
@@ -78,9 +77,10 @@ def compact_select(
     ``fastpath="on"`` routes fusable configs through the fused
     select→encode kernel (``repro_torch.comm.fastpath``); its certificate
     falls back to this dense path per worker, so the payload is the same
-    either way. ``"auto"`` fuses where the card can run the kernel and
-    ``table`` (a ``fastpath.ThroughputTable``, its defaults when None)
-    prices the fused path faster. ``None``/``"off"`` is dense selection.
+    either way. ``"auto"`` fuses where the device can run the kernel and
+    the default ``fastpath.ThroughputTable`` prices the fused path faster
+    (the trainer decides per leaf instead, with ``fastpath.leaf_fused``).
+    ``None``/``"off"`` is dense selection.
     ``counts`` (a ``fastpath.FastpathCounts``) tallies fused rounds and
     fallbacks."""
     L = g.shape[1]
@@ -100,7 +100,7 @@ def compact_select(
                 fastpath == "on"
                 or (
                     fp.backend_supports(g.device)
-                    and (table or fp.ThroughputTable()).prefers_fused(L, k)
+                    and fp.ThroughputTable().prefers_fused(L, k)
                 )
             )
         ):

@@ -167,17 +167,15 @@ def _spa_leaf(g, st, p: LeafPlan, scfg, codec, collective, coord, counts):
         # (added, so padding slots are no-ops) into its ghat, the weighted
         # sums taken one worker at a time in worker order
         ghat = torch.zeros_like(a).scatter_add_(1, idx, vals)
+        presence = (ghat != 0).to(ghat.dtype)
         agg = torch.zeros_like(ghat[0])
-        if coord:
-            presence = (ghat != 0).to(ghat.dtype)
-            den = torch.zeros_like(agg)
-            for w in range(W):
-                agg = agg + ghat[w] * scfg.omega
+        den = torch.zeros_like(agg) if coord else None
+        for w in range(W):
+            agg = agg + ghat[w] * scfg.omega
+            if coord:
                 den = den + presence[w] * scfg.omega
+        if coord:
             agg = _coord_divide(agg, den)
-        else:
-            for w in range(W):
-                agg = agg + ghat[w] * scfg.omega
         new = C.compact_finalize(st, a, vals, idx, agg, den=den)
         return agg.reshape(p.global_shape).to(g.dtype), new
     payload = (

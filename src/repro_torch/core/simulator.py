@@ -161,8 +161,6 @@ class DistributedSim:
         coll = self.resolved_collective
         if coll == "auto":
             raise _not_ported("collective", coll)
-        get_codec(self.codec)
-        collectives.get_collective(coll)
         if coll != "dense_allreduce" and self.sparsifier_cfg.kind == "hard_threshold":
             raise ValueError(
                 "hard_threshold produces a variable-cardinality mask; the "

@@ -17,7 +17,7 @@ import torch
 
 from repro.core import compact as jc
 from repro.core.sparsify import SparsifierConfig as JaxSparsifierConfig
-from repro_torch.comm.fastpath import FastpathCounts, ThroughputTable, candidate_budget
+from repro_torch.comm.fastpath import FastpathCounts, candidate_budget
 from repro_torch.core import compact as tc
 from repro_torch.core.sparsify import SparsifierConfig
 
@@ -95,20 +95,28 @@ def test_three_rounds_match_jax(kind, y, concentrated):
         assert counts.fallbacks == 0
 
 
-def test_fastpath_auto_is_not_ported():
-    """``fastpath="auto"`` is ported; on the CPU it declines the kernel
-    (``fastpath.backend_supports``), so it is the dense path with no
-    fused round counted, whatever the table prices. An unknown mode
-    raises."""
+def test_fastpath_auto_is_not_ported(monkeypatch):
+    """``fastpath="auto"`` is ported. On the CPU it declines the kernel
+    (``fastpath.backend_supports``): the dense path, no fused round
+    counted. Where the device can run the kernel (here pretended), the
+    default table prices this leaf faster fused, as the JAX package's
+    does, and the payload is the same. An unknown mode raises."""
+    from repro.comm import fastpath as jfp
+    from repro_torch.comm import fastpath as tfp
+
     cfg = SparsifierConfig(kind="regtopk", sparsity=K / L, mu=1.0, omega=0.5)
     st = tc.compact_init(W, L, K, device="cpu")
     g = torch.from_numpy(np.random.default_rng(3).standard_normal((W, L)).astype(np.float32))
-    counts = FastpathCounts()
-    fast = ThroughputTable(fused_bps=1e30, unfused_bps=1.0)
-    auto = tc.compact_select(cfg, st, g, K, fastpath="auto", counts=counts, table=fast)
     off = tc.compact_select(cfg, st, g, K, fastpath="off")
+    counts = FastpathCounts()
+    auto = tc.compact_select(cfg, st, g, K, fastpath="auto", counts=counts)
     assert all(torch.equal(x, y) for x, y in zip(auto, off, strict=True))
     assert counts.rounds == 0
+    assert tfp.ThroughputTable().prefers_fused(L, K) == jfp.ThroughputTable().prefers_fused(L, K)
+    monkeypatch.setattr(tfp, "backend_supports", lambda device: True)
+    auto = tc.compact_select(cfg, st, g, K, fastpath="auto", counts=counts)
+    assert all(torch.equal(x, y) for x, y in zip(auto, off, strict=True))
+    assert counts.rounds == W
     with pytest.raises(ValueError, match="unknown fastpath"):
         tc.compact_select(cfg, st, g, K, fastpath="always")
 

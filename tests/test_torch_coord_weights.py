@@ -15,7 +15,8 @@ against the JAX package.
   in the last ulp), and ``omega_prev`` of ones the scalar path bit for
   bit.
 * ``compact_finalize`` and ``compact_finalize_sent`` with ``den``: the
-  new state equal in bits, ``sent_w = den[idx]``.
+  new state equal in bits, ``sent_w = den[idx]``, and
+  ``convert.compact_state_from_jax`` carries it across.
 * ``fastpath.leaf_fused`` under tables of equal rates (both packages'
   defaults) makes the JAX package's decisions on a grid of shapes,
   codecs, collectives and configs; ``ThroughputTable.measure`` on the CPU
@@ -39,7 +40,7 @@ from repro.core import sparsify as jsp
 from repro_torch.comm import codec as tcodec
 from repro_torch.comm import collectives as tcoll
 from repro_torch.comm import fastpath as tfp
-from repro_torch.convert import dense_state_from_jax
+from repro_torch.convert import compact_state_from_jax, dense_state_from_jax
 from repro_torch.core import compact as tc
 from repro_torch.core import distributed as td
 from repro_torch.core import sparsify as tsp
@@ -155,6 +156,7 @@ def test_compact_finalize_with_den_matches_jax_bits():
     sent_dense = torch.zeros_like(a).scatter_add_(1, idx, 0.9 * vals)
     new = tc.compact_finalize(st, a, vals, idx, agg, den=den)
     new_sent = tc.compact_finalize_sent(st, a, 0.9 * vals, idx, sent_dense, agg, den=den)
+    wants = []
     for w in range(W):
         jst = jc.CompactState(
             eps=jnp.asarray(st.eps[w].numpy()), sent_vals=jnp.asarray(st.sent_vals[w].numpy()),
@@ -173,7 +175,13 @@ def test_compact_finalize_with_den_matches_jax_bits():
                     _bits(getattr(got, name)[w].numpy()),
                     _bits(getattr(exp, name)), err_msg=name)
             np.testing.assert_array_equal(got.sent_idx[w].numpy(), np.asarray(exp.sent_idx))
+        wants.append(want)
     assert torch.equal(new.sent_w, den[idx])
+    # the JAX states, stacked and converted, carry sent_w across
+    conv = compact_state_from_jax(
+        jax.tree.map(lambda *x: np.stack([np.asarray(v) for v in x]), *wants), device="cpu")
+    for name in conv._fields:
+        assert torch.equal(getattr(conv, name), getattr(new, name)), name
     assert torch.equal(tc.compact_finalize(st, a, vals, idx, agg).sent_w,
                        torch.ones(W, k))
 

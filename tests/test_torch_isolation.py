@@ -66,3 +66,11 @@ def test_importing_the_port_loads_no_jax():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert int(out.stdout.split()[-1]) >= len(_modules())
+
+
+def test_the_wire_modules_are_checked():
+    """The wire's modules, ``comm/cost.py`` (plain arithmetic that the JAX
+    package also has) among them, are in both checks above."""
+    for name in ("codec", "collectives", "cost", "fastpath"):
+        assert PORT / "comm" / f"{name}.py" in _sources()
+        assert f"repro_torch.comm.{name}" in _modules()
