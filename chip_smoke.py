@@ -65,12 +65,36 @@ Phases, each raising on failure (the script then exits non-zero):
               with coo_q8 on == off in theta and eps, coordinate weighting
               (auto == off, no score launch), hierarchical == sparse_allgather
               with coo_idx_delta, and wire_bytes_per_round per codec; the
-              step and round time of each path.
+              step and round time of each path;
+9. ranks    — the trainer across ranks, one worker per rank over
+              torch.distributed, at full width (RegTop-k at S = 0.01,
+              5 steps): (a) nccl at world size 1 in this process (a
+              FileStore), coo_fp32 + sparse_allgather with the fastpath on,
+              params, every CompactState field and every encoded payload
+              equal in bits to the one-card --workers 1 run; (b) 8 ranks
+              spawned on this one card over gloo (nccl refuses two ranks on
+              one device), in turn sparse_allgather + coo_fp32 (fastpath
+              on), --coord-weights, dense_allreduce (which fuses no leaf)
+              hierarchical + coo_idx_delta on --multi-pod (2 x 4) and
+              --fastpath auto (rank 0's measured ThroughputTable, broadcast
+              over the others' tables, which would fuse no leaf: one plan
+              on every rank): every rank's params equal in bits, rank 0's losses within rtol 1e-5
+              of the one-card --workers 8 run's and its params within rtol
+              1e-5 with a floor of 1e-5 of a leaf's largest magnitude (bit
+              mismatches and the largest difference printed; where
+              all_reduce sums, at most 0.1% of the elements may be off by
+              up to 2 lr a step: Adam turns a last-ulp change of a
+              near-cancelling sum into a whole step), measured bytes
+              equal to predicted, kernel 1's launches per rank = steps x
+              fused leaves (0 under --coord-weights and dense_allreduce);
+              the per-rank step time beside the one-card step (host
+              clock), and one step of each under torch.profiler.
 
 Each kernel's launch count is set to 0 just before the path that runs it
 (select: ``count_above``, ``global_max``, ``block_topk_candidates``;
-trainer and each fused wire run: ``fused_candidates``; sim and the wire
-simulator's fastpath-on run: ``regtopk_score``) and read just after; the
+trainer, each fused wire run and each run of every rank:
+``fused_candidates``; sim and the wire simulator's fastpath-on run:
+``regtopk_score``) and read just after; the
 ``kernels`` line sums each kernel's main-path launches. The line before the last is the card's nvidia-smi line; before it,
 the ``kernels`` JSON line. The last line is the device JSON.
 ``--details FILE`` also writes every phase's results to FILE as JSON.
@@ -1183,19 +1207,10 @@ def wire_trainer(smi: str) -> dict:
     from repro_torch.comm import cost
     from repro_torch.comm.fastpath import ThroughputTable
     from repro_torch.core import distributed as td
-    from repro_torch.core.sparsify import SparsifierConfig
     from repro_torch.launch import train
-    from repro_torch.optim import OptConfig
     from repro_torch.tree import tree_items, tree_leaves
 
     out, launches = {}, 0
-
-    def dist_of(args, **kw):
-        return td.DistConfig(
-            sparsifier=SparsifierConfig(kind=args.sparsifier, sparsity=args.sparsity,
-                                        mu=args.mu),
-            optimizer=OptConfig(learning_rate=args.lr), codec=args.codec,
-            collective=args.collective, **kw)
 
     for codec in ("coo_idx_delta", "coo_q8"):
         args, res, row = _wire_train(codec, ["--codec", codec, "--fastpath", "on"])
@@ -1203,14 +1218,14 @@ def wire_trainer(smi: str) -> dict:
             raise AssertionError(f"wire trainer {codec}: kernel 1 never launched")
         launches += row["launches"]
         (st_on, pay_on, plan, ms_on, run_on), (st_off, pay_off, _, ms_off, _) = (
-            _one_step(args, res, dist_of(args, fastpath=mode)) for mode in ("on", "off"))
+            _one_step(args, res, _dist_of(args, fastpath=mode)) for mode in ("on", "off"))
         if not _payloads_equal(pay_on, pay_off):
             raise AssertionError(f"wire trainer {codec}: fastpath on/off payloads differ")
         for (path, a), (_, b) in zip(tree_items(st_on), tree_items(st_off), strict=True):
             if not (_bits_equal(a.sent_vals, b.sent_vals)
                     and torch.equal(a.sent_idx, b.sent_idx)):
                 raise AssertionError(f"wire trainer {codec}: {path} sent_vals differ")
-        pred, _ = td.comm_round_bytes(plan, dist_of(args), W)
+        pred, _ = td.comm_round_bytes(plan, _dist_of(args), W)
         meas = sum(
             cost.measured_bytes(args.collective, p.local_len,
                                 {k: v[:1] for k, v in pay.items()}, (W,))
@@ -1232,7 +1247,7 @@ def wire_trainer(smi: str) -> dict:
                                  ["--codec", "bitmap_dense", "--fastpath", "on"])
     if row["launches"] or row["fused_leaves"]:
         raise AssertionError("wire trainer bitmap_dense: fused, but it never fuses")
-    *_, row["step_ms"], run = _one_step(args, res, dist_of(args, fastpath="on"))
+    *_, row["step_ms"], run = _one_step(args, res, _dist_of(args, fastpath="on"))
     row["profile"] = profile_step(run, row["step_ms"])
     log(f"wire trainer bitmap_dense: 0 kernel launches (never fuses), losses "
         f"{res.losses[0]:.4f} -> {res.losses[-1]:.4f}; step {row['step_ms']:.1f} ms "
@@ -1243,7 +1258,7 @@ def wire_trainer(smi: str) -> dict:
     sent_w = torch.cat([st.sent_w.reshape(-1) for _, st in tree_items(res.sp_state)])
     if bool((sent_w == 1.0).all()) or not bool(torch.isfinite(sent_w).all()):
         raise AssertionError("wire trainer coord-weights: sent_w is all 1")
-    *_, row["step_ms"], run = _one_step(args, res, dist_of(args, weighting="coordinate"))
+    *_, row["step_ms"], run = _one_step(args, res, _dist_of(args, weighting="coordinate"))
     row["profile"] = profile_step(run, row["step_ms"])
     row["sent_w_not_one"] = float((sent_w != 1.0).float().mean())
     log(f"wire trainer coord-weights: losses {res.losses[0]:.4f} -> "
@@ -1258,7 +1273,7 @@ def wire_trainer(smi: str) -> dict:
     log(f"wire trainer auto: ThroughputTable.measure() on this card: fused "
         f"{table.fused_bps:.4e} B/s, unfused {table.unfused_bps:.4e} B/s; auto "
         f"fuses {len(fused)}/{len(tree_leaves(res.plan))} leaves {fused} ({smi})")
-    steps = {mode: _one_step(args, res, dist_of(args, fastpath=mode), table)
+    steps = {mode: _one_step(args, res, _dist_of(args, fastpath=mode), table)
              for mode in ("auto", "off")}
     if not _payloads_equal(steps["auto"][1], steps["off"][1]):
         raise AssertionError("wire trainer auto: payloads differ from fastpath off")
@@ -1422,6 +1437,358 @@ def phase_wire(smi: str) -> dict:
     return {"trainer": wire_trainer(smi), "sim": wire_sim(smi)}
 
 
+RANK_STEPS = 5
+# phase 9 (b): name -> the flags beside TRAIN_ARGS' (which set W = 8 and
+# the fastpath on); --coord-weights runs with the fastpath off (the fused
+# kernel takes a scalar omega)
+RANK_RUNS = {
+    "sparse_allgather": [],
+    "coord_weights": ["--coord-weights", "--fastpath", "off"],
+    "dense_allreduce": ["--collective", "dense_allreduce"],
+    "hierarchical": ["--collective", "hierarchical", "--codec", "coo_idx_delta",
+                     "--multi-pod"],
+    "auto": ["--fastpath", "auto"],
+}
+# whether a run's plan fuses leaves: dense_allreduce moves the dense
+# vector, so it fuses none, and neither does coordinate weighting; under
+# auto rank 0's measured table decides, for every rank (``_rank_body``)
+RANK_FUSED = {"sparse_allgather": True, "coord_weights": False,
+              "dense_allreduce": False, "hierarchical": True}
+# the runs whose sums all_reduce takes in the backend's order
+RANK_ALL_REDUCE = ("dense_allreduce", "hierarchical")
+
+
+def _sync(device: str) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _rank_args(base: list, extra: list, device: str, workers: int):
+    """Phase 9's trainer flags: ``base`` (``TRAIN_ARGS``), then the ones
+    given here, which argparse lets override it."""
+    from repro_torch.launch import train
+
+    return train.parse_args([*base, "--workers", str(workers), "--steps",
+                             str(RANK_STEPS), "--log-every", "100",
+                             "--device", device, *extra])
+
+
+def _dist_of(args, **fields):
+    """The ``DistConfig`` that ``train.run`` builds from ``args``, with
+    ``fields`` replaced."""
+    import dataclasses
+
+    from repro_torch.launch import train
+
+    return dataclasses.replace(train.dist_config(args), **fields)
+
+
+def _step_ms(args, res, mesh=None, reps: int = 3):
+    """Median host-clock milliseconds of one training step from the state
+    run ``res`` reached (this rank's step across the ranks of ``mesh``),
+    and one more step under torch.profiler: the device time of its
+    kernels and the host operators that took the most time (self time)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as td
+    from repro_torch.data import TokenPipeline
+    from repro_torch.optim import make_optimizer
+
+    cfg = _model_cfg(args)
+    dcfg = _dist_of(args)
+    workers = args.workers if mesh is None else mesh.size
+    step = td.make_train_step(cfg, dcfg, res.plan, workers, mesh=mesh)
+    opt_state = make_optimizer(dcfg.optimizer).init(res.params)
+    batch = TokenPipeline(cfg, args.global_batch, args.seq, 1,
+                          args.device).batch_at(0)
+    times = []
+    for _ in range(reps):
+        _sync(args.device)
+        if mesh is not None:
+            dist.barrier()
+        t0 = time.perf_counter()
+        step(res.params, opt_state, res.sp_state, batch)
+        _sync(args.device)
+        times.append(1e3 * (time.perf_counter() - t0))
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(args.device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        step(res.params, opt_state, res.sp_state, batch)
+        _sync(args.device)
+    rows = prof.key_averages()
+    device_ms = sum(ev.self_device_time_total for ev in rows
+                    if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    host = sorted(((ev.self_cpu_time_total / 1e3, ev.count, ev.key)
+                   for ev in rows
+                   if ev.device_type == torch.autograd.DeviceType.CPU),
+                  reverse=True)[:8]
+    return statistics.median(times), {
+        "device_ms": device_ms,
+        "host_top": [{"op": k, "ms": ms, "count": n} for ms, n, k in host]}
+
+
+def _params_digest(params) -> str:
+    import hashlib
+
+    from repro_torch.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for leaf in tree_leaves(params):
+        h.update(leaf.detach().cpu().contiguous().view(torch.int32).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _wire_bytes(args, plan, payloads, dp_sizes):
+    """(predicted, measured) bytes per worker per round of one step: the
+    prediction of ``comm_round_bytes``, the measurement from the payloads
+    this rank encoded in its last step (none on a dense wire)."""
+    from repro_torch.comm import cost
+    from repro_torch.core import distributed as td
+    from repro_torch.tree import tree_leaves
+
+    dcfg = _dist_of(args)
+    pred, _ = td.comm_round_bytes(plan, dcfg, dp_sizes)
+    meas, leaves = 0, tree_leaves(plan)
+    last = payloads[-len(leaves):] if payloads else [{}] * len(leaves)
+    for p, (_, coll, dense), pay in zip(
+            leaves, td._leaf_wire_patterns(plan, dcfg), last, strict=True):
+        meas += cost.measured_bytes(coll, p.local_len, {} if dense else pay,
+                                    dp_sizes)
+    return pred, meas
+
+
+def _rank_body(rank: int, world: int, store: str, out_dir: str,
+               device: str, base: list) -> None:
+    """One of phase 9's ranks over gloo: every run of ``RANK_RUNS`` on the
+    flags ``base`` in turn, kernel 1's launches counted from 0 around
+    each. Rank 0 saves its params per run; every rank saves its numbers
+    to ``out_dir/rank{rank}.json``."""
+    import torch.distributed as dist
+
+    from repro_torch.comm.codec import get_codec
+    from repro_torch.comm.fastpath import ThroughputTable
+    from repro_torch.kernels import fused_encode as fe
+    from repro_torch.launch import mesh, train
+    from repro_torch.tree import tree_leaves
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(device)
+    mesh.init_file_store(store, rank, world, "gloo")
+    try:
+        out = {}
+        for name, extra in RANK_RUNS.items():
+            args = _rank_args(base, extra, device, world)
+            groups = mesh.make_production_groups(multi_pod=args.multi_pod)
+            # auto: rank 0 measures its table (outside the counted run);
+            # the other ranks hold one that would fuse no leaf, so equal
+            # plans show that rank 0's table reached every rank
+            table = None
+            if args.fastpath == "auto":
+                table = (ThroughputTable.measure(device=device) if rank == 0
+                         else ThroughputTable(fused_bps=1.0))
+            fe.fused_candidates.launches = 0
+            _sync(device)
+            with _PayloadRecorder(get_codec(args.codec)) as rec:
+                res = train.run(args, table=table, mesh=groups)
+            _sync(device)
+            launches = fe.fused_candidates.launches
+            pred, meas = _wire_bytes(args, res.plan, rec.payloads, groups.shape)
+            out[name] = {
+                "losses": res.losses, "launches": launches,
+                "fused_leaves": sum(p.fused for p in tree_leaves(res.plan)),
+                "fused_paths": [path for path, p in _flat(res.plan).items()
+                                if p.fused],
+                "rounds": res.counts.rounds, "hit_rate": res.counts.hit_rate,
+                "digest": _params_digest(res.params), "predicted_bytes": pred,
+                "measured_bytes": meas, "dp": list(groups.shape),
+            }
+            if name == "sparse_allgather":
+                out[name]["step_ms"], out[name]["profile"] = _step_ms(
+                    args, res, groups)
+            if rank == 0:
+                torch.save({k: v.cpu() for k, v in _flat(res.params).items()},
+                           f"{out_dir}/{name}.pt")
+        Path(f"{out_dir}/rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _flat(tree) -> dict:
+    from repro_torch.tree import tree_items
+
+    return dict(tree_items(tree))
+
+
+def _param_diff(got: dict, want: dict, adam_step: float = 0.0) -> dict:
+    """Two parameter trees: bit mismatches, the largest difference relative
+    to ``|want| + max|leaf of want|``, and the elements beyond rtol 1e-5
+    with a floor of 1e-5 of their leaf's largest magnitude
+    (``tests/test_torch_train.py``'s tolerance). ``ok`` when there are
+    none; or, given ``adam_step`` (the most that flipped Adam steps can
+    move an element), when at most 0.1% are beyond and by no more than
+    it. The second form is for sums that ``all_reduce`` takes in another
+    order than the one card: where the workers' gradients nearly cancel,
+    a last-ulp difference of the sum changes its sign or zeroes it, and
+    Adam's normalised step turns that into up to 2 lr a step."""
+    mismatches, worst, beyond, max_abs, n = 0, 0.0, 0, 0.0, 0
+    for path, w in want.items():
+        g = got[path].to(w.device)
+        mismatches += int((g.view(torch.int32) != w.view(torch.int32)).sum())
+        floor = float(w.abs().max())
+        diff = (g - w).abs()
+        worst = max(worst, float((diff / (w.abs() + floor)).max()))
+        beyond += int((diff > 1e-5 * w.abs() + 1e-5 * floor).sum())
+        max_abs, n = max(max_abs, float(diff.max())), n + w.numel()
+    ok = beyond == 0 or (beyond <= 1e-3 * n and max_abs <= adam_step)
+    return {"mismatches": mismatches, "largest_rel_diff": worst,
+            "beyond_rtol": beyond, "max_abs_diff": max_abs, "ok": ok}
+
+
+def ranks_world_one(device: str = DEVICE, backend: str = "nccl") -> dict:
+    """Phase 9 (a): the trainer at world size 1 over ``backend`` in this
+    process against the one-card ``--workers 1`` run, in bits."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.comm.codec import get_codec
+    from repro_torch.kernels import fused_encode as fe
+    from repro_torch.launch import mesh, train
+
+    args = _rank_args(TRAIN_ARGS, [], device, workers=1)
+
+    def traced(groups=None):
+        fe.fused_candidates.launches = 0
+        _sync(device)
+        with _PayloadRecorder(get_codec(args.codec)) as rec:
+            res = train.run(args, mesh=groups)
+        _sync(device)
+        return res, rec.payloads, fe.fused_candidates.launches
+
+    one, pay_one, _ = traced()
+    with tempfile.TemporaryDirectory() as d:
+        mesh.init_file_store(f"{d}/store", 0, 1, backend)
+        try:
+            rk, pay_rk, launches = traced(mesh.make_host_groups())
+        finally:
+            dist.destroy_process_group()
+    for path, w in _flat(one.params).items():
+        if not _bits_equal(_flat(rk.params)[path], w):
+            raise AssertionError(f"ranks (a): params {path} differ from one card")
+    for (path, a), b in zip(_flat(rk.sp_state).items(),
+                            _flat(one.sp_state).values(), strict=True):
+        for field, x, y in zip(a._fields, a, b, strict=True):
+            if not _bits_equal(x, y):
+                raise AssertionError(f"ranks (a): {path}.{field} differs")
+    if not (pay_rk and _payloads_equal(pay_rk, pay_one)):
+        raise AssertionError("ranks (a): encoded payloads differ from one card")
+    n_fused = sum(p.fused for p in _flat(rk.plan).values())
+    if launches != RANK_STEPS * n_fused or launches == 0:
+        raise AssertionError(f"ranks (a): {launches} kernel 1 launches, expected "
+                             f"{RANK_STEPS} x {n_fused}")
+    log(f"ranks (a): {backend} at world size 1, {RANK_STEPS} steps: params, "
+        f"CompactState and {len(pay_rk)} payloads bit-equal to the one-card "
+        f"--workers 1 run; {launches} kernel 1 launches")
+    return {"backend": backend, "launches": launches, "losses": rk.losses,
+            "payloads": len(pay_rk)}
+
+
+def ranks_spawned(smi: str, device: str = f"{DEVICE}:0", world: int = W,
+                  timeout: float = 480.0) -> dict:
+    """Phase 9 (b): ``world`` ranks spawned on ``device`` over gloo, each
+    run of ``RANK_RUNS`` against the one-card ``--workers world`` run."""
+    import tempfile
+
+    from repro_torch.launch import mesh, train
+
+    one_card = {}
+    for name, extra in RANK_RUNS.items():
+        args = _rank_args(TRAIN_ARGS, [a for a in extra if a != "--multi-pod"],
+                          device, world)
+        res = train.run(args)
+        one_card[name] = {"params": _flat(res.params), "losses": res.losses}
+        if name == "sparse_allgather":
+            one_card[name]["step_ms"], one_card[name]["profile"] = _step_ms(
+                args, res)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        mesh.spawn(_rank_body, world, (f"{d}/store", d, device, TRAIN_ARGS),
+                   timeout=timeout)
+        seconds = time.perf_counter() - t0
+        ranks = [json.loads(Path(f"{d}/rank{r}.json").read_text())
+                 for r in range(world)]
+        params = {name: torch.load(f"{d}/{name}.pt") for name in RANK_RUNS}
+    out, launches = {"seconds": seconds}, 0
+    for name in RANK_RUNS:
+        rows = [rk[name] for rk in ranks]
+        if len({row["digest"] for row in rows}) != 1:
+            raise AssertionError(f"ranks (b) {name}: ranks' params differ in bits")
+        if any(row["fused_paths"] != rows[0]["fused_paths"] for row in rows):
+            raise AssertionError(f"ranks (b) {name}: the ranks' plans differ")
+        for r, row in enumerate(rows):
+            if row["launches"] != RANK_STEPS * row["fused_leaves"]:
+                raise AssertionError(
+                    f"ranks (b) {name}: rank {r} launched kernel 1 "
+                    f"{row['launches']} times, expected {RANK_STEPS} x "
+                    f"{row['fused_leaves']} fused leaves")
+            if row["measured_bytes"] != row["predicted_bytes"]:
+                raise AssertionError(
+                    f"ranks (b) {name}: rank {r} measured {row['measured_bytes']} "
+                    f"B, predicted {row['predicted_bytes']} B")
+        if RANK_FUSED.get(name, rows[0]["fused_leaves"] > 0) != (
+                rows[0]["fused_leaves"] > 0):
+            raise AssertionError(f"ranks (b) {name}: {rows[0]['fused_leaves']} "
+                                 "fused leaves")
+        args = _rank_args(TRAIN_ARGS, [], device, world)
+        diff = _param_diff(params[name], one_card[name]["params"],
+                           2 * args.lr * RANK_STEPS if name in RANK_ALL_REDUCE
+                           else 0.0)
+        if not diff["ok"]:
+            raise AssertionError(f"ranks (b) {name}: params against the one-card "
+                                 f"run {diff}")
+        for got, want in zip(rows[0]["losses"], one_card[name]["losses"],
+                             strict=True):
+            if abs(got - want) > 1e-5 * abs(want):
+                raise AssertionError(f"ranks (b) {name}: losses {rows[0]['losses']}"
+                                     f" vs one card {one_card[name]['losses']}")
+        launches += sum(row["launches"] for row in rows)
+        out[name] = {"ranks": rows, "vs_one_card": diff,
+                     "one_card_losses": one_card[name]["losses"]}
+        log(f"ranks (b) {name}: {world} ranks over gloo on one card, dp "
+            f"{rows[0]['dp']}: params equal in bits across ranks; against the "
+            f"one-card --workers {world} run (losses within rtol 1e-5) "
+            f"{diff['mismatches']} bit mismatches, largest relative difference "
+            f"{diff['largest_rel_diff']:.3e}, {diff['beyond_rtol']} elements "
+            f"beyond rtol 1e-5 (largest |diff| {diff['max_abs_diff']:.3e}); "
+            f"{rows[0]['launches']} kernel 1 launches per rank "
+            f"({rows[0]['fused_leaves']} fused leaves); "
+            f"measured = predicted = {rows[0]['measured_bytes']} B per worker per "
+            f"round; losses {rows[0]['losses'][0]:.4f} -> "
+            f"{rows[0]['losses'][-1]:.4f}")
+    per_rank = [rk["sparse_allgather"]["step_ms"] for rk in ranks]
+    one = one_card["sparse_allgather"]
+    out["step_ms"] = {"ranks": per_rank, "one_card": one["step_ms"]}
+    out["profile"] = {"rank0": ranks[0]["sparse_allgather"]["profile"],
+                      "one_card": one["profile"]}
+    out["launches"] = launches
+    log(f"ranks (b) step time (host clock, sparse_allgather + coo_fp32): rank 0 "
+        f"{per_rank[0]:.1f} ms, slowest rank {max(per_rank):.1f} ms, one-card "
+        f"--workers {world} {one['step_ms']:.1f} ms ({smi})")
+    for who, prof in out["profile"].items():
+        log(f"ranks (b) profile {who}: device {prof['device_ms']:.2f} ms; host "
+            "self time: " + "; ".join(f"{r['op'][:40]} {r['ms']:.1f} ms x{r['count']}"
+                                      for r in prof["host_top"][:6]))
+    return out
+
+
+def phase_ranks(smi: str) -> dict:
+    one = ranks_world_one()
+    spawned = ranks_spawned(smi)
+    return {"world_one": one, "spawned": spawned,
+            "launches": one["launches"] + spawned["launches"]}
+
+
 def ab_times() -> dict:
     """Kernel 1's device time per training step (every leaf of the main
     path, W = 8, the trainer's budgets) and ``block_topk_candidates``' at
@@ -1503,6 +1870,7 @@ def main(argv=None) -> int:
     trainer = phase_trainer()
     sim = phase_sim()
     wire = phase_wire(smi)
+    ranks = phase_ranks(smi)
     ab = phase_ab(args.parent) if args.parent is not None else None
     per_step = kernels["per_step"]
     per_round = score["per_round"]
@@ -1511,7 +1879,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_encode.cu",
         "replaces": "src/repro/kernels/fused_encode.py:111",
-        "launches": trainer["launches"] + wire["trainer"]["launches"],
+        "launches": (trainer["launches"] + wire["trainer"]["launches"]
+                     + ranks["launches"]),
         "max_abs_err": kernels["max_abs_err"],
         "ms": per_step["ms"],
         "plain_ms": per_step["plain_ms"],
@@ -1555,7 +1924,8 @@ def main(argv=None) -> int:
         args.details.write_text(json.dumps(
             {"device": device_name, "nvidia_smi": smi, "build_seconds": builds,
              "kernels": kernels, "score": score, "select": select,
-             "trainer": trainer, "sim": sim, "wire": wire, "ab": ab,
+             "trainer": trainer, "sim": sim, "wire": wire, "ranks": ranks,
+             "ab": ab,
              "kernels_line": line},
             indent=1,
         ))

@@ -32,16 +32,32 @@ partials summed over the fast inner one) has the numbers of
 ``sparse_allgather`` in one process: the grouping only matters on a
 mesh.
 
+The ``shard`` and ``shard_coord`` forms run on one rank per worker over
+``torch.distributed``, where the JAX package's run inside ``shard_map``:
+they take this rank's payload (a worker axis of 1) and a sequence of
+process groups, outermost first, where the JAX forms take axis names
+(``repro_torch.launch.mesh`` builds them). A gather stacks the ranks'
+payloads as ``jax.lax.all_gather`` over the axes in turn stacks them (on
+one axis, in rank order), then every rank decodes and scatter-adds the
+stack one worker at a time, as ``reference`` does: ``sparse_allgather``
+across ranks equals the one-card form and the JAX shard form in f32
+bits. The sums that ``dense_allreduce`` and ``hierarchical``'s inner
+stage take with ``all_reduce`` follow the backend's order, as ``psum``
+follows XLA's. Every field is gathered as its bytes (gloo refuses
+int16), so the wire carries the codec's own bytes. Under gloo a CUDA
+tensor is staged through host memory by the backend itself.
+
 Only the full-participation form is ported: a ``participation`` mask
-(ROADMAP queue 1 item 6) and the forms across cards (item 4b) come later.
+is ROADMAP queue 1 item 6.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.comm.codec import Codec, Payload
+from repro_torch.comm.codec import Codec, Payload, get_codec
 
 Weights = Union[float, torch.Tensor]
 
@@ -90,6 +106,37 @@ def scatter_add_payloads(
     for n in range(vals.shape[0]):
         agg.index_add_(0, idx[n], wvals[n])
     return agg
+
+
+def _gather(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """All-gather ``x`` over each group in turn, outermost first, as the
+    JAX package's ``_gather_payload`` loops over its axis names: this
+    rank's ``[1, ...]`` becomes ``[N, ...]``, and a 1-D field (``coo_q8``'s
+    ``scale [1]``) becomes ``[N]``. Each gather stacks the group's
+    ranks in order and the next gathers that stack whole, so on two axes
+    the outer axis varies fastest, as in JAX. The bytes are gathered,
+    then viewed back."""
+    for group in groups:
+        raw = x.contiguous().view(torch.uint8)
+        parts = [torch.empty_like(raw) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, raw, group=group)
+        x = torch.cat(parts).view(x.dtype)
+    return x
+
+
+def _gather_payload(payload: Payload, groups: Sequence) -> Payload:
+    """Every field of this rank's payload gathered over ``groups``
+    (``_gather``): a ``[N, ...]`` stack, in the JAX shard form's order."""
+    return {name: _gather(x, groups) for name, x in payload.items()}
+
+
+def _psum(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """The sum of ``x`` over every rank of ``groups``, one group after
+    another, in the backend's order (``x`` is left as it was)."""
+    x = x.clone()
+    for group in groups:
+        dist.all_reduce(x, group=group)
+    return x
 
 
 WEIGHTINGS = ("worker", "coordinate")
@@ -153,6 +200,33 @@ class Collective:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
 
+    def shard(
+        self, codec: Codec, payload: Payload, length: int, groups: Sequence,
+        weight: float, participation: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """This rank's ``[1, ...]`` payload reduced over the process
+        ``groups`` (outermost first) with this rank's ``weight``: the
+        ``[L]`` aggregate, the same on every rank."""
+        raise NotImplementedError
+
+    def shard_coord(
+        self, codec: Codec, payload: Payload, length: int, groups: Sequence,
+        weight: float, participation: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Coordinate weighting across ranks: ``(agg, den)``."""
+        raise NotImplementedError
+
+
+def _shard_num_den(codec, payload, length, groups, weight):
+    """The coordinate-weighting sums over the ranks of ``groups``: the
+    payloads and each rank's own weight gathered in one stacking order,
+    then decoded and added one worker at a time (``_coord_num_den``)."""
+    w = torch.full((1,), float(weight), dtype=torch.float32,
+                   device=next(iter(payload.values())).device)
+    return _coord_num_den(
+        codec, _gather_payload(payload, groups), _gather(w, groups), length
+    )
+
 
 class SparseAllgather(Collective):
     name = "sparse_allgather"
@@ -171,13 +245,44 @@ class SparseAllgather(Collective):
         num, den = _coord_num_den(codec, payloads, weights, length)
         return _coord_divide(num, den), den
 
+    def shard(self, codec, payload, length, groups, weight,
+              participation=None):
+        """Gather every rank's payload, then ``reference`` on the stack."""
+        _no_participation(participation)
+        return self.reference(
+            codec, _gather_payload(payload, groups), weight, length
+        )
+
+    def shard_coord(self, codec, payload, length, groups, weight,
+                    participation=None):
+        _no_participation(participation)
+        num, den = _shard_num_den(codec, payload, length, groups, weight)
+        return _coord_divide(num, den), den
+
 
 class Hierarchical(SparseAllgather):
     """Payloads all-gathered over the outer (slow) mesh axes and decoded,
     dense partials summed over the innermost (fast) one. In one process
-    the grouping is notional: the numbers are ``sparse_allgather``'s."""
+    the grouping is notional: the numbers are ``sparse_allgather``'s.
+    Across ranks ``groups[:-1]`` are the outer groups (none on one axis,
+    where this rank's own payload is the partial) and ``groups[-1]`` the
+    inner one."""
 
     name = "hierarchical"
+
+    def shard(self, codec, payload, length, groups, weight,
+              participation=None):
+        partial = super().shard(
+            codec, payload, length, groups[:-1], weight, participation
+        )
+        return _psum(partial, groups[-1:])
+
+    def shard_coord(self, codec, payload, length, groups, weight,
+                    participation=None):
+        _no_participation(participation)
+        num, den = _shard_num_den(codec, payload, length, groups[:-1], weight)
+        num, den = _psum(num, groups[-1:]), _psum(den, groups[-1:])
+        return _coord_divide(num, den), den
 
 
 class DenseAllreduce(Collective):
@@ -203,10 +308,48 @@ class DenseAllreduce(Collective):
         num, den = dense_mean(dense, w), dense_mean(presence, w)
         return _coord_divide(num, den), den
 
+    def shard(self, codec, payload, length, groups, weight,
+              participation=None):
+        _no_participation(participation)
+        return _psum(codec.decoded_dense(payload, length)[0] * weight, groups)
+
+    def shard_coord(self, codec, payload, length, groups, weight,
+                    participation=None):
+        _no_participation(participation)
+        dense = codec.decoded_dense(payload, length)[0]
+        presence = (dense != 0).to(dense.dtype)
+        num = _psum(dense * weight, groups)
+        den = _psum(presence * weight, groups)
+        return _coord_divide(num, den), den
+
 
 COLLECTIVES = {
     c.name: c for c in (DenseAllreduce(), SparseAllgather(), Hierarchical())
 }
+
+
+def allreduce_dense(ghat: torch.Tensor, groups: Sequence,
+                    weight: float) -> torch.Tensor:
+    """Weighted dense all-reduce of this rank's ``ghat [L]`` over the
+    process ``groups`` (the uncompressed pattern). Needs an initialised
+    process group:
+
+    >>> agg = allreduce_dense(ghat, mesh.groups_of(("data",)), 1.0 / 8)  # doctest: +SKIP
+    """
+    return _psum(ghat * weight, groups)
+
+
+def allgather_scatter(vals: torch.Tensor, idx: torch.Tensor, length: int,
+                      groups: Sequence, weight: float) -> torch.Tensor:
+    """Compressed aggregation of this rank's ``(vals [k], idx [k])`` in the
+    fp32 COO wire format, ``SparseAllgather().shard`` with ``coo_fp32``.
+    Needs an initialised process group:
+
+    >>> agg = allgather_scatter(vals, idx, L, mesh.groups_of(("data",)), w)  # doctest: +SKIP
+    """
+    codec = get_codec("coo_fp32")
+    payload = codec.encode(vals[None], idx[None], length)
+    return SparseAllgather().shard(codec, payload, length, groups, weight)
 
 
 def get_collective(name: str) -> Collective:

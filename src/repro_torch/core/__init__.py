@@ -7,6 +7,8 @@ The library boundary, as ``repro.core`` offers it to ``examples/``::
 """
 from repro_torch.core.aggregate import (
     AGGREGATIONS,
+    allgather_scatter,
+    allreduce_dense,
     dense_mean,
     scatter_add_payloads,
 )
@@ -45,6 +47,8 @@ __all__ = [
     "Sparsifier",
     "SparsifierConfig",
     "TopK",
+    "allgather_scatter",
+    "allreduce_dense",
     "dense_mean",
     "exact_topk_mask",
     "fixed_k_payload",

@@ -1,13 +1,24 @@
-"""Sparsified data-parallel training on one card (counterpart of
-``repro.core.distributed``).
+"""Sparsified data-parallel training (counterpart of
+``repro.core.distributed``), on one card or one rank per worker.
 
 The JAX trainer's W is the size of its data-parallel mesh: it vmaps the W
 workers' gradients in one program and aggregates their payloads over the
-mesh. The port keeps that leading worker axis on one card: W logical
-workers, each with its own batch shard, gradient and ``CompactState``,
-aggregated by the one-card ``sparse_allgather`` or ``dense_allreduce``.
-It is the counterpart of the JAX trainer under
-``--xla_force_host_platform_device_count=W``.
+mesh. The port runs it in two forms:
+
+* on one card (``mesh=None``): that leading worker axis kept on the card,
+  W logical workers, each with its own batch shard, gradient and
+  ``CompactState``, aggregated by the collectives' one-card ``reference``
+  forms. The counterpart of the JAX trainer under
+  ``--xla_force_host_platform_device_count=W``;
+* across ranks (``mesh``, a ``repro_torch.launch.mesh.DpGroups``): one
+  worker per rank over ``torch.distributed``, the counterpart of the JAX
+  trainer's ``shard_map`` over its dp mesh axes. Each rank holds its
+  worker's batch shard (rows ``r·B/W … (r+1)·B/W``), gradient and
+  ``CompactState`` (a worker axis of 1), and the collectives' ``shard``
+  forms reduce over the dp process groups. ``sparse_allgather`` gives
+  every rank the one-card aggregate in f32 bits; the ``all_reduce`` sums
+  (``dense_allreduce``, ``hierarchical``'s inner stage, kind "none"'s
+  mean) follow the backend's order.
 
 One round per leaf (``_spa_leaf``): accumulate and select
 (``compact_select``, fused through the CUDA kernel on fused leaves),
@@ -23,17 +34,27 @@ runs once on the common aggregate.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as torch_dist
 
 from repro_torch.comm import cost
 from repro_torch.comm import fastpath as fp
 from repro_torch.comm.codec import get_codec
-from repro_torch.comm.collectives import _coord_divide, check_weighting, get_collective
+from repro_torch.comm.collectives import (
+    _coord_divide,
+    _gather,
+    _psum,
+    check_weighting,
+    get_collective,
+)
 from repro_torch.core import compact as C
 from repro_torch.core.selectors import sparsity_to_k
 from repro_torch.core.sparsify import SparsifierConfig
+from repro_torch.kernels.regtopk_score import ieee_div
+from repro_torch.launch.mesh import DpGroups, dp_axes_of
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn.layers import set_fp32_matmul
@@ -149,15 +170,22 @@ def init_sparsifier_state(plan, workers: int, device="cuda"):
     )
 
 
-def _spa_leaf(g, st, p: LeafPlan, scfg, codec, collective, coord, counts):
-    """One leaf's round for all W workers: ``g [W, *shape]``. Returns
-    (aggregate ``[*shape]``, new state)."""
+def _spa_leaf(g, st, p: LeafPlan, scfg, codec, collective, coord, counts,
+              groups=None):
+    """One leaf's round for the W workers of ``g [W, *shape]``. Returns
+    (aggregate ``[*shape]``, new state). ``groups`` (the dp process
+    groups, outermost first) makes it this rank's round, ``g [1,
+    *shape]``, reduced across the ranks; None keeps every worker on this
+    card."""
     W = g.shape[0]
     gl = g.reshape(W, p.local_len)
     if scfg.kind == "none":
-        return gl.float().mean(0).reshape(p.global_shape), st._replace(
-            t=st.t + 1
-        )
+        if groups is None:
+            mean = gl.float().mean(0)
+        else:  # pmean: the sum over the ranks, divided by their number
+            n = math.prod(torch_dist.get_world_size(gr) for gr in groups)
+            mean = ieee_div(_psum(gl[0].float(), groups), float(n))
+        return mean.reshape(p.global_shape), st._replace(t=st.t + 1)
     a, vals, idx = C.compact_select(
         scfg, st, gl, p.k, fastpath="on" if p.fused else None, counts=counts
     )
@@ -174,6 +202,9 @@ def _spa_leaf(g, st, p: LeafPlan, scfg, codec, collective, coord, counts):
             agg = agg + ghat[w] * scfg.omega
             if coord:
                 den = den + presence[w] * scfg.omega
+        if groups is not None:
+            agg = _psum(agg, groups)
+            den = _psum(den, groups) if coord else None
         if coord:
             agg = _coord_divide(agg, den)
         new = C.compact_finalize(st, a, vals, idx, agg, den=den)
@@ -186,20 +217,42 @@ def _spa_leaf(g, st, p: LeafPlan, scfg, codec, collective, coord, counts):
     dvals, didx = codec.decode(payload, p.local_len)
     sent_dense = torch.zeros_like(a).scatter_add_(1, didx, dvals.to(a.dtype))
     if coord:
-        agg, den = collective.reference_coord(
-            codec, payload, scfg.omega, p.local_len
+        agg, den = (
+            collective.reference_coord(codec, payload, scfg.omega, p.local_len)
+            if groups is None
+            else collective.shard_coord(
+                codec, payload, p.local_len, groups, scfg.omega
+            )
         )
         agg, den = agg.to(a.dtype), den.to(a.dtype)
-    else:
+    elif groups is None:
         agg = collective.reference(codec, payload, scfg.omega, p.local_len)
+    else:
+        agg = collective.shard(codec, payload, p.local_len, groups, scfg.omega)
     new = C.compact_finalize_sent(st, a, dvals, didx, sent_dense, agg, den=den)
     return agg.reshape(p.global_shape).to(g.dtype), new
 
 
+def _dp_groups(mesh: Optional[DpGroups], n_workers: int):
+    """The dp process groups of ``mesh`` (None on one card), with W = the
+    number of ranks in its dp layout."""
+    if mesh is None:
+        return None
+    if n_workers != mesh.size:
+        raise ValueError(
+            f"{n_workers} workers, but the dp layout {mesh.shape} holds "
+            f"{mesh.size} ranks: across ranks W is the number of ranks"
+        )
+    return mesh.groups_of(dp_axes_of(mesh))
+
+
 def make_sparsify_aggregate(plan, dist: DistConfig, n_workers: int,
-                            counts: Optional[fp.FastpathCounts] = None):
+                            counts: Optional[fp.FastpathCounts] = None,
+                            mesh: Optional[DpGroups] = None):
     """``spa(grads, state) -> (agg, new_state)`` over the parameter tree;
-    ``grads`` leaves are ``[W, *shape]``."""
+    ``grads`` leaves are ``[W, *shape]`` on one card, and this rank's
+    ``[1, *shape]`` across the ranks of ``mesh`` (W = its size)."""
+    groups = _dp_groups(mesh, n_workers)
     scfg = dataclasses.replace(dist.sparsifier, omega=1.0 / n_workers)
     codec = get_codec(dist.codec)
     collective = get_collective(dist.collective)
@@ -218,7 +271,7 @@ def make_sparsify_aggregate(plan, dist: DistConfig, n_workers: int,
     def spa(grads, state):
         outs = tree_map(
             lambda g, s, p: _spa_leaf(
-                g, s, p, scfg, codec, collective, coord, counts
+                g, s, p, scfg, codec, collective, coord, counts, groups
             ),
             grads, state, plan,
         )
@@ -252,29 +305,38 @@ def _leaf_wire_patterns(plan, dist: DistConfig):
         yield p, "dense_allreduce" if dense else dist.collective, dense
 
 
-def comm_round_bytes(plan, dist: DistConfig, workers: int) -> Tuple[int, int]:
+def _dp_sizes(workers) -> Tuple[int, ...]:
+    """The dp axis sizes, outermost first: an int is one axis of W."""
+    return (workers,) if isinstance(workers, int) else tuple(workers)
+
+
+def comm_round_bytes(plan, dist: DistConfig, workers) -> Tuple[int, int]:
     """(predicted, measured) bytes on the wire per worker per round, summed
     over leaves, from ``repro_torch.comm.cost``: predicted from the
     codec's bit accounting, measured from the buffers one
-    ``codec.encode`` returns. The W workers form one dp axis."""
+    ``codec.encode`` returns. ``workers`` is the dp sizes, outermost
+    first (``DpGroups.shape``), or W for one dp axis."""
     codec = get_codec(dist.codec)
+    dp = _dp_sizes(workers)
     pred = meas = 0
     for p, coll, dense in _leaf_wire_patterns(plan, dist):
-        pred += cost.predicted_bytes(codec, coll, p.local_len, p.k, (workers,))
+        pred += cost.predicted_bytes(codec, coll, p.local_len, p.k, dp)
         payload = {} if dense else _one_payload(codec, p.local_len, p.k)
-        meas += cost.measured_bytes(coll, p.local_len, payload, (workers,))
+        meas += cost.measured_bytes(coll, p.local_len, payload, dp)
     return pred, meas
 
 
-def comm_round_cost(plan, dist: DistConfig, workers: int) -> cost.CostEstimate:
+def comm_round_cost(plan, dist: DistConfig, workers) -> cost.CostEstimate:
     """Predicted per-worker alpha–beta cost of one round, summed over
-    leaves under ``dist.resolved_link_model()``."""
+    leaves under ``dist.resolved_link_model()``; ``workers`` as in
+    ``comm_round_bytes``."""
     codec = get_codec(dist.codec)
     model = dist.resolved_link_model()
+    dp = _dp_sizes(workers)
     total_bytes = total_msgs = 0
     total_seconds = 0.0
     for p, coll, _ in _leaf_wire_patterns(plan, dist):
-        est = cost.predict(codec, coll, p.local_len, p.k, (workers,), model)
+        est = cost.predict(codec, coll, p.local_len, p.k, dp, model)
         total_bytes += est.bytes_on_wire
         total_msgs += est.n_messages
         total_seconds += est.seconds
@@ -284,16 +346,23 @@ def comm_round_cost(plan, dist: DistConfig, workers: int) -> cost.CostEstimate:
 
 
 def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
-                    counts: Optional[fp.FastpathCounts] = None):
+                    counts: Optional[fp.FastpathCounts] = None,
+                    mesh: Optional[DpGroups] = None):
     """``train_step(params, opt_state, sp_state, batch) -> (params,
     opt_state, sp_state, metrics)``. The global batch splits into W equal
     worker shards in order, as the JAX trainer reshapes it to ``[W, B/W,
-    ...]``. Matrix products run in full float32 (no TF32)."""
+    ...]``. Across the ranks of ``mesh`` each rank takes worker
+    ``mesh.rank``'s shard, and the W losses are gathered in rank order,
+    so the logged mean is the one-card mean. Matrix products run in full
+    float32 (no TF32)."""
     set_fp32_matmul()
     opt = make_optimizer(dist.optimizer)
-    spa = make_sparsify_aggregate(plan, dist, n_workers, counts)
+    spa = make_sparsify_aggregate(plan, dist, n_workers, counts, mesh)
     W = n_workers
-    wire_pred, wire_meas = comm_round_bytes(plan, dist, W)
+    wire_pred, wire_meas = comm_round_bytes(
+        plan, dist, W if mesh is None else mesh.shape
+    )
+    mine = range(W) if mesh is None else [mesh.rank]
 
     def worker_grads(params, wbatch):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -308,7 +377,7 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
             raise ValueError(f"global batch {B} is not divisible by {W} workers")
         per = B // W
         losses, per_worker = [], []
-        for n in range(W):
+        for n in mine:
             shard = {key: v[n * per:(n + 1) * per] for key, v in batch.items()}
             loss, grads = worker_grads(params, shard)
             losses.append(loss)
@@ -318,8 +387,11 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
         )
         agg, new_sp = spa(grads_w, sp_state)
         new_params, new_opt = opt.update(agg, opt_state, params)
+        losses = torch.stack(losses)
+        if mesh is not None:
+            losses = _gather(losses, (torch_dist.group.WORLD,))
         metrics = {
-            "loss": torch.stack(losses).mean(),
+            "loss": losses.mean(),
             "comm_bytes": wire_meas,
             "comm_bytes_predicted": wire_pred,
         }

@@ -7,21 +7,42 @@
 count: W logical data-parallel workers on one card, one dp mesh axis
 named ``data`` (what ``--link-topo`` names). Runs on ``cuda`` unless
 ``--device cpu`` is given.
+
+Under ``torchrun`` (``WORLD_SIZE`` set) each rank is one worker and W is
+the world size, the counterpart of the JAX trainer's ``shard_map`` over
+its dp mesh axes:
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --smoke --steps 3 --device cpu
+
+``--device cuda`` puts rank r on ``cuda:LOCAL_RANK`` over ``nccl``; an
+explicit ``cuda:i`` is taken as given; ``--device cpu`` runs over
+``gloo``. ``--backend gloo --device cuda:0`` is the explicit way to run
+several ranks on one card (``nccl`` refuses that with its own error).
+``--multi-pod`` lays the ranks out as ``("pod", "data") = (2, W/2)``
+(``repro_torch.launch.mesh``), and ``--link-topo`` then prices both
+axes. Only rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from typing import List, NamedTuple, Optional
 
 import torch
+import torch.distributed as torch_dist
 
 from repro_torch import configs as cfglib
 from repro_torch.comm import cost
 from repro_torch.comm.codec import CODECS
 from repro_torch.comm.collectives import COLLECTIVES
-from repro_torch.comm.fastpath import FastpathCounts, ThroughputTable
+from repro_torch.comm.fastpath import (
+    FastpathCounts,
+    ThroughputTable,
+    backend_supports,
+)
 from repro_torch.core.distributed import (
     DistConfig,
     build_plan,
@@ -32,6 +53,7 @@ from repro_torch.core.distributed import (
 )
 from repro_torch.core.sparsify import SparsifierConfig
 from repro_torch.data import TokenPipeline
+from repro_torch.launch.mesh import DpGroups, dp_axes_of, make_production_groups
 from repro_torch.models import lm
 from repro_torch.optim import OptConfig, make_optimizer
 from repro_torch.tree import tree_leaves
@@ -62,9 +84,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "it (weighting='coordinate'; RegTop-k then stays "
                          "off the fastpath)")
     ap.add_argument("--link-topo", default=None, metavar="SPEC",
-                    help="link model of the dp axis 'data' that prices the "
-                         "comm line: 'data:alpha,beta' or a bare "
-                         "'alpha,beta' (seconds per message, per byte)")
+                    help="link model of the dp axes that prices the comm "
+                         "line: 'data:alpha,beta' or a bare 'alpha,beta' "
+                         "(seconds per message, per byte); under "
+                         "--multi-pod 'pod:a,b;data:a,b'")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--smoke", action="store_true",
@@ -72,7 +95,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--workers", type=int, default=1,
                     help="data-parallel workers on the card (the JAX "
                          "trainer's host-mesh device count)")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (under torchrun: cuda:LOCAL_RANK), "
+                         "'cuda:i' or 'cpu'")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="torch.distributed backend under torchrun (default "
+                         "nccl on the card, gloo on the CPU)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="under torchrun: dp axes ('pod', 'data') = "
+                         "(2, W/2), as the JAX trainer's multi-pod mesh")
     return ap.parse_args(argv)
 
 
@@ -84,30 +115,10 @@ class RunResult(NamedTuple):
     plan: dict
 
 
-def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
-        table: Optional[ThroughputTable] = None) -> RunResult:
-    """Train for ``args.steps`` steps, logging as the JAX trainer does.
-    ``dist`` replaces the ``DistConfig`` the flags describe, for what the
-    CLI has no flag for (as the JAX trainer has none for the selector:
-    ``SparsifierConfig(selector="threshold")``). ``table`` prices
-    ``--fastpath auto`` (``ThroughputTable()``'s defaults when None)."""
-    if args.device.startswith("cuda") and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {args.device} requested but CUDA is not available"
-        )
-    cfg = cfglib.get_config(args.arch)
-    if args.smoke:
-        cfg = cfg.smoke_variant()
-    W = args.workers
-    if args.global_batch % W:
-        raise SystemExit(f"--global-batch must be divisible by {W} workers")
-    link_topo = None
-    if args.link_topo:
-        link_topo = cost.parse_link_topo(args.link_topo, ("data",))
-        for lk in link_topo.links:
-            print(f"link-topo data: alpha={lk.alpha:.3e} s/msg "
-                  f"beta={lk.beta:.3e} s/B", flush=True)
-    dist = dist or DistConfig(
+def dist_config(args: argparse.Namespace,
+                link_topo: Optional[cost.LinkTopo] = None) -> DistConfig:
+    """The ``DistConfig`` that the flags describe."""
+    return DistConfig(
         sparsifier=SparsifierConfig(
             kind=args.sparsifier, sparsity=args.sparsity, mu=args.mu
         ),
@@ -118,36 +129,97 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
         weighting="coordinate" if args.coord_weights else "worker",
         link_topo=link_topo,
     )
+
+
+def _say(mesh: Optional[DpGroups]):
+    """``print`` on one card and on rank 0; a no-op on the other ranks."""
+    if mesh is None or mesh.rank == 0:
+        return lambda msg: print(msg, flush=True)
+    return lambda msg: None
+
+
+def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
+        table: Optional[ThroughputTable] = None,
+        mesh: Optional[DpGroups] = None) -> RunResult:
+    """Train for ``args.steps`` steps, logging as the JAX trainer does.
+    ``dist`` replaces the ``DistConfig`` the flags describe, for what the
+    CLI has no flag for (as the JAX trainer has none for the selector:
+    ``SparsifierConfig(selector="threshold")``). ``table`` prices
+    ``--fastpath auto`` (``ThroughputTable()``'s defaults when None).
+
+    ``mesh`` (the dp process groups of an initialised process group)
+    makes this rank one worker of W = ``mesh.size``: it returns the
+    common params and losses, and its own worker's state and counts.
+    Under ``--fastpath auto`` rank 0's table (``ThroughputTable.measure``
+    on the card when none is given) is broadcast, so every rank builds
+    one plan."""
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {args.device} requested but CUDA is not available"
+        )
+    say = _say(mesh)
+    cfg = cfglib.get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke_variant()
+    if mesh is None:
+        if args.multi_pod:
+            raise SystemExit("--multi-pod lays out ranks: run under torchrun")
+        W, axes, dp_sizes = args.workers, ("data",), args.workers
+    else:
+        W, axes, dp_sizes = mesh.size, dp_axes_of(mesh), mesh.shape
+        if args.workers not in (1, W):
+            raise SystemExit(
+                f"--workers {args.workers}: under torchrun W is the world "
+                f"size, {W}"
+            )
+    if args.global_batch % W:
+        raise SystemExit(f"--global-batch must be divisible by {W} workers")
+    link_topo = None
+    if args.link_topo:
+        link_topo = cost.parse_link_topo(args.link_topo, axes)
+        for axis, lk in zip(axes, link_topo.links, strict=True):
+            say(f"link-topo {axis}: alpha={lk.alpha:.3e} s/msg "
+                f"beta={lk.beta:.3e} s/B")
+    dist = dist or dist_config(args, link_topo)
     if dist.weighting == "coordinate":
-        print("weighting: coordinate — per-coordinate renormalization over "
-              "the workers that sent each coordinate", flush=True)
+        say("weighting: coordinate — per-coordinate renormalization over "
+            "the workers that sent each coordinate")
     if dist.fastpath != "off":
-        print(f"fastpath: {dist.fastpath} (resolved "
-              f"{dist.resolved_fastpath()}) — fused select->encode on "
-              "fusable leaves", flush=True)
+        say(f"fastpath: {dist.fastpath} (resolved "
+            f"{dist.resolved_fastpath()}) — fused select->encode on "
+            "fusable leaves")
+    if mesh is not None:
+        say(f"ranks: {W} over {torch_dist.get_backend()}, dp axes "
+            f"{dict(zip(axes, mesh.shape, strict=True))}, rank 0 on "
+            f"{args.device}")
+        if dist.resolved_fastpath() == "auto":
+            if (mesh.rank == 0 and table is None
+                    and backend_supports(args.device)):
+                table = ThroughputTable.measure(device=args.device)
+            shared = [table]
+            torch_dist.broadcast_object_list(shared, src=0)
+            table = shared[0]
     params = lm.init(cfg, seed=0, device=args.device)
     plan = build_plan(params, dist.sparsifier.sparsity, dist, table)
     counts = FastpathCounts()
-    step_fn = make_train_step(cfg, dist, plan, W, counts)
+    step_fn = make_train_step(cfg, dist, plan, W, counts, mesh)
     opt_state = make_optimizer(dist.optimizer).init(params)
-    sp_state = init_sparsifier_state(plan, W, args.device)
+    sp_state = init_sparsifier_state(
+        plan, W if mesh is None else 1, args.device
+    )
     pipe = TokenPipeline(cfg, args.global_batch, args.seq, 0, args.device)
-    pred_b, meas_b = comm_round_bytes(plan, dist, W)
-    round_cost = comm_round_cost(plan, dist, W)
-    print(
+    pred_b, meas_b = comm_round_bytes(plan, dist, dp_sizes)
+    round_cost = comm_round_cost(plan, dist, dp_sizes)
+    say(
         f"comm: codec={dist.codec} collective={dist.collective} "
         f"{meas_b / 1e6:.3f} MB/worker/round "
         f"(predicted {pred_b / 1e6:.3f} MB, "
-        f"{round_cost.seconds * 1e3:.3f} ms/round under the link model)",
-        flush=True,
+        f"{round_cost.seconds * 1e3:.3f} ms/round under the link model)"
     )
     leaves = tree_leaves(plan)
     if dist.resolved_fastpath() != "off":
-        print(
-            f"comm:   fastpath: {sum(p.fused for p in leaves)}/{len(leaves)} "
-            "leaves fused",
-            flush=True,
-        )
+        say(f"comm:   fastpath: {sum(p.fused for p in leaves)}/{len(leaves)} "
+            "leaves fused")
     losses = []
     t0 = time.time()
     for t in range(args.steps):
@@ -157,23 +229,43 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
         losses.append(float(m["loss"]))
         if t % args.log_every == 0 or t == args.steps - 1:
             dt = time.time() - t0
-            print(
-                f"step {t:5d} loss {losses[-1]:.4f} "
-                f"({dt / (t + 1):.2f}s/step)",
-                flush=True,
-            )
+            say(f"step {t:5d} loss {losses[-1]:.4f} "
+                f"({dt / (t + 1):.2f}s/step)")
     if counts.rounds:
-        print(
-            f"fastpath: certificate hit rate {counts.hit_rate:.4f} "
+        say(f"fastpath: certificate hit rate {counts.hit_rate:.4f} "
             f"({counts.rounds - counts.fallbacks}/{counts.rounds} "
-            "worker-leaf rounds used the kernel's answer)",
-            flush=True,
-        )
+            "worker-leaf rounds used the kernel's answer)")
     return RunResult(losses, params, sp_state, counts, plan)
 
 
+def rank_device(device: str) -> str:
+    """The device of this rank under torchrun: a bare ``cuda`` is
+    ``cuda:LOCAL_RANK``; anything else is taken as given.
+
+    >>> rank_device("cpu"), rank_device("cuda:0")
+    ('cpu', 'cuda:0')
+    """
+    if device == "cuda":
+        return f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+    return device
+
+
 def main(argv: Optional[List[str]] = None) -> int:
-    run(parse_args(argv))
+    args = parse_args(argv)
+    if "WORLD_SIZE" not in os.environ:
+        run(args)
+        return 0
+    args.device = rank_device(args.device)
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(args.device)
+    torch_dist.init_process_group(
+        args.backend or ("nccl" if cuda else "gloo"), init_method="env://"
+    )
+    try:
+        run(args, mesh=make_production_groups(multi_pod=args.multi_pod))
+    finally:
+        torch_dist.destroy_process_group()
     return 0
 
 

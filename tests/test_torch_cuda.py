@@ -368,3 +368,51 @@ def test_coordinate_weighting_on_the_card_equals_the_cpu(card):
                            trace_state_fn=lambda s: s.worker_states.s_prev)
         assert rs.regtopk_score.launches == before
     assert torch.equal(out["cpu"][1], out["cuda"][1].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("collective", ["sparse_allgather", "dense_allreduce"])
+def test_nccl_world_one_round_equals_the_one_card_round(card, tmp_path,
+                                                         collective):
+    """Two rounds of the per-rank round over ``nccl`` at world size 1
+    (the kernel 1 fastpath on a 3-tile leaf) against the one-card round of
+    one worker: the aggregate and every state field in bits."""
+    import torch.distributed as dist
+
+    from repro_torch.comm.fastpath import FastpathCounts
+    from repro_torch.core import distributed as td
+    from repro_torch.launch import mesh
+
+    shapes = {"big": (3 * 8192 + 17,), "small": (4, 33)}
+    dcfg = td.DistConfig(
+        sparsifier=SparsifierConfig(kind="regtopk", sparsity=0.005, mu=1.0),
+        collective=collective, fastpath="on")
+    plan = td.build_plan({n: torch.zeros(s, device="cuda")
+                          for n, s in shapes.items()}, 0.005, dcfg)
+    rng = np.random.default_rng(3)
+    grads = [{n: torch.tensor(rng.standard_normal((1, *s)), dtype=torch.float32,
+                              device="cuda") for n, s in shapes.items()}
+             for _ in range(2)]
+    mesh.init_file_store(str(tmp_path / "store"), 0, 1, "nccl")
+    try:
+        out = {}
+        for form, groups in (("one card", None), ("ranks", mesh.make_host_groups())):
+            counts = FastpathCounts()
+            spa = td.make_sparsify_aggregate(plan, dcfg, 1, counts, groups)
+            state = td.init_sparsifier_state(plan, 1, "cuda")
+            rounds = []
+            for g in grads:
+                agg, state = spa(g, state)
+                rounds.append((agg, state))
+            out[form] = (rounds, counts.rounds)
+    finally:
+        dist.destroy_process_group()
+    assert out["ranks"][1] == out["one card"][1]
+    for (agg, st), (agg1, st1) in zip(out["ranks"][0], out["one card"][0],
+                                      strict=True):
+        for n in shapes:
+            for a, b in [(agg[n], agg1[n]), *zip(st[n], st1[n], strict=True)]:
+                a, b = a.cpu(), b.cpu()
+                if a.dtype == torch.float32:
+                    a, b = a.view(torch.int32), b.view(torch.int32)
+                assert torch.equal(a, b)
