@@ -75,10 +75,12 @@ Phases, each raising on failure (the script then exits non-zero):
               spawned on this one card over gloo (nccl refuses two ranks on
               one device), in turn sparse_allgather + coo_fp32 (fastpath
               on), --coord-weights, dense_allreduce (which fuses no leaf)
-              hierarchical + coo_idx_delta on --multi-pod (2 x 4) and
+              hierarchical + coo_idx_delta on --multi-pod (2 x 4),
               --fastpath auto (rank 0's measured ThroughputTable, broadcast
               over the others' tables, which would fuse no leaf: one plan
-              on every rank): every rank's params equal in bits, rank 0's losses within rtol 1e-5
+              on every rank), --participation round_robin:2 and
+              --adaptive-k 1.0,0.001,0.012: every rank's params equal in
+              bits (and the controller's k), rank 0's losses within rtol 1e-5
               of the one-card --workers 8 run's and its params within rtol
               1e-5 with a floor of 1e-5 of a leaf's largest magnitude (bit
               mismatches and the largest difference printed; where
@@ -88,13 +90,32 @@ Phases, each raising on failure (the script then exits non-zero):
               equal to predicted, kernel 1's launches per rank = steps x
               fused leaves (0 under --coord-weights and dense_allreduce);
               the per-rank step time beside the one-card step (host
-              clock), and one step of each under torch.profiler.
+              clock), and one step of each under torch.profiler; for the
+              round_robin and adaptive runs the difference from one card
+              is reported, not held, the bytes measured against the full
+              round's prediction, the partial round's printed beside it;
+10. stragglers — partial participation and the adaptive-k controller at
+              full width: (a) the simulator (N = 8, J = 4,458,752, RegTop-k at
+              S = 0.01, sparse_allgather, coo_fp32) under round_robin:2,
+              bernoulli:0.25,1 and stale:2,2,0.5, 5 rounds each, fastpath on
+              against off (theta, g_agg, every worker-state slot and the
+              pending buffer bit-equal), sampled:8,7 over 32 clients (only
+              the cohort, = round_participants, moves; idle clients
+              bit-unchanged) and the controller (1.0,0.001,0.05) for 10
+              rounds, k per round printed; each schedule's round time (the
+              gradient fixed, host clock, median of 5); (b) the trainer (W =
+              8, 5 steps) under --participation round_robin:2 and
+              bernoulli:0.25 and --adaptive-k 1.0,0.001,0.012, fastpath on
+              against off (params bit-equal), kernel 1's launches, the hit
+              rate, each leaf's k, and measured bytes <= 1.05 x the full
+              round's prediction (the partial round's printed beside it).
 
 Each kernel's launch count is set to 0 just before the path that runs it
 (select: ``count_above``, ``global_max``, ``block_topk_candidates``;
-trainer, each fused wire run and each run of every rank:
-``fused_candidates``; sim and the wire simulator's fastpath-on run:
-``regtopk_score``) and read just after; the
+trainer, each fused wire run, each run of every rank and each of phase
+10's trainer runs: ``fused_candidates``; sim, the wire simulator's
+fastpath-on run and phase 10's simulator runs: ``regtopk_score``) and
+read just after; the
 ``kernels`` line sums each kernel's main-path launches. The line before the last is the card's nvidia-smi line; before it,
 the ``kernels`` JSON line. The last line is the device JSON.
 ``--details FILE`` also writes every phase's results to FILE as JSON.
@@ -1441,6 +1462,10 @@ RANK_STEPS = 5
 # phase 9 (b): name -> the flags beside TRAIN_ARGS' (which set W = 8 and
 # the fastpath on); --coord-weights runs with the fastpath off (the fused
 # kernel takes a scalar omega)
+# the adaptive-k spec of the trainer's runs: a k_max of 1.2% of each leaf
+# keeps the fused leaves fused (``fastpath.shape_fusable``'s budget is about
+# 1.5% of a leaf), where the default 25% would fuse none
+TRAIN_ADAPTIVE = "1.0,0.001,0.012"
 RANK_RUNS = {
     "sparse_allgather": [],
     "coord_weights": ["--coord-weights", "--fastpath", "off"],
@@ -1448,14 +1473,21 @@ RANK_RUNS = {
     "hierarchical": ["--collective", "hierarchical", "--codec", "coo_idx_delta",
                      "--multi-pod"],
     "auto": ["--fastpath", "auto"],
+    "round_robin": ["--participation", "round_robin:2"],
+    "adaptive": ["--adaptive-k", TRAIN_ADAPTIVE],
 }
 # whether a run's plan fuses leaves: dense_allreduce moves the dense
 # vector, so it fuses none, and neither does coordinate weighting; under
 # auto rank 0's measured table decides, for every rank (``_rank_body``)
 RANK_FUSED = {"sparse_allgather": True, "coord_weights": False,
-              "dense_allreduce": False, "hierarchical": True}
+              "dense_allreduce": False, "hierarchical": True,
+              "round_robin": True, "adaptive": True}
 # the runs whose sums all_reduce takes in the backend's order
 RANK_ALL_REDUCE = ("dense_allreduce", "hierarchical")
+# the runs whose difference from the one-card run is reported, not held:
+# the controller's norm is a sum over the ranks in gloo's order, so a k at
+# a rounding boundary may part the two runs
+RANK_REPORTED = ("round_robin", "adaptive")
 
 
 def _sync(device: str) -> None:
@@ -1541,13 +1573,14 @@ def _params_digest(params) -> str:
 
 def _wire_bytes(args, plan, payloads, dp_sizes):
     """(predicted, measured) bytes per worker per round of one step: the
-    prediction of ``comm_round_bytes``, the measurement from the payloads
-    this rank encoded in its last step (none on a dense wire)."""
+    full round's prediction of ``comm_round_bytes`` (every worker's buffer
+    crosses the wire, a dropped one's too), the measurement from the
+    payloads this rank encoded in its last step (none on a dense wire)."""
     from repro_torch.comm import cost
     from repro_torch.core import distributed as td
     from repro_torch.tree import tree_leaves
 
-    dcfg = _dist_of(args)
+    dcfg = _dist_of(args, participation=None)
     pred, _ = td.comm_round_bytes(plan, dcfg, dp_sizes)
     meas, leaves = 0, tree_leaves(plan)
     last = payloads[-len(leaves):] if payloads else [{}] * len(leaves)
@@ -1568,6 +1601,7 @@ def _rank_body(rank: int, world: int, store: str, out_dir: str,
 
     from repro_torch.comm.codec import get_codec
     from repro_torch.comm.fastpath import ThroughputTable
+    from repro_torch.core import distributed as td
     from repro_torch.kernels import fused_encode as fe
     from repro_torch.launch import mesh, train
     from repro_torch.tree import tree_leaves
@@ -1594,7 +1628,11 @@ def _rank_body(rank: int, world: int, store: str, out_dir: str,
             _sync(device)
             launches = fe.fused_candidates.launches
             pred, meas = _wire_bytes(args, res.plan, rec.payloads, groups.shape)
+            partial, _ = td.comm_round_bytes(res.plan, _dist_of(args), groups.shape)
             out[name] = {
+                "predicted_partial_bytes": partial,
+                "ks": (None if args.adaptive_k is None else
+                       [int(c.k) for c in tree_leaves(res.sp_state[1])]),
                 "losses": res.losses, "launches": launches,
                 "fused_leaves": sum(p.fused for p in tree_leaves(res.plan)),
                 "fused_paths": [path for path, p in _flat(res.plan).items()
@@ -1707,7 +1745,9 @@ def ranks_spawned(smi: str, device: str = f"{DEVICE}:0", world: int = W,
         args = _rank_args(TRAIN_ARGS, [a for a in extra if a != "--multi-pod"],
                           device, world)
         res = train.run(args)
-        one_card[name] = {"params": _flat(res.params), "losses": res.losses}
+        one_card[name] = {"params": _flat(res.params), "losses": res.losses,
+                          "ks": (None if args.adaptive_k is None else
+                                 [int(c.k) for c in _flat(res.sp_state[1]).values()])}
         if name == "sparse_allgather":
             one_card[name]["step_ms"], one_card[name]["profile"] = _step_ms(
                 args, res)
@@ -1744,20 +1784,31 @@ def ranks_spawned(smi: str, device: str = f"{DEVICE}:0", world: int = W,
         diff = _param_diff(params[name], one_card[name]["params"],
                            2 * args.lr * RANK_STEPS if name in RANK_ALL_REDUCE
                            else 0.0)
-        if not diff["ok"]:
+        held = name not in RANK_REPORTED
+        if held and not diff["ok"]:
             raise AssertionError(f"ranks (b) {name}: params against the one-card "
                                  f"run {diff}")
         for got, want in zip(rows[0]["losses"], one_card[name]["losses"],
                              strict=True):
-            if abs(got - want) > 1e-5 * abs(want):
+            if held and abs(got - want) > 1e-5 * abs(want):
                 raise AssertionError(f"ranks (b) {name}: losses {rows[0]['losses']}"
                                      f" vs one card {one_card[name]['losses']}")
+        if any(row["ks"] != rows[0]["ks"] for row in rows):
+            raise AssertionError(f"ranks (b) {name}: the ranks' controllers differ")
+        if rows[0]["ks"] is not None:
+            log(f"ranks (b) {name}: k per leaf after {RANK_STEPS} steps, every "
+                f"rank {rows[0]['ks']}, one card {one_card[name]['ks']}")
+        if rows[0]["predicted_partial_bytes"] != rows[0]["predicted_bytes"]:
+            log(f"ranks (b) {name}: the partial round is priced at "
+                f"{rows[0]['predicted_partial_bytes']} B per worker per round")
         launches += sum(row["launches"] for row in rows)
         out[name] = {"ranks": rows, "vs_one_card": diff,
-                     "one_card_losses": one_card[name]["losses"]}
+                     "one_card_losses": one_card[name]["losses"],
+                     "one_card_ks": one_card[name]["ks"]}
         log(f"ranks (b) {name}: {world} ranks over gloo on one card, dp "
             f"{rows[0]['dp']}: params equal in bits across ranks; against the "
-            f"one-card --workers {world} run (losses within rtol 1e-5) "
+            f"one-card --workers {world} run ("
+            f"{'losses within rtol 1e-5' if held else 'reported, not held'}) "
             f"{diff['mismatches']} bit mismatches, largest relative difference "
             f"{diff['largest_rel_diff']:.3e}, {diff['beyond_rtol']} elements "
             f"beyond rtol 1e-5 (largest |diff| {diff['max_abs_diff']:.3e}); "
@@ -1787,6 +1838,219 @@ def phase_ranks(smi: str) -> dict:
     spawned = ranks_spawned(smi)
     return {"world_one": one, "spawned": spawned,
             "launches": one["launches"] + spawned["launches"]}
+
+
+# phase 10 (a): the schedules the simulator runs at full width, fastpath
+# on against off, and the controller of its adaptive run
+SIM_SCHEDULES = ("round_robin:2", "bernoulli:0.25,1", "stale:2,2,0.5")
+SIM_ADAPTIVE = "1.0,0.001,0.05"
+SAMPLED, SAMPLED_N = "sampled:8,7", 32
+
+
+def _sim_bits_check(label: str):
+    """A ``_paired_sims`` check: the two runs' theta, g_agg, g_agg_prev,
+    every worker-state slot, the stale pending buffer and countdown and
+    the controller's state, equal in bits every round."""
+    def check(r, a, b):
+        (sa, ga), (sb, gb) = a, b
+        pairs = {"g_agg": (ga, gb), "theta": (sa.theta, sb.theta),
+                 "g_agg_prev": (sa.g_agg_prev, sb.g_agg_prev)}
+        pairs.update({f"worker_states.{f}": (x, y) for f, x, y in zip(
+            sa.worker_states._fields, sa.worker_states, sb.worker_states,
+            strict=True)})
+        for f in ("pending", "pending_age"):
+            if getattr(sa, f) is not None:
+                pairs[f] = (getattr(sa, f), getattr(sb, f))
+        if sa.ctrl is not None:
+            pairs.update({f"ctrl.{f}": (x, y) for f, x, y in zip(
+                sa.ctrl._fields, sa.ctrl, sb.ctrl, strict=True)})
+        for name, (x, y) in pairs.items():
+            if not _bits_equal(x, y):
+                raise AssertionError(f"stragglers sim {label} round {r}: {name} "
+                                     "differ between fastpath on and off")
+    return check
+
+
+def _sampled_fleet(g0, theta0, J: int, rounds: int, smi: str) -> dict:
+    """``sampled:8,7`` over a fleet of 32 clients at full width, fastpath
+    on against off: each round only the drawn cohort's state moves (its
+    round counters are the ones that advance, and they are
+    ``round_participants``), the idle clients' state is unchanged in
+    bits. The 32 clients' gradients are the 8 workers' (``g0``), scaled
+    per group of 8 so that no two groups are alike."""
+    from repro_torch.comm import parse_participation
+    from repro_torch.core import DistributedSim, SparsifierConfig
+    from repro_torch.kernels import regtopk_score as rs
+
+    part = parse_participation(SAMPLED)
+    rs.regtopk_score.launches = 0
+    table = torch.cat([g0 * (1.0 + 0.25 * i) for i in range(SAMPLED_N // W)])
+    scfg = SparsifierConfig(kind="regtopk", sparsity=0.01)
+    sims = {mode: DistributedSim(lambda theta, widx: table[widx], SAMPLED_N, J,
+                                 scfg, learning_rate=0.05,
+                                 aggregation="sparse_allgather",
+                                 participation=part, fastpath=mode, device=DEVICE)
+            for mode in ("on", "off")}
+    states = {mode: sim.init(theta0) for mode, sim in sims.items()}
+    check = _sim_bits_check(SAMPLED)
+    cohorts = []
+    for r in range(rounds):
+        outs = {mode: sims[mode].step_fn(states[mode]) for mode in ("on", "off")}
+        check(r, outs["on"], outs["off"])
+        old, new = states["on"].worker_states, outs["on"][0].worker_states
+        cohort = part.round_participants(r, SAMPLED_N, DEVICE)
+        moved = torch.nonzero(new.t != old.t)[:, 0]
+        if not torch.equal(moved, cohort):
+            raise AssertionError(f"stragglers sim {SAMPLED} round {r}: clients "
+                                 f"{moved.tolist()} moved, cohort {cohort.tolist()}")
+        idle = torch.ones(SAMPLED_N, dtype=torch.bool, device=DEVICE)
+        idle[cohort] = False
+        for f, x, y in zip(old._fields, old, new, strict=True):
+            if not _bits_equal(x[idle], y[idle]):
+                raise AssertionError(f"stragglers sim {SAMPLED} round {r}: an idle "
+                                     f"client's {f} changed")
+        cohorts.append(cohort.tolist())
+        states = {mode: o[0] for mode, o in outs.items()}
+    launches = rs.regtopk_score.launches
+    if launches != rounds:
+        raise AssertionError(f"stragglers sim {SAMPLED}: {launches} score launches")
+    row = {"rounds": rounds, "N": SAMPLED_N, "cohorts": cohorts,
+           "launches": launches,
+           "round": _round_ms(sims["on"], states["on"], table[:part.n_sampled])}
+    log(f"stragglers sim {SAMPLED} (N = {SAMPLED_N}): fastpath on == off for "
+        f"{rounds} rounds, only the cohort moved (= round_participants: "
+        f"{cohorts}), idle clients bit-unchanged; round {row['round']['ms']:.2f} ms "
+        f"(gradient fixed, host clock; {smi})")
+    return row
+
+
+def stragglers_sim(smi: str, rounds: int = 5, adaptive_rounds: int = 10,
+                   cfg=None) -> dict:
+    """Phase 10 (a): the simulator at full width (N = 8, J = 4,458,752,
+    RegTop-k at S = 0.01, sparse_allgather, coo_fp32) under each straggler
+    schedule and under the adaptive-k controller, fastpath on against off
+    in bits; ``cfg`` replaces paper-resnet-proxy for a rehearsal on the
+    CPU."""
+    from repro_torch.comm import parse_adaptive_k, parse_participation
+    from repro_torch.kernels import regtopk_score as rs
+
+    grad_fn, theta0, J = _flat_model(cfg)
+    g0 = grad_fn(theta0, torch.arange(W, device=DEVICE))
+    kw = dict(aggregation="sparse_allgather")
+    out, launches = {}, 0
+    for spec in SIM_SCHEDULES:
+        part = parse_participation(spec)
+        rs.regtopk_score.launches = 0
+        sims, states = _paired_sims(
+            grad_fn, theta0, J, rounds, {**kw, "participation": part, "fastpath": "on"},
+            {**kw, "participation": part, "fastpath": "off"}, _sim_bits_check(spec),
+            spec)
+        n = rs.regtopk_score.launches
+        if n != rounds:
+            raise AssertionError(f"stragglers sim {spec}: {n} score launches, "
+                                 f"expected {rounds}")
+        launches += n
+        masks = [[int(x) for x in part.round_mask(r, W).tolist()] for r in range(rounds)]
+        out[spec] = {"rounds": rounds, "launches": n, "masks": masks,
+                     "round": _round_ms(sims[0], states[0], g0)}
+        stale = states[0].pending is not None
+        pending = (f", {int((states[0].pending_age > 0).sum())} payloads pending"
+                   if stale else "")
+        log(f"stragglers sim {spec}: fastpath on == off for {rounds} rounds (theta, "
+            f"g_agg, worker states{', pending' if stale else ''} bit-equal), {n} "
+            f"score launches, masks {masks}{pending}; round "
+            f"{out[spec]['round']['ms']:.2f} ms (gradient fixed, host clock; {smi})")
+    out[SAMPLED] = _sampled_fleet(g0, theta0, J, rounds, smi)
+    launches += out[SAMPLED]["launches"]
+
+    ctrl, ks = parse_adaptive_k(SIM_ADAPTIVE), []
+    check = _sim_bits_check("adaptive")
+
+    def check_k(r, a, b):
+        check(r, a, b)
+        ks.append(int(a[0].ctrl.k))
+
+    rs.regtopk_score.launches = 0
+    sims, states = _paired_sims(
+        grad_fn, theta0, J, adaptive_rounds, {**kw, "adaptive_k": ctrl, "fastpath": "on"},
+        {**kw, "adaptive_k": ctrl, "fastpath": "off"}, check_k, "adaptive")
+    n = rs.regtopk_score.launches
+    if n != adaptive_rounds:
+        raise AssertionError(f"stragglers sim adaptive: {n} score launches")
+    launches += n
+    lo, hi = ctrl.bounds(J)
+    out["adaptive"] = {"rounds": adaptive_rounds, "launches": n, "k": ks,
+                       "bounds": [lo, hi],
+                       "err_ratio": float(states[0].ctrl.err_ratio),
+                       "round": _round_ms(sims[0], states[0], g0)}
+    log(f"stragglers sim adaptive ({SIM_ADAPTIVE}, k in [{lo}, {hi}], capacity "
+        f"{hi}): fastpath on == off for {adaptive_rounds} rounds (theta, g_agg, "
+        f"worker and controller states bit-equal), {n} score launches; k per "
+        f"round {ks}, err_ratio {out['adaptive']['err_ratio']:.4f}; round "
+        f"{out['adaptive']['round']['ms']:.2f} ms (gradient fixed, host clock; {smi})")
+    out["launches"] = launches
+    return out
+
+
+def stragglers_trainer(smi: str, steps: int = WIRE_STEPS) -> dict:
+    """Phase 10 (b): the trainer at full width, W = 8 on one card, under
+    two straggler schedules and the adaptive-k controller, each with the
+    fastpath on against off: params equal in bits, kernel 1's launches
+    counted on the fused leaves, the certificate's hit rate, each leaf's
+    k, and the bytes (measured per worker against the full round's
+    prediction; the partial round's priced beside it)."""
+    import dataclasses
+
+    from repro_torch.core import distributed as td
+    from repro_torch.tree import tree_items
+
+    runs = {"round_robin:2": ["--participation", "round_robin:2"],
+            "bernoulli:0.25": ["--participation", "bernoulli:0.25"],
+            "adaptive": ["--adaptive-k", TRAIN_ADAPTIVE]}
+    out, launches = {}, 0
+    for name, extra in runs.items():
+        args, on, row = _wire_train(f"{name} on", [*extra, "--fastpath", "on"], steps)
+        _, off, row_off = _wire_train(f"{name} off", [*extra, "--fastpath", "off"],
+                                      steps)
+        if row["launches"] == 0 or row_off["launches"]:
+            raise AssertionError(f"stragglers trainer {name}: kernel 1 launched "
+                                 f"{row['launches']} times on, {row_off['launches']} off")
+        bad = sum(_bit_mismatches(a, b) for (_, a), (_, b) in zip(
+            tree_items(on.params), tree_items(off.params), strict=True))
+        if bad:
+            raise AssertionError(f"stragglers trainer {name}: params differ in {bad} "
+                                 "elements between fastpath on and off")
+        dist = _dist_of(args)
+        partial, meas = td.comm_round_bytes(on.plan, dist, W)
+        full, _ = td.comm_round_bytes(on.plan, dataclasses.replace(
+            dist, participation=None), W)
+        if meas > 1.05 * full:
+            raise AssertionError(f"stragglers trainer {name}: measured {meas} B > "
+                                 f"1.05 x the full round's {full} B")
+        launches += row["launches"]
+        ks = (None if args.adaptive_k is None else
+              {path: int(c.k) for path, c in tree_items(on.sp_state[1])})
+        row.update(off_losses=off.losses, predicted_bytes=full, measured_bytes=meas,
+                   predicted_partial_bytes=partial, k=ks,
+                   k_max={path: p.k for path, p in tree_items(on.plan)}
+                   if ks else None)
+        log(f"stragglers trainer {name}: {steps} steps, params bit-equal fastpath "
+            f"on == off; {row['launches']} kernel 1 launches ({row['fused_leaves']} "
+            f"fused leaves), hit rate {row['hit_rate']:.4f}; losses "
+            f"{on.losses[0]:.4f} -> {on.losses[-1]:.4f}; measured {meas} B <= 1.05 x "
+            f"the full round's {full} B per worker (the partial round priced at "
+            f"{partial} B); {row['seconds'] / steps * 1e3:.1f} ms a step with the "
+            f"run's setup (host clock; {smi})")
+        if ks:
+            log(f"stragglers trainer {name}: k per leaf after {steps} steps "
+                + ", ".join(f"{p} {k}/{row['k_max'][p]}" for p, k in ks.items()))
+        out[name] = row
+    out["launches"] = launches
+    return out
+
+
+def phase_stragglers(smi: str) -> dict:
+    return {"sim": stragglers_sim(smi), "trainer": stragglers_trainer(smi)}
 
 
 def ab_times() -> dict:
@@ -1871,6 +2135,7 @@ def main(argv=None) -> int:
     sim = phase_sim()
     wire = phase_wire(smi)
     ranks = phase_ranks(smi)
+    stragglers = phase_stragglers(smi)
     ab = phase_ab(args.parent) if args.parent is not None else None
     per_step = kernels["per_step"]
     per_round = score["per_round"]
@@ -1880,7 +2145,7 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/fused_encode.cu",
         "replaces": "src/repro/kernels/fused_encode.py:111",
         "launches": (trainer["launches"] + wire["trainer"]["launches"]
-                     + ranks["launches"]),
+                     + ranks["launches"] + stragglers["trainer"]["launches"]),
         "max_abs_err": kernels["max_abs_err"],
         "ms": per_step["ms"],
         "plain_ms": per_step["plain_ms"],
@@ -1892,7 +2157,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/regtopk_score.cu",
         "replaces": "src/repro/kernels/regtopk_score.py:82",
-        "launches": sim["launches"] + wire["sim"]["launches"],
+        "launches": (sim["launches"] + wire["sim"]["launches"]
+                     + stragglers["sim"]["launches"]),
         "max_abs_err": score["max_abs_err"],
         "ms": per_round["ms"],
         "plain_ms": per_round["plain_ms"],
@@ -1925,7 +2191,7 @@ def main(argv=None) -> int:
             {"device": device_name, "nvidia_smi": smi, "build_seconds": builds,
              "kernels": kernels, "score": score, "select": select,
              "trainer": trainer, "sim": sim, "wire": wire, "ranks": ranks,
-             "ab": ab,
+             "stragglers": stragglers, "ab": ab,
              "kernels_line": line},
             indent=1,
         ))

@@ -1,8 +1,17 @@
 """The wire (counterpart of ``repro.comm``): codecs with exact bit
 accounting (``codec``), the reductions in their one-card and across-rank
-(``shard``) forms and the two weightings (``collectives``), the alpha–beta cost model (``cost``) and the fused
-select→encode fastpath's policy and routing (``fastpath``)."""
-from repro_torch.comm import codec, collectives, cost, fastpath
+(``shard``) forms and the two weightings (``collectives``), the
+alpha–beta cost model (``cost``), the fused select→encode fastpath's
+policy and routing (``fastpath``), the partial-participation schedules
+(``participation``) and the adaptive-k controller (``controller``)."""
+from repro_torch.comm import (
+    codec,
+    collectives,
+    controller,
+    cost,
+    fastpath,
+    participation,
+)
 from repro_torch.comm.codec import (
     CODECS,
     BitmapDense,
@@ -22,6 +31,12 @@ from repro_torch.comm.collectives import (
     SparseAllgather,
     check_weighting,
     get_collective,
+)
+from repro_torch.comm.controller import (
+    AdaptiveKController,
+    ControllerState,
+    parse_adaptive_k,
+    round_wire_bits,
 )
 from repro_torch.comm.cost import (
     AlphaBeta,
@@ -44,14 +59,23 @@ from repro_torch.comm.fastpath import (
     fusable,
     fused_compact_select,
 )
+from repro_torch.comm.participation import (
+    PARTICIPATION_KINDS,
+    Participation,
+    parse_participation,
+    renormalize_weights,
+    worker_index,
+)
 
 __all__ = [
+    "AdaptiveKController",
     "AlphaBeta",
     "BitmapDense",
     "CODECS",
     "COLLECTIVES",
     "Codec",
     "Collective",
+    "ControllerState",
     "CooFp32",
     "CooIdxDelta",
     "CooQ8",
@@ -62,6 +86,8 @@ __all__ = [
     "Hierarchical",
     "LinkModel",
     "LinkTopo",
+    "PARTICIPATION_KINDS",
+    "Participation",
     "SparseAllgather",
     "ThroughputTable",
     "WEIGHTINGS",
@@ -69,6 +95,7 @@ __all__ = [
     "check_weighting",
     "codec",
     "collectives",
+    "controller",
     "cost",
     "delta_index_dtype",
     "fastpath",
@@ -77,10 +104,16 @@ __all__ = [
     "get_codec",
     "get_collective",
     "measured_bytes",
+    "parse_adaptive_k",
     "parse_link_topo",
+    "parse_participation",
+    "participation",
     "pattern_axes",
     "payload_nbytes",
     "predict",
     "predicted_bytes",
+    "renormalize_weights",
+    "round_wire_bits",
     "stage_seconds",
+    "worker_index",
 ]

@@ -47,8 +47,15 @@ follows XLA's. Every field is gathered as its bytes (gloo refuses
 int16), so the wire carries the codec's own bytes. Under gloo a CUDA
 tensor is staged through host memory by the backend itself.
 
-Only the full-participation form is ported: a ``participation`` mask
-is ROADMAP queue 1 item 6.
+Partial participation (``repro_torch.comm.participation``) composes
+with every collective through the optional ``participation`` argument:
+``reference(..., participation=mask)`` masks the ``[N]`` weights with the
+round's ``{0,1}`` mask and renormalizes them to sum to one;
+``shard(..., participation=m)`` scales this rank's contribution by its own
+mask entry ``m``, the caller passing the renormalized participant weight,
+which every rank derives from the shared schedule. A dropped rank's
+payload still crosses the wire and lands with weight 0. ``None`` is the
+full round, bit for bit.
 """
 from __future__ import annotations
 
@@ -58,16 +65,29 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.comm.codec import Codec, Payload, get_codec
+from repro_torch.comm.participation import renormalize_weights
 
 Weights = Union[float, torch.Tensor]
 
 
-def _no_participation(participation) -> None:
-    if participation is not None:
-        raise ValueError(
-            "participation masks are not ported; ROADMAP queue 1 item 6 "
-            "ports comm/participation.py"
-        )
+def _reference_weights(weights: Weights, participation, device) -> Weights:
+    """One reference-form round's weights: ``weights`` as given for a full
+    round, else masked by ``participation`` (the ``[N]`` mask) and
+    renormalized to sum to one, float32 on ``device``."""
+    if participation is None:
+        return weights
+    mask = participation.to(device=device, dtype=torch.float32)
+    return renormalize_weights(_worker_weights(weights, mask.shape[0], mask), mask)
+
+
+def _shard_weight(weight, participation, device) -> Weights:
+    """This rank's weight: its participant weight times its own mask
+    entry on a partial round, a float32 scalar tensor."""
+    if participation is None:
+        return weight
+    w = torch.as_tensor(weight, dtype=torch.float32, device=device)
+    return w * torch.as_tensor(participation, dtype=torch.float32,
+                               device=device)
 
 
 def _worker_weights(weights: Weights, n: int, like: torch.Tensor) -> torch.Tensor:
@@ -217,12 +237,14 @@ class Collective:
         raise NotImplementedError
 
 
-def _shard_num_den(codec, payload, length, groups, weight):
+def _shard_num_den(codec, payload, length, groups, weight, participation):
     """The coordinate-weighting sums over the ranks of ``groups``: the
-    payloads and each rank's own weight gathered in one stacking order,
-    then decoded and added one worker at a time (``_coord_num_den``)."""
-    w = torch.full((1,), float(weight), dtype=torch.float32,
-                   device=next(iter(payload.values())).device)
+    payloads and each rank's own weight (times its mask entry on a partial
+    round) gathered in one stacking order, then decoded and added one
+    worker at a time (``_coord_num_den``)."""
+    device = next(iter(payload.values())).device
+    w = _shard_weight(weight, participation, device)
+    w = torch.as_tensor(w, dtype=torch.float32, device=device).reshape(1)
     return _coord_num_den(
         codec, _gather_payload(payload, groups), _gather(w, groups), length
     )
@@ -233,30 +255,36 @@ class SparseAllgather(Collective):
 
     def reference(self, codec, payloads, weights, length, participation=None):
         """Decode the ``[N, k]`` payload stack and scatter-add every
-        worker's values, times its weight (a scalar or ``[N]``), into one
-        ``[L]`` aggregate."""
-        _no_participation(participation)
+        worker's values, times its weight (a scalar or ``[N]``; masked and
+        renormalized on a partial round), into one ``[L]`` aggregate."""
         vals, idx = codec.decode(payloads, length)
-        return scatter_add_payloads(vals, idx, weights, length)
+        w = _reference_weights(weights, participation, vals.device)
+        return scatter_add_payloads(vals, idx, w, length)
 
     def reference_coord(self, codec, payloads, weights, length,
                         participation=None):
-        _no_participation(participation)
-        num, den = _coord_num_den(codec, payloads, weights, length)
+        w = _reference_weights(
+            weights, participation, next(iter(payloads.values())).device)
+        num, den = _coord_num_den(codec, payloads, w, length)
         return _coord_divide(num, den), den
 
     def shard(self, codec, payload, length, groups, weight,
               participation=None):
-        """Gather every rank's payload, then ``reference`` on the stack."""
-        _no_participation(participation)
-        return self.reference(
-            codec, _gather_payload(payload, groups), weight, length
-        )
+        """Gather every rank's payload, then ``reference`` on the stack. On
+        a partial round each rank's weight times its mask entry rides the
+        gather beside its payload, so the weights arrive in the stack's
+        order."""
+        gathered = _gather_payload(payload, groups)
+        if participation is None:
+            return self.reference(codec, gathered, weight, length)
+        device = next(iter(payload.values())).device
+        w = _shard_weight(weight, participation, device).reshape(1)
+        return self.reference(codec, gathered, _gather(w, groups), length)
 
     def shard_coord(self, codec, payload, length, groups, weight,
                     participation=None):
-        _no_participation(participation)
-        num, den = _shard_num_den(codec, payload, length, groups, weight)
+        num, den = _shard_num_den(codec, payload, length, groups, weight,
+                                  participation)
         return _coord_divide(num, den), den
 
 
@@ -279,8 +307,8 @@ class Hierarchical(SparseAllgather):
 
     def shard_coord(self, codec, payload, length, groups, weight,
                     participation=None):
-        _no_participation(participation)
-        num, den = _shard_num_den(codec, payload, length, groups[:-1], weight)
+        num, den = _shard_num_den(codec, payload, length, groups[:-1], weight,
+                                  participation)
         num, den = _psum(num, groups[-1:]), _psum(den, groups[-1:])
         return _coord_divide(num, den), den
 
@@ -293,33 +321,34 @@ class DenseAllreduce(Collective):
     name = "dense_allreduce"
 
     def reference(self, codec, payloads, weights, length, participation=None):
-        _no_participation(participation)
         dense = codec.decoded_dense(payloads, length)
-        return dense_mean(dense, _worker_weights(weights, dense.shape[0], dense))
+        w = _worker_weights(weights, dense.shape[0], dense)
+        return dense_mean(dense, _reference_weights(w, participation, dense.device))
 
     def reference_coord(self, codec, payloads, weights, length,
                         participation=None):
         # dense on the wire, but the sparsified gradient is zero off the
         # selected coordinates: presence still names the senders
-        _no_participation(participation)
         dense = codec.decoded_dense(payloads, length)
-        w = _worker_weights(weights, dense.shape[0], dense)
+        w = _reference_weights(_worker_weights(weights, dense.shape[0], dense),
+                               participation, dense.device)
         presence = (dense != 0).to(dense.dtype)
         num, den = dense_mean(dense, w), dense_mean(presence, w)
         return _coord_divide(num, den), den
 
     def shard(self, codec, payload, length, groups, weight,
               participation=None):
-        _no_participation(participation)
-        return _psum(codec.decoded_dense(payload, length)[0] * weight, groups)
+        dense = codec.decoded_dense(payload, length)[0]
+        w = _shard_weight(weight, participation, dense.device)
+        return _psum(dense * w, groups)
 
     def shard_coord(self, codec, payload, length, groups, weight,
                     participation=None):
-        _no_participation(participation)
         dense = codec.decoded_dense(payload, length)[0]
+        w = _shard_weight(weight, participation, dense.device)
         presence = (dense != 0).to(dense.dtype)
-        num = _psum(dense * weight, groups)
-        den = _psum(presence * weight, groups)
+        num = _psum(dense * w, groups)
+        den = _psum(presence * w, groups)
         return _coord_divide(num, den), den
 
 

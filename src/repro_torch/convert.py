@@ -13,6 +13,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.comm.controller import ControllerState
 from repro_torch.core.compact import CompactState
 from repro_torch.core.simulator import SimState
 from repro_torch.core.sparsify import DenseState
@@ -66,20 +67,26 @@ def compact_state_from_jax(tree_of_numpy: Any, device="cuda"):
 def sim_state_from_jax(tree_of_numpy: Any, device="cuda"):
     """The JAX simulator's state with numpy leaves
     (``jax.tree.map(np.asarray, state)``) → the port's ``SimState``, with
-    ``w_agg_prev`` (coordinate weighting) when it is set. Only the
-    full-participation, static-k state converts: its participation and
-    controller fields must be None."""
-    for name in ("pending", "pending_age", "ctrl"):
-        if getattr(tree_of_numpy, name, None) is not None:
-            raise ValueError(f"SimState.{name} is not ported; it must be None")
-    w_agg_prev = getattr(tree_of_numpy, "w_agg_prev", None)
+    the ``stale`` pending buffer, the controller state and ``w_agg_prev``
+    (coordinate weighting) where they are set."""
+    def opt(value, dtype=None):
+        if value is None:
+            return None
+        x = torch.tensor(np.array(value), device=device)
+        return x if dtype is None else x.to(dtype)
+
+    ctrl = getattr(tree_of_numpy, "ctrl", None)
     return SimState(
         theta=torch.tensor(np.array(tree_of_numpy.theta), device=device),
         worker_states=dense_state_from_jax(tree_of_numpy.worker_states, device),
         g_agg_prev=torch.tensor(np.array(tree_of_numpy.g_agg_prev), device=device),
         step=int(tree_of_numpy.step),
-        w_agg_prev=(None if w_agg_prev is None
-                    else torch.tensor(np.array(w_agg_prev), device=device)),
+        pending=opt(getattr(tree_of_numpy, "pending", None)),
+        pending_age=opt(getattr(tree_of_numpy, "pending_age", None), torch.int32),
+        ctrl=None if ctrl is None else ControllerState(
+            err_ratio=opt(ctrl.err_ratio, torch.float32),
+            k=opt(ctrl.k, torch.int32), t=opt(ctrl.t, torch.int32)),
+        w_agg_prev=opt(getattr(tree_of_numpy, "w_agg_prev", None)),
     )
 
 
@@ -97,6 +104,13 @@ def sim_state_to_numpy(state) -> dict:
         "step": int(state.step),
         "w_agg_prev": (None if state.w_agg_prev is None
                        else state.w_agg_prev.detach().cpu().numpy()),
+        "pending": (None if state.pending is None
+                    else state.pending.detach().cpu().numpy()),
+        "pending_age": (None if state.pending_age is None
+                        else state.pending_age.detach().cpu().numpy()),
+        "ctrl": (None if state.ctrl is None else {
+            name: getattr(state.ctrl, name).detach().cpu().numpy()
+            for name in state.ctrl._fields}),
     }
 
 

@@ -11,8 +11,10 @@ as int32.
 Under coordinate weighting, ``compact_finalize(den=...)`` records the
 sender mass the server divided by at the sent coordinates
 (``CompactState.sent_w``), and the next round's posterior weighs this
-worker with ``omega / sent_w`` there. The adaptive-k controller's
-per-round ``k_dyn`` (ROADMAP queue 1 item 6) is not ported yet.
+worker with ``omega / sent_w`` there. ``compact_select(k_dyn=...)``
+takes the adaptive-k controller's per-round k: selection runs at the
+static capacity and the payload keeps its first ``k_dyn`` slots
+(:func:`_apply_k_dyn`).
 """
 from __future__ import annotations
 
@@ -56,12 +58,24 @@ def select_rows(st: CompactState, rows: torch.Tensor) -> CompactState:
     return CompactState(*(x[rows] for x in st))
 
 
+def _apply_k_dyn(vals: torch.Tensor, k_dyn: torch.Tensor) -> torch.Tensor:
+    """Keep the first ``k_dyn`` slots of a payload listed by descending
+    score, the dynamic top-``k_dyn``; the other slots keep their distinct
+    indices and carry +0.0, a no-op on the wire. The value is selected,
+    not multiplied by the keep mask: the JAX package's product gives +0.0
+    under ``jax.jit`` (how its simulator and trainer run it), where a
+    product in torch keeps the sign of a negative value."""
+    slot = torch.arange(vals.shape[-1], device=vals.device)
+    return torch.where(slot < k_dyn, vals, 0.0)
+
+
 def compact_select(
     cfg: SparsifierConfig,
     st: CompactState,
     g: torch.Tensor,
     k: int,
     *,
+    k_dyn: Optional[torch.Tensor] = None,
     fastpath: Optional[str] = None,
     counts=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -82,8 +96,22 @@ def compact_select(
     (the trainer decides per leaf instead, with ``fastpath.leaf_fused``).
     ``None``/``"off"`` is dense selection.
     ``counts`` (a ``fastpath.FastpathCounts``) tallies fused rounds and
-    fallbacks."""
+    fallbacks.
+
+    ``k_dyn`` (a tensor, ``<= k``) is the adaptive controller's per-round
+    k: selection still runs at the capacity ``k``, fused or not, and then
+    keeps the payload's first ``k_dyn`` slots (:func:`_apply_k_dyn`).
+    Only ``topk`` and ``regtopk`` under the exact selector take it; at
+    ``k_dyn == k`` the payload is the static path's bit for bit."""
     L = g.shape[1]
+    if k_dyn is not None and (
+        cfg.kind not in ("topk", "regtopk") or cfg.selector != "exact"
+    ):
+        raise ValueError(
+            "dynamic per-round k needs a magnitude-scored fixed-k kind "
+            "('topk'/'regtopk') under selector='exact'; got kind="
+            f"{cfg.kind!r} selector={cfg.selector!r}"
+        )
     if fastpath not in (None, "off"):
         from repro_torch.comm import fastpath as fp
 
@@ -104,7 +132,8 @@ def compact_select(
                 )
             )
         ):
-            return fp.fused_compact_select(cfg, st, g, k, counts=counts)
+            a, vals, idx = fp.fused_compact_select(cfg, st, g, k, counts=counts)
+            return a, vals if k_dyn is None else _apply_k_dyn(vals, k_dyn), idx
     a = st.eps + g.to(st.eps.dtype)
     if cfg.kind == "none":
         raise ValueError("'none' bypasses compact_select")
@@ -143,7 +172,7 @@ def compact_select(
         # on the wire.
         live = torch.gather(score, 1, idx) > 0
         vals = torch.where(live, torch.gather(a, 1, idx), 0.0)
-        return a, vals, idx
+        return a, vals if k_dyn is None else _apply_k_dyn(vals, k_dyn), idx
     if cfg.selector == "threshold":
         mask = sel_lib.threshold_topk_mask(score, k)
         vals, idx = sel_lib.mask_to_payload(mask, a, k)

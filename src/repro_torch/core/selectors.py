@@ -60,6 +60,30 @@ def exact_topk_mask(score: torch.Tensor, k: int) -> torch.Tensor:
     return mask * live
 
 
+def exact_topk_mask_dynamic(
+    score: torch.Tensor, k: torch.Tensor, capacity: int
+) -> torch.Tensor:
+    """Exact top-k mask along the last axis with a tensor ``k`` under a
+    static ``capacity`` (the adaptive controller's ``k_max``): the stable
+    top-``capacity`` of the score, of which the first ``k`` winners with a
+    positive score are kept. At ``k == capacity`` it is
+    :func:`exact_topk_mask` bit for bit.
+
+    >>> s = torch.tensor([0.1, 3.0, 0.2, 2.0])
+    >>> exact_topk_mask_dynamic(s, torch.tensor(1), 3).tolist()
+    [0.0, 1.0, 0.0, 0.0]
+    >>> exact_topk_mask_dynamic(s, torch.tensor(3), 3).tolist()
+    [0.0, 1.0, 1.0, 1.0]
+    """
+    capacity = int(min(capacity, score.shape[-1]))
+    if capacity <= 0:
+        return torch.zeros_like(score)
+    vals, idx = topk_stable(score, capacity)
+    slot = torch.arange(capacity, device=score.device)
+    keep = (slot < k) & (vals > 0)
+    return torch.zeros_like(score).scatter(-1, idx, keep.to(score.dtype))
+
+
 def threshold_topk_mask(
     score: torch.Tensor, k: int, *, n_iters: int = 24
 ) -> torch.Tensor:

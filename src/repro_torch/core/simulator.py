@@ -21,12 +21,21 @@ so the two runs agree bit for bit on the card. The kernel takes a scalar
 omega, so ``weighting="coordinate"`` refuses ``"on"`` and ``"auto"``
 declines it.
 
-Ported: full participation, static k, no overlap, the four codecs (a
-lossy codec's decode residual folds back through
+Partial participation (``repro_torch.comm.participation``) masks the
+round and renormalizes the weights; a dropped worker's state is rewritten
+by its kind's ``Sparsifier.on_dropped``; ``stale`` parks a straggler's
+discounted contribution in the pending buffer and delivers it exactly
+once; ``sampled`` gathers the S drawn clients, runs the round over S and
+scatters their states back, O(S·J) a round. The adaptive-k controller
+(``repro_torch.comm.controller``) sends its planned k through
+``Sparsifier.step_dyn`` at the capacity ``k_max`` and observes the mean
+per-worker ``||eps||`` against ``||g_agg||`` after each round. The four
+codecs (a lossy codec's decode residual folds back through
 ``Sparsifier.on_wire_residual``), the three collectives, both weightings
 and the alpha–beta cost of a round (:meth:`DistributedSim.
-wire_bytes_per_round`). The other options raise ``ValueError`` naming
-ROADMAP queue 1 item 6, which ports them.
+wire_bytes_per_round`) are ported. ``overlap``, ``codec="auto"``,
+``collective="auto"`` and :meth:`DistributedSim.round_timeline` raise,
+naming ROADMAP queue 1 item 6, which ports the planners.
 """
 from __future__ import annotations
 
@@ -38,6 +47,8 @@ import torch
 
 from repro_torch.comm import collectives, cost, fastpath
 from repro_torch.comm.codec import get_codec
+from repro_torch.comm.controller import AdaptiveKController, ControllerState
+from repro_torch.comm.participation import Participation
 from repro_torch.core import selectors as sel_lib
 from repro_torch.core.sparsify import (
     DenseState,
@@ -45,6 +56,7 @@ from repro_torch.core.sparsify import (
     SparsifierConfig,
     make_sparsifier,
 )
+from repro_torch.kernels.regtopk_score import ieee_div
 
 FASTPATH_MODES = ("off", "on", "auto")
 
@@ -60,10 +72,27 @@ class SimState(NamedTuple):
     worker_states: DenseState  # slots with a leading [N]
     g_agg_prev: torch.Tensor  # [J]  last broadcast aggregated gradient
     step: int  # rounds taken
+    # the undelivered payloads of the stragglers (``stale`` only, else
+    # None): each worker's weighted, discounted contribution not yet
+    # broadcast, and the rounds to its delivery (0: an empty slot)
+    pending: Optional[torch.Tensor] = None  # [N, J]
+    pending_age: Optional[torch.Tensor] = None  # [N] int32
+    # the adaptive-k controller's state (None when it is off)
+    ctrl: Optional[ControllerState] = None
     # the per-coordinate sender mass den[j] the server divided by last
     # round (weighting="coordinate" only; None is worker weighting): the
     # coordinate-wise omega RegTop-k's posterior conditions on
     w_agg_prev: Optional[torch.Tensor] = None  # [J]
+
+
+def _rows_where(keep: torch.Tensor, live: DenseState,
+                gone: DenseState) -> DenseState:
+    """Per worker, ``live``'s slots where ``keep`` ``[N]`` is true, else
+    ``gone``'s."""
+    return DenseState(*(
+        torch.where(keep.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+        for a, b in zip(live, gone, strict=True)
+    ))
 
 
 @dataclasses.dataclass
@@ -75,7 +104,11 @@ class DistributedSim:
     ``dp_shape`` factors the ``n_workers`` ring into a notional multi-axis
     dp mesh (outermost first) for the cost model; the simulated numbers do
     not depend on it. ``link_topo`` (one ``cost.AlphaBeta`` per axis) wins
-    over the scalar ``link_model``."""
+    over the scalar ``link_model``. ``participation`` (a
+    ``comm.participation.Participation``; None or a full schedule is the
+    all-workers round, bit for bit) and ``adaptive_k`` (a
+    ``comm.controller.AdaptiveKController``; None is the static k, bit for
+    bit) are the JAX simulator's."""
 
     grad_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
     n_workers: int
@@ -88,16 +121,22 @@ class DistributedSim:
     link_model: Optional[cost.AlphaBeta] = None
     link_topo: Optional[cost.LinkTopo] = None
     dp_shape: Optional[Tuple[int, ...]] = None
-    participation: Optional[object] = None
+    participation: Optional[Participation] = None
     fastpath: str = "off"
-    adaptive_k: Optional[object] = None
+    adaptive_k: Optional[AdaptiveKController] = None
     weighting: str = "worker"
     overlap: str = "off"
     device: str = "cuda"
 
     def __post_init__(self):
         self._validate()
-        cfg = dataclasses.replace(self.sparsifier_cfg, omega=1.0 / self.n_workers)
+        # a partial schedule aggregates with its effective weight: the
+        # renormalized 1/E|P_t|, 1/S for client sampling, and under
+        # 'stale' the on-time plus discounted late mass
+        part = self._part
+        omega = (1.0 / self.n_workers if part is None
+                 else part.effective_omega(self.n_workers))
+        cfg = dataclasses.replace(self.sparsifier_cfg, omega=omega)
         use_kernel = self.fastpath == "on" or (
             self.fastpath == "auto" and fastpath.backend_supports(self.device)
         )
@@ -109,6 +148,11 @@ class DistributedSim:
         ):
             cfg = dataclasses.replace(cfg, score_fn=fastpath.make_score_fn())
         self.sparsifier: Sparsifier = make_sparsifier(cfg)
+        # the adaptive capacity k_max is the payload every round ships
+        self._k_bounds: Optional[Tuple[int, int]] = (
+            None if self.adaptive_k is None
+            else self.adaptive_k.bounds(self.length)
+        )
         self.weights = torch.full(
             (self.n_workers,), 1.0 / self.n_workers, device=self.device
         )
@@ -132,14 +176,10 @@ class DistributedSim:
             raise ValueError(
                 f"unknown fastpath {self.fastpath!r}; available: {FASTPATH_MODES}"
             )
-        if self.participation is not None and not getattr(
-            self.participation, "is_full", False
-        ):
-            raise _not_ported("participation", self.participation)
-        if self.adaptive_k is not None:
-            raise _not_ported("adaptive_k", self.adaptive_k)
         if self.overlap != "off":
             raise _not_ported("overlap", self.overlap)
+        if self.participation is not None:
+            self.participation.validate(self.n_workers)
         collectives.check_weighting(self.weighting)
         if self.weighting == "coordinate":
             if self.sparsifier_cfg.kind == "none":
@@ -150,11 +190,31 @@ class DistributedSim:
                     "degenerates to the worker reduction — use "
                     "weighting='worker'"
                 )
+            if self._part is not None and self._part.delays_payloads:
+                raise ValueError(
+                    "weighting='coordinate' does not compose with the "
+                    "'stale' schedule: late payloads are folded into the "
+                    "broadcast after the per-coordinate renormalization, "
+                    "so the sender mass the server divided by would not "
+                    "cover them"
+                )
             if self.fastpath == "on":
                 raise ValueError(
                     "the fused score kernel bakes a scalar omega; "
                     "weighting='coordinate' requires fastpath='off' "
                     "(or 'auto', which declines the fusion)"
+                )
+        if self.adaptive_k is not None:
+            if self.sparsifier_cfg.kind not in ("topk", "regtopk"):
+                raise ValueError(
+                    "adaptive_k drives magnitude-scored fixed-k kinds "
+                    f"('topk'/'regtopk'); got {self.sparsifier_cfg.kind!r}"
+                )
+            if self.sparsifier_cfg.selector != "exact":
+                raise ValueError(
+                    "adaptive_k requires selector='exact' (the capacity-"
+                    "bounded stable top-k); got "
+                    f"{self.sparsifier_cfg.selector!r}"
                 )
         if self.codec == "auto":
             raise _not_ported("codec", self.codec)
@@ -175,6 +235,27 @@ class DistributedSim:
         return self.collective or self.aggregation
 
     @property
+    def _part(self) -> Optional[Participation]:
+        """The schedule when it drops or delays anyone, else None."""
+        part = self.participation
+        return None if part is None or part.is_full else part
+
+    @property
+    def _participants(self) -> Optional[float]:
+        """Expected on-time workers per round for the cost model (None
+        when every round is full)."""
+        part = self._part
+        return None if part is None else part.expected_participants(self.n_workers)
+
+    @property
+    def _k_payload(self) -> int:
+        """The payload's slots: the adaptive capacity k_max, else the
+        static k."""
+        if self._k_bounds is not None:
+            return self._k_bounds[1]
+        return sel_lib.sparsity_to_k(self.length, self.sparsifier.cfg.sparsity)
+
+    @property
     def resolved_link_model(self) -> cost.LinkModel:
         """The per-axis topology when given, else the scalar model, else
         the defaults."""
@@ -184,17 +265,26 @@ class DistributedSim:
 
     def init(self, theta0: torch.Tensor) -> SimState:
         theta0 = torch.as_tensor(theta0, device=self.device)
+        N, L, dev = self.n_workers, self.length, self.device
+        stale = self._part is not None and self._part.delays_payloads
+        ctrl = None
+        if self.adaptive_k is not None:
+            k0 = sel_lib.sparsity_to_k(L, self.sparsifier.cfg.sparsity)
+            ctrl = self.adaptive_k.init(k0, *self._k_bounds, device=dev)
         return SimState(
             theta=theta0,
-            worker_states=self.sparsifier.init(
-                self.n_workers, self.length, theta0.dtype, self.device
-            ),
-            g_agg_prev=torch.zeros(self.length, dtype=theta0.dtype, device=self.device),
+            worker_states=self.sparsifier.init(N, L, theta0.dtype, dev),
+            g_agg_prev=torch.zeros(L, dtype=theta0.dtype, device=dev),
             step=0,
+            pending=(torch.zeros((N, L), dtype=theta0.dtype, device=dev)
+                     if stale else None),
+            pending_age=(torch.zeros(N, dtype=torch.int32, device=dev)
+                         if stale else None),
+            ctrl=ctrl,
             # a neutral mass: round 0 scores plain Top-k (t == 0), and a
             # den of 1 keeps the posterior's unused branch finite
             w_agg_prev=(
-                torch.ones(self.length, dtype=theta0.dtype, device=self.device)
+                torch.ones(L, dtype=theta0.dtype, device=dev)
                 if self.weighting == "coordinate" else None
             ),
         )
@@ -203,34 +293,62 @@ class DistributedSim:
         """One synchronous round; returns ``(new_state, g_agg)``. Under
         ``weighting="coordinate"`` the round also records the sender mass
         it divided by (``SimState.w_agg_prev``), which the next round's
-        posterior conditions on."""
-        widx = torch.arange(self.n_workers, device=self.device)
+        posterior conditions on. Under a partial schedule only the
+        participants aggregate, with renormalized weights; ``g_agg_prev``
+        is always what the server broadcast, late deliveries included."""
+        part, dev = self._part, self.device
+        stale = part is not None and part.delays_payloads
+        sampled = part is not None and part.kind == "sampled"
+        pmask = None
+        if sampled:
+            # client sampling: the round runs over the S drawn clients;
+            # the others are idle and their state is untouched
+            widx = part.round_participants(state.step, self.n_workers, dev)
+            round_ws = DenseState(*(x[widx] for x in state.worker_states))
+            weights = torch.full((widx.shape[0],), 1.0 / widx.shape[0],
+                                 device=dev)
+        else:
+            widx = torch.arange(self.n_workers, device=dev)
+            round_ws, weights = state.worker_states, self.weights
+            if part is not None:
+                pmask = part.round_mask(state.step, self.n_workers, dev)
         grads = self.grad_fn(state.theta, widx)
-        ghat, mask, new_ws = self.sparsifier.step(
-            state.worker_states, grads, state.g_agg_prev,
-            omega_prev=state.w_agg_prev,
-        )
+        if self.adaptive_k is None:
+            ghat, mask, new_ws = self.sparsifier.step(
+                round_ws, grads, state.g_agg_prev, omega_prev=state.w_agg_prev,
+            )
+        else:
+            # the round sends the k the controller planned last round
+            ghat, mask, new_ws = self.sparsifier.step_dyn(
+                round_ws, grads, state.g_agg_prev, state.ctrl.k,
+                self._k_bounds[1], omega_prev=state.w_agg_prev,
+            )
+        # a dropped worker's payload never travelled: no codec residual
+        # applies to it, so on_dropped reads the state before the fold
+        pre_ws = new_ws
         coord = self.weighting == "coordinate"
         den = None
+        sent_stack = ghat  # each worker's contribution as the server decodes it
         # kind "none" has no fixed-k payload (its mask is all ones): it
         # always aggregates dense, as the distributed runtime does
         if (
             self.resolved_collective == "dense_allreduce"
             or self.sparsifier_cfg.kind == "none"
         ):
+            w = weights if pmask is None else part.participating_weights(
+                weights, state.step)
             if coord:
                 # dense on the wire, but the sparsified gradient is zero
                 # off the selected coordinates: presence names the senders
                 presence = (ghat != 0).to(ghat.dtype)
-                num = collectives.dense_mean(ghat, self.weights)
-                den = collectives.dense_mean(presence, self.weights)
+                num = collectives.dense_mean(ghat, w)
+                den = collectives.dense_mean(presence, w)
                 g_agg = collectives._coord_divide(num, den)
             else:
-                g_agg = collectives.dense_mean(ghat, self.weights)
+                g_agg = collectives.dense_mean(ghat, w)
         else:
             codec, L = self._codec, self.length
-            k = sel_lib.sparsity_to_k(L, self.sparsifier.cfg.sparsity)
-            vals, idx = sel_lib.mask_to_payload(mask, ghat, k)
+            vals, idx = sel_lib.mask_to_payload(mask, ghat, self._k_payload)
             payloads = codec.encode(vals, idx, L)
             if not codec.lossless:
                 # error feedback covers the codec: the decode residual
@@ -242,36 +360,98 @@ class DistributedSim:
                 new_ws = self.sparsifier.on_wire_residual(new_ws, delta)
             if coord:
                 g_agg, den = self._strategy.reference_coord(
-                    codec, payloads, self.weights, L
+                    codec, payloads, weights, L, participation=pmask
                 )
                 g_agg = g_agg.to(ghat.dtype)
             else:
                 g_agg = self._strategy.reference(
-                    codec, payloads, self.weights, L
+                    codec, payloads, weights, L, participation=pmask
                 ).to(ghat.dtype)
+            if stale:
+                sent_stack = codec.decoded_dense(payloads, L).to(ghat.dtype)
+        pending, pending_age = state.pending, state.pending_age
+        if stale:
+            g_agg, pending, pending_age = self._deliver(
+                state, pmask, g_agg, sent_stack)
+        elif pmask is not None:
+            # dropped workers sent nothing; the rewrite of their slots is
+            # their kind's (Sparsifier.on_dropped)
+            dropped_ws = self.sparsifier.on_dropped(
+                state.worker_states, pre_ws, ghat)
+            new_ws = _rows_where(pmask > 0, new_ws, dropped_ws)
+        ctrl = state.ctrl
+        if self.adaptive_k is not None:
+            # the finished round's error statistics: the mean per-worker
+            # ||eps|| (codec residual included; the S active clients when
+            # sampling) against the broadcast ||g_agg||
+            eps = new_ws.eps.float()
+            norms = torch.sqrt((eps * eps).sum(-1))
+            eps_norm = ieee_div(norms.sum(), float(norms.shape[0]))
+            ga = g_agg.float()
+            g_norm = torch.sqrt((ga * ga).sum())
+            lo, hi = self._k_bounds
+            ctrl = self.adaptive_k.observe(ctrl, eps_norm, g_norm,
+                                           k_min=lo, k_max=hi)
+        if sampled:
+            # the S updated states go back into the fleet
+            full = state.worker_states
+            new_ws = DenseState(*(
+                x.index_copy(0, widx, sub)
+                for x, sub in zip(full, new_ws, strict=True)
+            ))
         new_state = SimState(
             theta=state.theta - self.learning_rate * g_agg,
             worker_states=new_ws,
             g_agg_prev=g_agg,
             step=state.step + 1,
+            pending=pending,
+            pending_age=pending_age,
+            ctrl=ctrl,
             w_agg_prev=den.to(state.w_agg_prev.dtype) if coord else None,
         )
         return new_state, g_agg
+
+    def _deliver(self, state: SimState, pmask: torch.Tensor,
+                 g_agg: torch.Tensor, sent_stack: torch.Tensor):
+        """Bounded-staleness delivery: this round's stragglers park
+        ``omega_n * discount`` times their decoded contribution; a parked
+        payload lands exactly once, when its countdown reaches one, or
+        early if its worker straggles again first. Returns ``(g_agg with
+        the deliveries, pending, pending_age)``."""
+        pending, age = state.pending, state.pending_age
+        dropped = 1.0 - pmask
+        deliver = (age > 0) & ((age == 1) | (dropped > 0))
+        delivered = (deliver.to(g_agg.dtype)[:, None] * pending).sum(0)
+        g_agg = g_agg + delivered.to(g_agg.dtype)
+        contrib = (dropped * self.weights * self._part.discount)[:, None] * sent_stack
+        pending = torch.where(
+            dropped[:, None] > 0, contrib,
+            torch.where(deliver[:, None], 0.0, pending),
+        )
+        age = torch.where(
+            dropped > 0,
+            self._part.staleness,
+            torch.where(deliver, 0, torch.clamp(age - 1, min=0)),
+        ).to(torch.int32)
+        return g_agg, pending, age
 
     def wire_bytes_per_round(
         self, model: Optional[cost.LinkModel] = None
     ) -> cost.CostEstimate:
         """Per-worker alpha–beta cost of one round at this simulator's
         settings over its notional dp mesh (``dp_shape``); ``model``
-        defaults to the simulator's own link model."""
-        k = sel_lib.sparsity_to_k(self.length, self.sparsifier.cfg.sparsity)
+        defaults to the simulator's own link model. A partial schedule
+        prices its expected participants; adaptive runs price the payload
+        capacity k_max (the bits at the controller's k are
+        ``comm.controller.round_wire_bits``)."""
         return cost.predict(
             self._codec,
             self.resolved_collective,
             self.length,
-            k,
+            self._k_payload,
             self._dp_sizes,
             self.resolved_link_model if model is None else model,
+            participants=self._participants,
         )
 
     def round_timeline(self, compute_seconds=None):

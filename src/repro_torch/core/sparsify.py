@@ -34,8 +34,12 @@ mass ``den[j]`` under ``weighting="coordinate"``
 by ``den[j]``, so RegTop-k's posterior subtracts this worker's
 contribution with the weight ``omega / den[j]``. ``None`` is worker
 weighting; the other kinds ignore it, as in the JAX package.
-``step_dyn`` (the adaptive-k controller's traced k) is not ported yet
-(ROADMAP queue 1 item 6).
+
+``step_dyn(state, g_local, g_agg_prev, k, capacity)`` is ``step`` with
+the adaptive-k controller's per-round ``k`` (a tensor, the same for every
+worker) under the static ``capacity`` ``k_max``
+(``selectors.exact_topk_mask_dynamic``); ``topk`` and ``regtopk`` under
+the exact selector take it.
 """
 from __future__ import annotations
 
@@ -118,6 +122,22 @@ class Sparsifier:
         """Returns ``(ghat [N, L], mask [N, L], new_state)``."""
         raise NotImplementedError
 
+    def step_dyn(
+        self,
+        state: DenseState,
+        g_local: torch.Tensor,
+        g_agg_prev: torch.Tensor,
+        k: torch.Tensor,
+        capacity: int,
+        omega_prev: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, DenseState]:
+        """``step`` with a per-round ``k`` under a static ``capacity``;
+        only the magnitude-scored fixed-k kinds take it."""
+        raise NotImplementedError(
+            f"sparsifier kind {self.cfg.kind!r} does not support a "
+            "dynamic per-round k (adaptive_k drives 'topk'/'regtopk')"
+        )
+
     # -- runtime hooks (the only slot rewrites outside step) ---------------
     def on_wire_residual(self, state: DenseState, delta: torch.Tensor) -> DenseState:
         """A lossy codec put ``intended + delta`` on the wire: the residual
@@ -147,6 +167,16 @@ class Sparsifier:
         select = sel_lib.get_selector(self.cfg.selector)
         return select(score, self._k(score.shape[-1]))
 
+    def _select_dyn(self, score: torch.Tensor, k: torch.Tensor,
+                    capacity: int) -> torch.Tensor:
+        if self.cfg.selector != "exact":
+            raise ValueError(
+                "dynamic per-round k requires selector='exact' (the "
+                "capacity-bounded stable top-k); got "
+                f"{self.cfg.selector!r}"
+            )
+        return sel_lib.exact_topk_mask_dynamic(score, k, capacity)
+
     def _finish(self, state: DenseState, a: torch.Tensor, mask: torch.Tensor):
         ghat = mask * a
         new_state = DenseState(eps=a - ghat, a_prev=a, s_prev=mask, t=state.t + 1)
@@ -170,6 +200,11 @@ class TopK(Sparsifier):
     def step(self, state, g_local, g_agg_prev, omega_prev=None):
         a = state.eps + g_local
         return self._finish(state, a, self._select(torch.abs(a)))
+
+    def step_dyn(self, state, g_local, g_agg_prev, k, capacity,
+                 omega_prev=None):
+        a = state.eps + g_local
+        return self._finish(state, a, self._select_dyn(torch.abs(a), k, capacity))
 
 
 class RegTopK(Sparsifier):
@@ -207,14 +242,23 @@ class RegTopK(Sparsifier):
             omega=omega, mu=cfg.mu, q=cfg.q_const, y=cfg.y,
         )
 
-    def step(self, state, g_local, g_agg_prev, omega_prev=None):
-        a = state.eps + g_local
-        score = torch.where(
+    def _round_score(self, state, a, g_agg_prev, omega_prev):
+        return torch.where(
             (state.t == 0)[:, None],
             torch.abs(a),
             self._score(state, a, g_agg_prev, omega_prev),
         )
+
+    def step(self, state, g_local, g_agg_prev, omega_prev=None):
+        a = state.eps + g_local
+        score = self._round_score(state, a, g_agg_prev, omega_prev)
         return self._finish(state, a, self._select(score))
+
+    def step_dyn(self, state, g_local, g_agg_prev, k, capacity,
+                 omega_prev=None):
+        a = state.eps + g_local
+        score = self._round_score(state, a, g_agg_prev, omega_prev)
+        return self._finish(state, a, self._select_dyn(score, k, capacity))
 
     def on_wire_residual(self, state, delta):
         # the posterior conditions on what the server decoded: a_prev

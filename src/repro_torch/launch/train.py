@@ -22,6 +22,13 @@ several ranks on one card (``nccl`` refuses that with its own error).
 ``--multi-pod`` lays the ranks out as ``("pod", "data") = (2, W/2)``
 (``repro_torch.launch.mesh``), and ``--link-topo`` then prices both
 axes. Only rank 0 prints.
+
+``--participation`` (a straggler schedule: ``round_robin:2``,
+``bernoulli:0.25``, ``sampled:4``) and ``--adaptive-k`` (the controller's
+``budget[,k_min,k_max]``) work on one card and under ``torchrun``, as in
+the JAX trainer; ``stale`` is refused (it needs the simulator's pending
+buffer), and the step line gains the mean per-leaf k under
+``--adaptive-k``.
 """
 from __future__ import annotations
 
@@ -38,16 +45,19 @@ from repro_torch import configs as cfglib
 from repro_torch.comm import cost
 from repro_torch.comm.codec import CODECS
 from repro_torch.comm.collectives import COLLECTIVES
+from repro_torch.comm.controller import parse_adaptive_k
 from repro_torch.comm.fastpath import (
     FastpathCounts,
     ThroughputTable,
     backend_supports,
 )
+from repro_torch.comm.participation import parse_participation
 from repro_torch.core.distributed import (
     DistConfig,
     build_plan,
     comm_round_bytes,
     comm_round_cost,
+    init_controller_state,
     init_sparsifier_state,
     make_train_step,
 )
@@ -88,6 +98,20 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "line: 'data:alpha,beta' or a bare 'alpha,beta' "
                          "(seconds per message, per byte); under "
                          "--multi-pod 'pod:a,b;data:a,b'")
+    ap.add_argument("--participation", default=None, metavar="SPEC",
+                    help="partial-participation schedule over the dp "
+                         "workers: 'full' (default), "
+                         "'bernoulli:drop_rate[,seed]', "
+                         "'round_robin:n_stragglers' or 'sampled:S[,seed]'; "
+                         "dropped workers keep their payload in the error "
+                         "accumulator and the round aggregates with "
+                         "renormalized weights ('stale:...' is "
+                         "simulator-only)")
+    ap.add_argument("--adaptive-k", default=None, metavar="SPEC",
+                    help="error-budget-driven per-round k: "
+                         "'budget[,k_min,k_max]'; bounds in (0,1) are "
+                         "fractions of the leaf length, >= 1 counts; the "
+                         "payload rides at the k_max capacity")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--smoke", action="store_true",
@@ -119,6 +143,10 @@ def dist_config(args: argparse.Namespace,
                 link_topo: Optional[cost.LinkTopo] = None) -> DistConfig:
     """The ``DistConfig`` that the flags describe."""
     return DistConfig(
+        participation=(parse_participation(args.participation)
+                       if args.participation else None),
+        adaptive_k=(parse_adaptive_k(args.adaptive_k)
+                    if args.adaptive_k else None),
         sparsifier=SparsifierConfig(
             kind=args.sparsifier, sparsity=args.sparsity, mu=args.mu
         ),
@@ -181,6 +209,18 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
             say(f"link-topo {axis}: alpha={lk.alpha:.3e} s/msg "
                 f"beta={lk.beta:.3e} s/B")
     dist = dist or dist_config(args, link_topo)
+    part = dist.participation
+    if part is not None:
+        part.validate(W)
+        if not part.is_full:
+            say(f"participation: {part.kind} — expected "
+                f"{part.expected_participants(W):.2f}/{W} workers on time "
+                "per round (renormalized weights)")
+    ctrl = dist.adaptive_k
+    if ctrl is not None:
+        say(f"adaptive-k: budget={ctrl.budget:g} "
+            f"bounds=[{ctrl.k_min:g}, {ctrl.k_max:g}] "
+            f"momentum={ctrl.momentum:g} hysteresis={ctrl.hysteresis:g}")
     if dist.weighting == "coordinate":
         say("weighting: coordinate — per-coordinate renormalization over "
             "the workers that sent each coordinate")
@@ -207,6 +247,8 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
     sp_state = init_sparsifier_state(
         plan, W if mesh is None else 1, args.device
     )
+    if ctrl is not None:
+        sp_state = (sp_state, init_controller_state(plan, dist, args.device))
     pipe = TokenPipeline(cfg, args.global_batch, args.seq, 0, args.device)
     pred_b, meas_b = comm_round_bytes(plan, dist, dp_sizes)
     round_cost = comm_round_cost(plan, dist, dp_sizes)
@@ -229,7 +271,9 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
         losses.append(float(m["loss"]))
         if t % args.log_every == 0 or t == args.steps - 1:
             dt = time.time() - t0
-            say(f"step {t:5d} loss {losses[-1]:.4f} "
+            extra = (f" k {float(m['adaptive_k']):7.1f}"
+                     if "adaptive_k" in m else "")
+            say(f"step {t:5d} loss {losses[-1]:.4f}{extra} "
                 f"({dt / (t + 1):.2f}s/step)")
     if counts.rounds:
         say(f"fastpath: certificate hit rate {counts.hit_rate:.4f} "

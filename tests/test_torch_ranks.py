@@ -15,8 +15,21 @@ port's one-card trainer.
   a floor of 1e-6 of the largest magnitude (kind "none" sums four dense
   gradients, which cancel to near zero at some coordinates), every rank
   holding the same bits.
+* Partial rounds and the adaptive-k controller, the same way: a
+  ``round_robin`` schedule dropping N/2 workers (fused leaf, and with
+  ``coo_q8``, ``hierarchical`` and coordinate weighting), a ``bernoulli``
+  one under ``dense_allreduce`` (the JAX side reading the port's masks,
+  which torch draws where JAX draws with ``jax.random``), and the
+  controller's k on the fused leaf, with kind "none" under both. The JAX
+  side builds each round's context from the mask and folds the round into
+  the controller with ``_ctrl_update``, as ``make_sparsify_aggregate``
+  does; the controller's k must match exactly, its ``err_ratio`` to rtol
+  1e-5. The one-card round of these cases (W = 4 on the card) is held
+  against the same JAX rounds.
 * Three steps of the tiny model of ``tests/test_torch_train.py`` at two
-  ranks against the one-card ``--workers 2`` run: losses, params and
+  ranks against the one-card ``--workers 2`` run (also under
+  ``round_robin:1`` and under ``--adaptive-k``), and at four ranks with
+  ``round_robin:2`` and ``--adaptive-k`` against ``--workers 4``: losses, params and
   each rank's state against its worker's to that file's tolerances (rtol
   1e-5 with a floor of 1e-5 of a leaf's largest magnitude: the CPU
   backward is not deterministic), and the ranks' params equal in bits.
@@ -54,14 +67,40 @@ ROUND_CASES = {
     "dense_allreduce": ("regtopk", "coo_fp32", "dense_allreduce", "worker",
                         "off"),
     "none": ("none", "coo_fp32", "sparse_allgather", "worker", "off"),
+    "round_robin": ("regtopk", "coo_fp32", "sparse_allgather", "worker", "on"),
+    "bernoulli-dense": ("regtopk", "coo_fp32", "dense_allreduce", "worker",
+                        "off"),
+    "round_robin-q8-coordinate": ("regtopk", "coo_q8", "hierarchical",
+                                  "coordinate", "off"),
+    "adaptive": ("regtopk", "coo_fp32", "sparse_allgather", "worker", "on"),
+    "adaptive-round_robin-none": ("none", "coo_fp32", "sparse_allgather",
+                                  "worker", "off"),
 }
+ADAPTIVE_SPEC = "0.5,0.001,0.012"
+
+
+def _extras(name, n):
+    """A round case's ``(participation spec, adaptive-k spec)``: the
+    round_robin cases drop n/2 of the n workers; bernoulli drops half."""
+    part = None
+    if "round_robin" in name:
+        part = f"round_robin:{n // 2}"
+    elif "bernoulli" in name:
+        part = "bernoulli:0.5,3"
+    adaptive = ADAPTIVE_SPEC if name.startswith("adaptive") and "none" not in name else None
+    return part, adaptive
 TINY = dict(name="tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
             head_dim=16, d_ff=128, vocab=256)
 STEPS, LR, TRAIN_SPARSITY, RTOL = 3, 1e-3, 0.01, 1e-5
-# name -> DistConfig fields of the trainer runs
+# name -> (world size, DistConfig fields) of the trainer runs; the spec
+# strings are parsed in the rank (``_train``)
 TRAIN_CASES = {
-    "fastpath": dict(fastpath="on"),
-    "dense_allreduce": dict(collective="dense_allreduce"),
+    "fastpath": (2, dict(fastpath="on")),
+    "dense_allreduce": (2, dict(collective="dense_allreduce")),
+    "round_robin": (2, dict(fastpath="on", participation="round_robin:1")),
+    "adaptive": (2, dict(fastpath="on", adaptive_k="1.0,0.001,0.02")),
+    "round_robin-4": (4, dict(participation="round_robin:2",
+                              adaptive_k="1.0,0.001,0.02")),
 }
 AUTO_FLAGS = ["--smoke", "--steps", "2", "--seq", "16", "--fastpath", "auto",
               "--device", "cpu", "--log-every", "100"]
@@ -80,18 +119,52 @@ def _batches():
              ("tokens", "labels")} for _ in range(STEPS)]
 
 
-def _dist(kind, codec, collective, weighting, fastpath):
+def _dist(kind, codec, collective, weighting, fastpath, part=None,
+          adaptive=None):
+    from repro_torch.comm import parse_adaptive_k, parse_participation
     from repro_torch.core import distributed as td
     from repro_torch.core.sparsify import SparsifierConfig
 
     return td.DistConfig(
         sparsifier=SparsifierConfig(kind=kind, sparsity=SPARSITY, mu=1.0),
         codec=codec, collective=collective, weighting=weighting,
-        fastpath=fastpath)
+        fastpath=fastpath,
+        participation=parse_participation(part) if part else None,
+        adaptive_k=parse_adaptive_k(adaptive) if adaptive else None)
 
 
-def _train(mesh=None, workers=2, **fields):
-    """Three steps of the tiny model: (losses, params, sparsifier state)."""
+def _port_rounds(name, n, rank=None, mesh=None):
+    """The port's ROUNDS rounds of a round case: one card with all n
+    workers (``mesh=None``), or this rank's round: per round ``(agg,
+    state, controller)``, with the kernel 1 launch count and fused flags."""
+    from repro_torch.comm.fastpath import FastpathCounts
+    from repro_torch.core import distributed as td
+
+    dcfg = _dist(*ROUND_CASES[name], *_extras(name, n))
+    plan = td.build_plan({k: torch.zeros(s) for k, s in SHAPES.items()},
+                         SPARSITY, dcfg)
+    counts = FastpathCounts()
+    spa = td.make_sparsify_aggregate(plan, dcfg, n, counts, mesh)
+    state = td.init_sparsifier_state(plan, n if mesh is None else 1, "cpu")
+    ctrl = (td.init_controller_state(plan, dcfg, "cpu")
+            if dcfg.adaptive_k is not None else None)
+    rows = slice(None) if mesh is None else slice(rank, rank + 1)
+    rounds = []
+    for g in _grads(n):
+        grads = {k: torch.from_numpy(x[rows]) for k, x in g.items()}
+        if ctrl is None:
+            agg, state = spa(grads, state)
+        else:
+            agg, state, ctrl = spa(grads, state, ctrl)
+        rounds.append((agg, state, ctrl))
+    return rounds, counts.rounds, {k: p.fused for k, p in plan.items()}
+
+
+def _train(mesh=None, workers=2, participation=None, adaptive_k=None,
+           **fields):
+    """Three steps of the tiny model: (losses, params, sparsifier state);
+    under ``adaptive_k`` the state is the pair (compact, controller)."""
+    from repro_torch.comm import parse_adaptive_k, parse_participation
     from repro_torch.core import distributed as td
     from repro_torch.core.sparsify import SparsifierConfig
     from repro_torch.models import lm
@@ -101,12 +174,16 @@ def _train(mesh=None, workers=2, **fields):
     cfg = ModelConfig(**TINY)
     dist = td.DistConfig(
         sparsifier=SparsifierConfig(kind="regtopk", sparsity=TRAIN_SPARSITY),
-        optimizer=OptConfig(kind="adam", learning_rate=LR), **fields)
+        optimizer=OptConfig(kind="adam", learning_rate=LR),
+        participation=participation and parse_participation(participation),
+        adaptive_k=adaptive_k and parse_adaptive_k(adaptive_k), **fields)
     params = lm.init(cfg, seed=0, device="cpu")
     plan = td.build_plan(params, TRAIN_SPARSITY, dist)
     step = td.make_train_step(cfg, dist, plan, workers, mesh=mesh)
     opt_state = make_optimizer(dist.optimizer).init(params)
     sp = td.init_sparsifier_state(plan, 1 if mesh else workers, "cpu")
+    if adaptive_k:
+        sp = (sp, td.init_controller_state(plan, dist, "cpu"))
     losses = []
     for b in _batches():
         batch = {key: torch.from_numpy(v).long() for key, v in b.items()}
@@ -116,12 +193,10 @@ def _train(mesh=None, workers=2, **fields):
 
 
 def _rank(rank, world, store, out_dir):
-    """One rank: every round case of this world size and, at two ranks,
-    the trainer runs; results saved to ``out_dir/rank{rank}.pt``."""
+    """One rank: every round case and every trainer run of this world
+    size; results saved to ``out_dir/rank{rank}.pt``."""
     import torch.distributed as dist
 
-    from repro_torch.comm.fastpath import FastpathCounts
-    from repro_torch.core import distributed as td
     from repro_torch.launch import mesh, train
     from repro_torch.tree import tree_leaves
 
@@ -129,23 +204,12 @@ def _rank(rank, world, store, out_dir):
     try:
         host = mesh.make_host_groups()
         out = {"rounds": {}, "train": {}}
-        for name, case in ROUND_CASES.items():
-            dcfg = _dist(*case)
-            plan = td.build_plan({n: torch.zeros(s) for n, s in SHAPES.items()},
-                                 SPARSITY, dcfg)
-            counts = FastpathCounts()
-            spa = td.make_sparsify_aggregate(plan, dcfg, world, counts, host)
-            state = td.init_sparsifier_state(plan, 1, "cpu")
-            rounds = []
-            for g in _grads(world):
-                agg, state = spa({n: torch.from_numpy(x[rank:rank + 1])
-                                  for n, x in g.items()}, state)
-                rounds.append((agg, state))
-            out["rounds"][name] = (rounds, counts.rounds,
-                                   {n: p.fused for n, p in plan.items()})
+        for name in ROUND_CASES:
+            out["rounds"][name] = _port_rounds(name, world, rank, host)
+        for name, (size, fields) in TRAIN_CASES.items():
+            if size == world:
+                out["train"][name] = _train(host, world, **fields)
         if world == 2:
-            for name, fields in TRAIN_CASES.items():
-                out["train"][name] = _train(host, **fields)
             res = train.run(train.parse_args(AUTO_FLAGS), mesh=host)
             out["auto"] = (res.losses,
                            [p.fused for p in tree_leaves(res.plan)])
@@ -157,6 +221,7 @@ def _rank(rank, world, store, out_dir):
 @pytest.fixture(scope="module")
 def ranks_out(tmp_path_factory):
     """World size -> every rank's results, one spawn per size."""
+    from repro_torch.comm.controller import ControllerState
     from repro_torch.core.compact import CompactState
     from repro_torch.launch import mesh
 
@@ -164,29 +229,52 @@ def ranks_out(tmp_path_factory):
     for n in (2, 4):
         d = tmp_path_factory.mktemp(f"ranks{n}")
         mesh.spawn(_rank, n, (str(d / "store"), str(d)), timeout=120)
-        with torch.serialization.safe_globals([CompactState]):
+        with torch.serialization.safe_globals([CompactState, ControllerState]):
             out[n] = [torch.load(d / f"rank{r}.pt") for r in range(n)]
     return out
 
 
-def _jax_rounds(n, kind, codec, collective, weighting):
+def _jax_rounds(n, name):
     """The JAX runtime's per-worker round (``_spa_leaf``) for the N
-    workers under ``jax.vmap(axis_name="data")``, ROUNDS rounds: per round
-    ``{leaf: (agg [N, *shape], state with a leading [N] axis)}``."""
+    workers of round case ``name`` under ``jax.vmap(axis_name="data")``,
+    ROUNDS rounds, as ``make_sparsify_aggregate`` runs it: per round
+    ``{leaf: (agg [N, *shape], state with a leading [N] axis)}`` and the
+    controller tree (or None). A participation case builds the round's
+    context from the mask, a ``round_robin`` mask from the JAX schedule and
+    a ``bernoulli`` one from the port's (torch cannot reproduce
+    ``jax.random``); an adaptive case sends the controller's k and folds
+    the round in with ``_ctrl_update``."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
     from repro.comm import codec as jcodec
+    from repro.comm import parse_adaptive_k, parse_participation, worker_index
     from repro.core import compact as jc
     from repro.core import distributed as jd
     from repro.core.selectors import sparsity_to_k
     from repro.core.sparsify import SparsifierConfig
+    from repro_torch.comm import participation as tpart
 
-    scfg = SparsifierConfig(kind=kind, sparsity=SPARSITY, mu=1.0, omega=1.0 / n)
-    plans = {name: jd.LeafPlan(s, s, int(np.prod(s)),
-                               sparsity_to_k(int(np.prod(s)), SPARSITY), P(None))
-             for name, s in SHAPES.items()}
+    kind, codec, collective, weighting, _ = ROUND_CASES[name]
+    pspec, aspec = _extras(name, n)
+    part = pspec and parse_participation(pspec)
+    ctrl_cfg = aspec and parse_adaptive_k(aspec)
+    omega = 1.0 / n if not part else part.effective_omega(n)
+    scfg = SparsifierConfig(kind=kind, sparsity=SPARSITY, mu=1.0, omega=omega)
+
+    def k_of(length):
+        return ctrl_cfg.bounds(length)[1] if ctrl_cfg else sparsity_to_k(length, SPARSITY)
+
+    plans = {leaf: jd.LeafPlan(s, s, int(np.prod(s)), k_of(int(np.prod(s))), P(None))
+             for leaf, s in SHAPES.items()}
+    if part and part.kind == "bernoulli":
+        table = jnp.asarray(np.stack([
+            tpart.parse_participation(pspec).round_mask(r, n).numpy()
+            for r in range(ROUNDS)]))
+        round_mask = lambda r: table[r]  # noqa: E731
+    elif part:
+        round_mask = lambda r: part.round_mask(r, n)  # noqa: E731
 
     def init(p):
         st = jc.compact_init(p.local_len, p.k)
@@ -197,20 +285,37 @@ def _jax_rounds(n, kind, codec, collective, weighting):
             t=st.t[None])
         return jax.tree.map(lambda x: jnp.stack([x] * n), one)
 
-    def worker(g, st):
-        return {name: jd._spa_leaf(g[name], st[name], p, scfg,
-                                   jcodec.get_codec(codec), collective,
-                                   ("data",), weighting=weighting)
-                for name, p in plans.items()}
+    def worker(g, st, ctrl):
+        part_ctx = None
+        if part:
+            pmask = round_mask(st["big"].t[0])
+            part_ctx = (pmask[worker_index(("data",), (n,))],
+                        1.0 / jnp.maximum(pmask.sum(), 1.0))
+        out = {leaf: jd._spa_leaf(g[leaf], st[leaf], p, scfg,
+                                  jcodec.get_codec(codec), collective, ("data",),
+                                  part_ctx, False,
+                                  None if ctrl is None else ctrl[leaf].k,
+                                  weighting=weighting)
+               for leaf, p in plans.items()}
+        new_ctrl = None if ctrl is None else {
+            leaf: jd._ctrl_update(ctrl_cfg, ctrl[leaf], out[leaf][1], out[leaf][0],
+                                  p, ("data",), (), *ctrl_cfg.bounds(p.local_len))
+            for leaf, p in plans.items()}
+        return out, new_ctrl
 
-    step = jax.jit(jax.vmap(worker, axis_name="data"))
-    state = {name: init(p) for name, p in plans.items()}
+    step = jax.jit(jax.vmap(worker, axis_name="data", in_axes=(0, 0, None)))
+    state = {leaf: init(p) for leaf, p in plans.items()}
+    ctrl = None if not ctrl_cfg else {
+        leaf: ctrl_cfg.init(sparsity_to_k(p.local_len, SPARSITY),
+                            *ctrl_cfg.bounds(p.local_len))
+        for leaf, p in plans.items()}
     out = []
     for g in _grads(n):
-        res = step({name: jnp.asarray(x[:, None]) for name, x in g.items()},
-                   state)
-        state = {name: r[1] for name, r in res.items()}
-        out.append(res)
+        res, ctrl = step({leaf: jnp.asarray(x[:, None]) for leaf, x in g.items()},
+                         state, ctrl)
+        ctrl = None if ctrl is None else jax.tree.map(lambda x: x[0], ctrl)
+        state = {leaf: r[1] for leaf, r in res.items()}
+        out.append((res, ctrl))
     return out
 
 
@@ -218,46 +323,84 @@ def _bits(x):
     return np.asarray(x, np.float32).view(np.uint32)
 
 
+def _check_round(case, w, row, agg, st, ctrl, jres, jctrl, exact, msg):
+    """Worker ``w``'s round (its state at ``row``: 0 on its own rank, w on
+    one card) against the JAX package's: see the module docstring."""
+    kind = ROUND_CASES[case][0]
+    for name, s in SHAPES.items():
+        jagg, jst = jres[name]
+        assert agg[name].shape == s
+        assert np.count_nonzero(agg[name].numpy()) > 0
+        pairs = {"agg": (agg[name].numpy(), jagg[w])}
+        if kind != "none":
+            pairs.update(
+                {f: (getattr(st[name], f)[row].numpy(),
+                     np.asarray(getattr(jst, f)[w]).reshape(-1))
+                 for f in ("eps", "sent_g", "sent_w")})
+            np.testing.assert_array_equal(
+                st[name].sent_idx[row].numpy(),
+                np.asarray(jst.sent_idx[w]).reshape(-1), err_msg=f"{msg} {name}")
+        np.testing.assert_array_equal(
+            st[name].t[row:row + 1].numpy(), np.asarray(jst.t[w]), err_msg=msg)
+        for f, (got, exp) in pairs.items():
+            if exact or f in ("eps", "sent_w"):
+                np.testing.assert_array_equal(
+                    _bits(got), _bits(np.reshape(exp, got.shape)),
+                    err_msg=f"{msg} {name} {f}")
+            else:  # a floor where four summands cancel
+                np.testing.assert_allclose(
+                    got, np.reshape(exp, got.shape), rtol=1e-6,
+                    atol=1e-6 * np.abs(exp).max(), err_msg=f"{msg} {name} {f}")
+        if jctrl is not None:
+            # the controller's k exactly; err_ratio reads the workers'
+            # summed norms (four in the backend's order at N = 4)
+            c, jc = ctrl[name], jctrl[name]
+            assert (int(c.k), int(c.t)) == (int(jc.k), int(jc.t)), f"{msg} {name}"
+            np.testing.assert_allclose(float(c.err_ratio), float(jc.err_ratio),
+                                       rtol=1e-5, err_msg=f"{msg} {name}")
+
+
 @pytest.mark.parametrize("n", [2, 4])
 @pytest.mark.parametrize("case", list(ROUND_CASES))
 def test_rank_round_matches_jax_spa_leaf(ranks_out, case, n):
     kind, codec, collective, weighting, fastpath = ROUND_CASES[case]
-    want = _jax_rounds(n, kind, codec, collective, weighting)
+    want = _jax_rounds(n, case)
     # all_reduce over more than two ranks sums in the backend's order
     exact = n <= 2 or collective == "sparse_allgather" and kind != "none"
     for r in range(n):
         rounds, fused_rounds, fused = ranks_out[n][r]["rounds"][case]
         if fastpath == "on":
             assert fused["big"] and fused_rounds == ROUNDS * sum(fused.values())
-        for t, ((agg, st), jres) in enumerate(zip(rounds, want, strict=True)):
-            for name, s in SHAPES.items():
-                jagg, jst = jres[name]
-                msg = f"{case} rank {r} round {t} {name}"
-                first = ranks_out[n][0]["rounds"][case][0][t][0][name]
-                np.testing.assert_array_equal(_bits(agg[name]), _bits(first),
+        for t, ((agg, st, ctrl), (jres, jctrl)) in enumerate(
+                zip(rounds, want, strict=True)):
+            msg = f"{case} rank {r} round {t}"
+            first = ranks_out[n][0]["rounds"][case][0][t][0]
+            for name in SHAPES:
+                np.testing.assert_array_equal(_bits(agg[name]), _bits(first[name]),
                                               err_msg=f"{msg}: rank vs rank 0")
-                assert agg[name].shape == s
-                assert np.count_nonzero(agg[name].numpy()) > 0
-                pairs = {"agg": (agg[name].numpy(), jagg[r])}
-                if kind != "none":
-                    pairs.update(
-                        {f: (getattr(st[name], f)[0].numpy(),
-                             np.asarray(getattr(jst, f)[r]).reshape(-1))
-                         for f in ("eps", "sent_g", "sent_w")})
-                    np.testing.assert_array_equal(
-                        st[name].sent_idx[0].numpy(),
-                        np.asarray(jst.sent_idx[r]).reshape(-1), err_msg=msg)
-                np.testing.assert_array_equal(
-                    st[name].t.numpy(), np.asarray(jst.t[r]), err_msg=msg)
-                for f, (got, exp) in pairs.items():
-                    if exact or f in ("eps", "sent_w"):
-                        np.testing.assert_array_equal(
-                            _bits(got), _bits(np.reshape(exp, got.shape)),
-                            err_msg=f"{msg} {f}")
-                    else:  # a floor where four summands cancel
-                        np.testing.assert_allclose(
-                            got, np.reshape(exp, got.shape), rtol=1e-6,
-                            atol=1e-6 * np.abs(exp).max(), err_msg=f"{msg} {f}")
+            _check_round(case, r, 0, agg, st, ctrl, jres, jctrl, exact, msg)
+
+
+PARTIAL_CASES = [c for c in ROUND_CASES if _extras(c, 4) != (None, None)]
+
+
+@pytest.mark.parametrize("case", PARTIAL_CASES)
+def test_one_card_partial_round_matches_jax_spa_leaf(case):
+    """The one-card round (W = 4 on this card) of every participation and
+    adaptive case against the same JAX rounds: bits where the reduction is
+    the worker-ordered scatter-add (``sparse_allgather``), rtol 1e-6 with
+    the floor where XLA's ``psum`` sums four workers in its own order."""
+    kind, codec, collective, weighting, fastpath = ROUND_CASES[case]
+    n = 4
+    want = _jax_rounds(n, case)
+    rounds, fused_rounds, fused = _port_rounds(case, n)
+    if fastpath == "on":
+        assert fused["big"] and fused_rounds == n * ROUNDS * sum(fused.values())
+    exact = collective == "sparse_allgather" and kind != "none"
+    for t, ((agg, st, ctrl), (jres, jctrl)) in enumerate(zip(rounds, want, strict=True)):
+        for w in range(n):
+            _check_round(case, w, w, agg, st, ctrl, jres, jctrl, exact,
+                         f"{case} worker {w} round {t}")
 
 
 def _close(got, want, msg):
@@ -266,12 +409,17 @@ def _close(got, want, msg):
                                atol=RTOL * np.abs(want).max(), err_msg=msg)
 
 
-@pytest.mark.parametrize("case", list(TRAIN_CASES))
-def test_two_rank_trainer_matches_one_card(ranks_out, case):
+def _trainer_matches_one_card(ranks_out, case):
+    """Every rank's run of a trainer case against the one-card run with
+    as many workers: losses and params to the file's tolerances, params
+    equal in bits across ranks, each rank's state against its worker's
+    (and, under adaptive k, the controller's k on every rank exactly)."""
     from repro_torch.tree import tree_items
 
-    losses, params, sp = _train(**TRAIN_CASES[case])
-    runs = [ranks_out[2][r]["train"][case] for r in range(2)]
+    world, fields = TRAIN_CASES[case]
+    losses, params, sp = _train(workers=world, **fields)
+    adaptive = "adaptive_k" in fields
+    runs = [ranks_out[world][r]["train"][case] for r in range(world)]
     for r, (rlosses, rparams, rsp) in enumerate(runs):
         assert rlosses == runs[0][0]
         np.testing.assert_allclose(rlosses, losses, rtol=RTOL)
@@ -281,7 +429,11 @@ def test_two_rank_trainer_matches_one_card(ranks_out, case):
             np.testing.assert_array_equal(_bits(got), _bits(first),
                                           err_msg=f"{path}: rank {r} vs rank 0")
             _close(got.numpy(), want.numpy(), path)
-        for (path, got), (_, want) in zip(tree_items(rsp), tree_items(sp),
+        cstate, ostate = (rsp[0], sp[0]) if adaptive else (rsp, sp)
+        if adaptive:
+            assert ([int(c.k) for _, c in tree_items(rsp[1])]
+                    == [int(c.k) for _, c in tree_items(sp[1])])
+        for (path, got), (_, want) in zip(tree_items(cstate), tree_items(ostate),
                                           strict=True):
             np.testing.assert_array_equal(got.t.numpy(), want.t[r:r + 1].numpy())
             _close(got.eps.numpy(), want.eps[r:r + 1].numpy(), f"{path}.eps")
@@ -289,6 +441,18 @@ def test_two_rank_trainer_matches_one_card(ranks_out, case):
             np.testing.assert_array_equal(
                 np.sort(got.sent_idx.numpy()[0]), np.sort(want.sent_idx.numpy()[r]),
                 err_msg=path)
+
+
+@pytest.mark.parametrize("case", [c for c, (n, _) in TRAIN_CASES.items() if n == 2])
+def test_two_rank_trainer_matches_one_card(ranks_out, case):
+    _trainer_matches_one_card(ranks_out, case)
+
+
+@pytest.mark.parametrize("case", [c for c, (n, _) in TRAIN_CASES.items() if n == 4])
+def test_four_rank_trainer_matches_one_card(ranks_out, case):
+    """``--participation round_robin:2`` with ``--adaptive-k`` at four
+    ranks against the one-card ``--workers 4`` run."""
+    _trainer_matches_one_card(ranks_out, case)
 
 
 def test_fastpath_auto_across_ranks_builds_one_plan(ranks_out):
@@ -332,18 +496,20 @@ def test_torchrun_two_ranks_on_the_cpu():
         assert abs(got - want) <= 5e-5 + RTOL * abs(want)
 
 
-def test_ranks_refuse_partial_participation_naming_item_6():
-    """Partial participation stays ROADMAP queue 1 item 6, across ranks as
-    on one card."""
-    from repro_torch.comm import get_codec, get_collective
+def test_ranks_refuse_the_stale_schedule():
+    """Bounded-staleness delivery needs the simulator's pending buffer: the
+    round refuses it, on one card and across ranks, as the JAX runtime
+    does."""
+    from repro_torch.comm import parse_participation
+    from repro_torch.core import distributed as td
+    from repro_torch.launch.mesh import DpGroups
 
-    codec = get_codec("coo_fp32")
-    payload = codec.encode(torch.ones(1, 2), torch.zeros(1, 2).long(), 4)
-    for name in ("sparse_allgather", "hierarchical", "dense_allreduce"):
-        for fn in ("shard", "shard_coord"):
-            with pytest.raises(ValueError, match="item 6"):
-                getattr(get_collective(name), fn)(
-                    codec, payload, 4, (), 0.5, participation=torch.ones(1))
+    dcfg = dataclasses.replace(_dist(*ROUND_CASES["coo_fp32"]), fastpath="off",
+                               participation=parse_participation("stale:1"))
+    plan = td.build_plan({"w": torch.zeros(8)}, SPARSITY, dcfg)
+    for mesh in (None, DpGroups(("data",), (4,), (None,), 0)):
+        with pytest.raises(ValueError, match="simulator-only"):
+            td.make_sparsify_aggregate(plan, dcfg, 4, mesh=mesh)
 
 
 def test_trainer_checks_workers_against_the_layout():

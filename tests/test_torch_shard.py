@@ -18,6 +18,11 @@ coordinate weighting) must equal JAX's:
   order (``dense_allreduce`` at N = 4), and then every rank must still
   hold the same bits.
 
+A partial round (``participation=``) takes the same
+checks: each rank passes its mask entry at its worker index (the rank,
+outermost axis slowest) and the participant weight ``1/|P_t|``, as every
+JAX worker passes its entry at ``worker_index`` over the dp axes.
+
 The rank bodies are module-level functions and this file imports ``jax``
 and ``repro`` only inside the tests, so a spawned rank loads no JAX.
 The legacy helpers ``allgather_scatter`` and ``allreduce_dense`` are held
@@ -46,6 +51,18 @@ CASES = [
     for codec in CODECS
     for weighting in WEIGHTINGS
 ]
+# a partial round's mask per world size: at N = 4 it drops rank 1, which on
+# the (2, 2) pods layout sits third in the gathered stack (the pod index
+# varies fastest there), so a rank that read its stack position instead of
+# its worker index would silence the wrong payload
+MASKS = {2: [1.0, 0.0], 4: [1.0, 0.0, 1.0, 1.0]}
+PART_CASES = [
+    (n, coll, layout, codec, weighting)
+    for n in (2, 4)
+    for coll, layout in LAYOUTS
+    for codec in ("coo_fp32", "coo_q8")
+    for weighting in WEIGHTINGS
+]
 
 
 def _inputs(n):
@@ -66,7 +83,7 @@ def _shard_rank(rank, world, store, out_dir):
     world size, results saved to ``out_dir/rank{rank}.pt``."""
     import torch.distributed as dist
 
-    from repro_torch.comm import get_codec, get_collective
+    from repro_torch.comm import get_codec, get_collective, worker_index
     from repro_torch.core import allgather_scatter, allreduce_dense
     from repro_torch.launch import mesh
 
@@ -88,6 +105,20 @@ def _shard_rank(rank, world, store, out_dir):
             else:
                 res = (c.shard(cd, payload, L, groups, 1.0 / world),)
             out[(coll, layout, codec, weighting)] = res
+        for n, coll, layout, codec, weighting in PART_CASES:
+            if n != world:
+                continue
+            cd, groups = get_codec(codec), layouts[layout].groups
+            payload = cd.encode(torch.from_numpy(vals[rank:rank + 1]),
+                                torch.from_numpy(idx[rank:rank + 1]).long(), L)
+            mask = torch.tensor(MASKS[world])
+            m = mask[worker_index(layouts[layout])]
+            w_part = torch.ones(()) / mask.sum()
+            c = get_collective(coll)
+            fn = c.shard_coord if weighting == "coordinate" else c.shard
+            res = fn(cd, payload, L, groups, w_part, participation=m)
+            out[("partial", coll, layout, codec, weighting)] = (
+                res if isinstance(res, tuple) else (res,))
         v = torch.from_numpy(vals[rank])
         i = torch.from_numpy(idx[rank]).long()
         groups = layouts["host"].groups
@@ -112,15 +143,17 @@ def ranks_out(tmp_path_factory):
     return out
 
 
-def _jax_shard(n, coll, layout, codec, weighting):
+def _jax_shard(n, coll, layout, codec, weighting, mask=None):
     """The JAX package's shard form over the N stacked payloads under
     named vmaps: one ``[L]`` result (or ``(agg, den)``) per worker, in
-    worker order."""
+    worker order. With ``mask`` each worker passes its own entry (by
+    ``worker_index`` over the dp axes) and the participant weight."""
     import jax
     import jax.numpy as jnp
 
     from repro.comm import codec as jcodec
     from repro.comm import collectives as jcoll
+    from repro.comm import worker_index
 
     vals, idx = _inputs(n)
     cd, c = jcodec.get_codec(codec), jcoll.get_collective(coll)
@@ -130,8 +163,18 @@ def _jax_shard(n, coll, layout, codec, weighting):
           for w in range(n)))
     fn = c.shard_coord if weighting == "coordinate" else c.shard
     axes = ("data",) if layout == "host" else ("pod", "data")
-    per_worker = jax.vmap(
-        lambda p: fn(cd, p, L, axes, 1.0 / n), axis_name="data")
+    sizes = (n,) if layout == "host" else (2, n // 2)
+    if mask is None:
+        def one(p):
+            return fn(cd, p, L, axes, 1.0 / n)
+    else:
+        jmask = jnp.asarray(mask, jnp.float32)
+        w_part = 1.0 / jnp.maximum(jmask.sum(), 1.0)
+
+        def one(p):
+            return fn(cd, p, L, axes, w_part,
+                      participation=jmask[worker_index(axes, sizes)])
+    per_worker = jax.vmap(one, axis_name="data")
     if layout == "pods":
         per_worker = jax.vmap(per_worker, axis_name="pod")
         stacked = jax.tree.map(
@@ -165,6 +208,34 @@ def test_shard_form_matches_jax_shard_form(ranks_out, n, coll, layout, codec,
                 np.testing.assert_allclose(
                     g, want[i][r], rtol=1e-6, atol=0, err_msg=f"{name}, rank {r}")
     assert np.count_nonzero(want[0][0]) > K  # the workers' payloads landed
+
+
+@pytest.mark.parametrize("n,coll,layout,codec,weighting", PART_CASES)
+def test_partial_shard_form_matches_jax_shard_form(ranks_out, n, coll, layout,
+                                                   codec, weighting):
+    """A partial round: each rank passes its own mask entry, read at its
+    worker index, and the participant weight; every rank's result against
+    JAX's shard form under the same mask, with the tolerances above."""
+    want = _jax_shard(n, coll, layout, codec, weighting, MASKS[n])
+    got = [ranks_out[n][r][("partial", coll, layout, codec, weighting)]
+           for r in range(n)]
+    summed = {"dense_allreduce": n, "hierarchical": n // 2}.get(coll, 1)
+    for i, name in enumerate(("agg", "den")[:len(want)]):
+        for r in range(n):
+            g = got[r][i].numpy()
+            np.testing.assert_array_equal(
+                _bits(g), _bits(got[0][i]), err_msg=f"{name}: rank {r} vs rank 0")
+            if summed <= 2:
+                np.testing.assert_array_equal(
+                    _bits(g), _bits(want[i][r]), err_msg=f"{name}, rank {r}")
+            else:
+                np.testing.assert_allclose(
+                    g, want[i][r], rtol=1e-6, atol=0, err_msg=f"{name}, rank {r}")
+    # the dropped worker's coordinates (none other sent them) carry nothing
+    vals, idx = _inputs(n)
+    live = np.asarray(MASKS[n]) > 0
+    only = np.setdiff1d(idx[~live], idx[live])
+    assert only.size and not np.any(got[0][0].numpy()[only])
 
 
 @pytest.mark.parametrize("n", [2, 4])

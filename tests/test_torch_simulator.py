@@ -14,10 +14,17 @@
 * the fastpath on equals off with ``torch.equal`` (RegTop-k through the
   kernel wrapper, which computes the plain chain on the CPU) at y = 1
   and y = 2; ``"auto"`` declines on the CPU; every option that is not
-  ported raises;
+  ported, and every refused combination, raises;
 * each codec, ``hierarchical`` and coordinate weighting, 40 rounds
   against the JAX simulator as above, and ``wire_bytes_per_round``
-  equal to the JAX package's.
+  equal to the JAX package's;
+* partial participation (``round_robin``, ``stale``, ``sampled``,
+  ``bernoulli``) for topk, regtopk, dgc and coordtopk, and the adaptive-k
+  controller, 40 rounds against the JAX simulator, with ``bernoulli`` and
+  ``sampled`` sharing the port's masks (``_share_masks``): theta to rtol
+  1e-4, the controller's k trajectory exactly; a full schedule and a
+  controller pinned at the static k equal the static full path in bits,
+  and the fastpath on equals off under every partial round.
 """
 import jax
 import jax.numpy as jnp
@@ -28,6 +35,8 @@ import torch
 from repro.core import DistributedSim as JaxSim
 from repro.core import SparsifierConfig as JaxConfig
 from repro.data import pipeline as jpipe
+from repro_torch.comm.controller import AdaptiveKController
+from repro_torch.comm.participation import Participation
 from repro_torch.convert import linreg_from_jax, sim_state_from_jax, sim_state_to_numpy
 from repro_torch.core import DistributedSim, SparsifierConfig
 from repro_torch.data.pipeline import linreg_grad_fn
@@ -167,13 +176,11 @@ def test_auto_declines_on_the_cpu():
                 ).sparsifier.cfg.score_fn is None
 
 
-class _Partial:
-    is_full = False
-
-
 @pytest.mark.parametrize("kw,match", [
-    (dict(participation=_Partial()), "item 6"),
-    (dict(adaptive_k=object()), "item 6"),
+    (dict(participation=Participation("stale"), weighting="coordinate"),
+     "does not compose"),
+    (dict(adaptive_k=AdaptiveKController(budget=0.1),
+          sparsifier_cfg=SparsifierConfig(kind="dgc")), "adaptive_k drives"),
     (dict(overlap="buckets:2"), "item 6"),
     (dict(weighting="coordinate", fastpath="on"), "scalar omega"),
     (dict(weighting="per-worker"), "unknown weighting"),
@@ -205,10 +212,8 @@ def test_cost_methods_wait_for_comm_cost():
 
 
 def test_full_participation_schedule_is_accepted():
-    class _Full:
-        is_full = True
-
-    assert _sim(participation=_Full()).n_workers == 4
+    sim = _sim(participation=Participation("full"))
+    assert sim.n_workers == 4 and sim.sparsifier.cfg.omega == 0.25
 
 
 def test_cuda_device_needs_a_card(monkeypatch):
@@ -331,3 +336,253 @@ def test_auto_declines_the_score_kernel_under_coordinate_weighting(monkeypatch):
     monkeypatch.setattr(fastpath, "backend_supports", lambda device: True)
     assert _sim(fastpath="auto").sparsifier.cfg.score_fn is not None
     assert _sim(fastpath="auto", weighting="coordinate").sparsifier.cfg.score_fn is None
+
+
+# ---------------------------------------------------------------------------
+# partial participation and the adaptive-k controller
+# ---------------------------------------------------------------------------
+SCHEDULES = {
+    "round_robin": dict(kind="round_robin", n_stragglers=1),
+    "stale": dict(kind="stale", n_stragglers=1, staleness=2, discount=0.5),
+    "sampled": dict(kind="sampled", n_sampled=2, seed=3),
+    "bernoulli": dict(kind="bernoulli", drop_rate=0.25, seed=1),
+}
+PART_CASES = [
+    (kind, sched, "sparse_allgather" if kind in ("regtopk", "coordtopk")
+     else "dense_allreduce")
+    for kind in ("topk", "regtopk", "dgc", "coordtopk") for sched in SCHEDULES
+] + [("regtopk", sched, "dense_allreduce") for sched in SCHEDULES]
+ROUNDS = 40
+
+
+def _share_masks(monkeypatch, part, n, rounds):
+    """Make the JAX package's ``Participation`` draw the port's masks and
+    cohorts (a lookup by round, traced inside its jitted scan): torch
+    cannot reproduce ``jax.random``. Edits nothing in ``src/repro``; the
+    round_robin and stale masks need no sharing (they are exact)."""
+    from repro.comm.participation import Participation as JaxParticipation
+
+    masks = jnp.asarray(np.stack([part.round_mask(r, n).numpy()
+                                  for r in range(rounds)]))
+    monkeypatch.setattr(JaxParticipation, "round_mask",
+                        lambda self, r, n_workers: masks[r])
+    if part.kind == "sampled":
+        cohorts = jnp.asarray(np.stack([
+            part.round_participants(r, n).numpy().astype(np.int32)
+            for r in range(rounds)]))
+        monkeypatch.setattr(JaxParticipation, "round_participants",
+                            lambda self, r, n_workers: cohorts[r])
+
+
+def _pair_runs(linreg, kind, collective, monkeypatch, rounds=ROUNDS,
+               participation=None, adaptive=None, trace=None):
+    """The JAX and the port's simulator, ``rounds`` rounds from zero on the
+    shared linear regression: ``((jax final, jax trace), (port final,
+    port trace))``."""
+    from repro.comm import AdaptiveKController as JaxController
+    from repro.comm import Participation as JaxParticipation
+
+    jdata, tdata = linreg
+    jkw, tkw = dict(aggregation=collective), dict(aggregation=collective)
+    if participation is not None:
+        tpart = Participation(**participation)
+        if tpart.kind in ("bernoulli", "sampled"):
+            _share_masks(monkeypatch, tpart, 4, rounds)
+        jkw["participation"] = JaxParticipation(**participation)
+        tkw["participation"] = tpart
+    if adaptive is not None:
+        jkw["adaptive_k"] = JaxController(**adaptive)
+        tkw["adaptive_k"] = AdaptiveKController(**adaptive)
+    jtrace, ttrace = trace or ((lambda s: s.worker_states.s_prev),) * 2
+    jsim = JaxSim(jpipe.linreg_grad_fn(jdata), 4, 64, _cfg(kind, JaxConfig),
+                  learning_rate=1e-2, **jkw)
+    tsim = DistributedSim(linreg_grad_fn(tdata), 4, 64, _cfg(kind, SparsifierConfig),
+                          learning_rate=1e-2, device="cpu", **tkw)
+    return (jsim.run(jnp.zeros(64), rounds, trace_state_fn=jtrace),
+            tsim.run(torch.zeros(64), rounds, trace_state_fn=ttrace))
+
+
+@pytest.mark.parametrize("kind,schedule,collective", PART_CASES)
+def test_participation_matches_jax(linreg, kind, schedule, collective, monkeypatch):
+    """40 rounds under each schedule against the JAX simulator, with
+    ``bernoulli`` and ``sampled`` sharing the port's masks: the masks of the
+    first 5 rounds exact, the final theta to rtol 1e-4 as in
+    ``test_linreg_matches_jax``, every worker's round counter exactly and
+    its error to the same rtol; ``stale``'s pending buffer and countdown
+    too."""
+    (jfin, jmasks), (tfin, tmasks) = _pair_runs(
+        linreg, kind, collective, monkeypatch, participation=SCHEDULES[schedule])
+    np.testing.assert_array_equal(tmasks[:5].numpy(), np.asarray(jmasks)[:5])
+    np.testing.assert_allclose(tfin.theta.numpy(), np.asarray(jfin.theta),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(tfin.worker_states.t.numpy(),
+                                  np.asarray(jfin.worker_states.t))
+    # eps with a floor of 1e-5 of its largest magnitude: DGC's reaches
+    # ~40, and a coordinate near zero there keeps the absolute error
+    jeps = np.asarray(jfin.worker_states.eps)
+    np.testing.assert_allclose(tfin.worker_states.eps.numpy(), jeps, rtol=1e-4,
+                               atol=1e-5 * np.abs(jeps).max())
+    assert tfin.step == ROUNDS
+    if schedule == "stale":
+        np.testing.assert_array_equal(tfin.pending_age.numpy(),
+                                      np.asarray(jfin.pending_age))
+        np.testing.assert_allclose(tfin.pending.numpy(), np.asarray(jfin.pending),
+                                   rtol=1e-4, atol=1e-6)
+        assert int(tfin.pending_age.max()) > 0
+    else:
+        assert tfin.pending is None and jfin.pending is None
+    if schedule == "sampled":
+        # each worker's round counter counts only the rounds it was drawn
+        assert int(tfin.worker_states.t.min()) < ROUNDS
+
+
+ADAPTIVE = dict(budget=2.0, k_min=2, k_max=24)
+
+
+@pytest.mark.parametrize("kind", ["topk", "regtopk"])
+@pytest.mark.parametrize("collective", ["sparse_allgather", "dense_allreduce"])
+def test_adaptive_k_matches_jax(linreg, kind, collective, monkeypatch):
+    """40 rounds under the controller: the k trajectory exactly, the final
+    ``err_ratio`` to rtol 1e-5 and theta to rtol 1e-4."""
+    k_of = lambda s: s.ctrl.k  # noqa: E731
+    (jfin, jk), (tfin, tk) = _pair_runs(linreg, kind, collective, monkeypatch,
+                                         adaptive=ADAPTIVE, trace=(k_of, k_of))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    assert len(set(tk.tolist())) > 2  # the controller moved k
+    np.testing.assert_allclose(float(tfin.ctrl.err_ratio), float(jfin.ctrl.err_ratio),
+                               rtol=1e-5)
+    np.testing.assert_allclose(tfin.theta.numpy(), np.asarray(jfin.theta),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("schedule", ["round_robin", "sampled"])
+def test_adaptive_k_under_participation_matches_jax(linreg, schedule, monkeypatch):
+    k_of = lambda s: s.ctrl.k  # noqa: E731
+    (jfin, jk), (tfin, tk) = _pair_runs(
+        linreg, "regtopk", "sparse_allgather", monkeypatch,
+        participation=SCHEDULES[schedule], adaptive=ADAPTIVE, trace=(k_of, k_of))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_allclose(tfin.theta.numpy(), np.asarray(jfin.theta),
+                               rtol=1e-4, atol=1e-5)
+
+
+def _run(tdata, rounds=20, kind="regtopk", **kw):
+    sim = DistributedSim(linreg_grad_fn(tdata), 4, 64, _cfg(kind, SparsifierConfig),
+                         learning_rate=1e-2, device="cpu", **kw)
+    return sim.run(torch.zeros(64), rounds,
+                   trace_state_fn=lambda s: s.worker_states.s_prev)
+
+
+def _states_equal(a, b):
+    (fa, ta), (fb, tb) = a, b
+    assert torch.equal(ta, tb)
+    assert torch.equal(fa.theta, fb.theta) and torch.equal(fa.g_agg_prev, fb.g_agg_prev)
+    for x, y in zip(fa.worker_states, fb.worker_states, strict=True):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("collective", ["sparse_allgather", "dense_allreduce"])
+def test_off_switches_are_the_static_full_path_bit_for_bit(linreg, collective):
+    """A full schedule (and a zero-rate bernoulli) is ``participation=None``;
+    a controller pinned at the static k (k_min = k_max = 16, S = 0.25 of
+    64) is ``adaptive_k=None``, in bits."""
+    _, tdata = linreg
+    base = _run(tdata, aggregation=collective)
+    for part in (Participation("full"), Participation("bernoulli", drop_rate=0.0)):
+        _states_equal(_run(tdata, aggregation=collective, participation=part), base)
+    pinned = _run(tdata, aggregation=collective,
+                  adaptive_k=AdaptiveKController(budget=1.0, k_min=16, k_max=16))
+    _states_equal(pinned, base)
+    assert int(pinned[0].ctrl.k) == 16
+
+
+@pytest.mark.parametrize("extra", [
+    dict(participation=Participation("round_robin", n_stragglers=1)),
+    dict(participation=Participation("stale", n_stragglers=2, staleness=2)),
+    dict(participation=Participation("sampled", n_sampled=3)),
+    dict(adaptive_k=AdaptiveKController(**ADAPTIVE)),
+])
+def test_fastpath_on_equals_off_under_partial_rounds(linreg, extra):
+    """Through the score kernel's wrapper (the plain chain on the CPU) and
+    without it, the partial and adaptive rounds agree bit for bit."""
+    _, tdata = linreg
+    on = _run(tdata, aggregation="sparse_allgather", fastpath="on", **extra)
+    off = _run(tdata, aggregation="sparse_allgather", fastpath="off", **extra)
+    _states_equal(on, off)
+    if "adaptive_k" in extra:
+        assert torch.equal(on[0].ctrl.k, off[0].ctrl.k)
+
+
+def test_sampled_idle_clients_are_untouched(linreg):
+    """A ``sampled`` round touches only its cohort's state."""
+    _, tdata = linreg
+    part = Participation("sampled", n_sampled=2, seed=5)
+    sim = DistributedSim(linreg_grad_fn(tdata), 4, 64, _cfg("regtopk", SparsifierConfig),
+                         aggregation="sparse_allgather", participation=part,
+                         device="cpu")
+    st = sim.init(torch.zeros(64))
+    for r in range(6):
+        new, _ = sim.step_fn(st)
+        idle = [w for w in range(4) if w not in part.round_participants(r, 4).tolist()]
+        for x, y in zip(st.worker_states, new.worker_states, strict=True):
+            assert torch.equal(x[idle], y[idle])
+        st = new
+
+
+@pytest.mark.parametrize("codec", ["coo_fp32", "coo_q8"])
+def test_wire_bytes_per_round_prices_partial_and_adaptive_rounds_as_jax(codec):
+    from repro.comm import AdaptiveKController as JaxController
+    from repro.comm import Participation as JaxParticipation
+
+    for coll in ("sparse_allgather", "hierarchical", "dense_allreduce"):
+        for spec in (dict(kind="round_robin", n_stragglers=1),
+                     dict(kind="bernoulli", drop_rate=0.5),
+                     dict(kind="sampled", n_sampled=2), None):
+            for ctrl in (None, dict(budget=0.5, k_min=4, k_max=0.05)):
+                jkw, tkw = {}, {}
+                if spec:
+                    jkw["participation"] = JaxParticipation(**spec)
+                    tkw["participation"] = Participation(**spec)
+                if ctrl:
+                    jkw["adaptive_k"] = JaxController(**ctrl)
+                    tkw["adaptive_k"] = AdaptiveKController(**ctrl)
+                kw = dict(codec=codec, collective=coll, dp_shape=(2, 2))
+                jsim = JaxSim(None, 4, 5000, JaxConfig(kind="regtopk", sparsity=0.01),
+                              **kw, **jkw)
+                tsim = _sim(length=5000, sparsifier_cfg=SparsifierConfig(sparsity=0.01),
+                            **kw, **tkw)
+                want, got = jsim.wire_bytes_per_round(), tsim.wire_bytes_per_round()
+                assert (got.bytes_on_wire, got.n_messages, got.seconds) == (
+                    want.bytes_on_wire, want.n_messages, want.seconds)
+
+
+def test_stale_adaptive_run_continues_from_a_jax_state(linreg):
+    """``convert.sim_state_from_jax`` carries the pending buffer, its
+    countdown and the controller: 20 JAX rounds under ``stale`` and the
+    controller, then 5 more in each stack, the k trajectory exactly."""
+    from repro.comm import AdaptiveKController as JaxController
+    from repro.comm import Participation as JaxParticipation
+
+    jdata, tdata = linreg
+    part = dict(kind="stale", n_stragglers=1, staleness=2, discount=0.5)
+    kw = dict(learning_rate=1e-2, aggregation="sparse_allgather")
+    jsim = JaxSim(jpipe.linreg_grad_fn(jdata), 4, 64, _cfg("regtopk", JaxConfig),
+                  participation=JaxParticipation(**part),
+                  adaptive_k=JaxController(**ADAPTIVE), **kw)
+    tsim = DistributedSim(linreg_grad_fn(tdata), 4, 64, _cfg("regtopk", SparsifierConfig),
+                          participation=Participation(**part),
+                          adaptive_k=AdaptiveKController(**ADAPTIVE), device="cpu", **kw)
+    st = jsim.init(jnp.zeros(64))
+    for _ in range(20):
+        st, _ = jsim.step_fn(st)
+    tst = sim_state_from_jax(jax.tree.map(np.asarray, st), device="cpu")
+    assert torch.equal(tst.pending_age, torch.from_numpy(np.array(st.pending_age)))
+    for _ in range(5):
+        st, jg = jsim.step_fn(st)
+        tst, tg = tsim.step_fn(tst)
+        assert int(tst.ctrl.k) == int(st.ctrl.k)
+        np.testing.assert_array_equal(tst.pending_age.numpy(), np.asarray(st.pending_age))
+        np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-5, atol=1e-6)
+    got = sim_state_to_numpy(tst)
+    np.testing.assert_allclose(got["pending"], np.asarray(st.pending), rtol=1e-5, atol=1e-7)
+    assert int(got["ctrl"]["t"]) == 25

@@ -272,8 +272,8 @@ def test_mask_to_payload_padding_bits_match_jax(seed):
 @pytest.mark.parametrize("scalar_weight", [False, True])
 def test_dense_allreduce_reference_matches_jax(scalar_weight):
     """The dense reduction of decoded payloads, against the JAX
-    ``DenseAllreduce.reference`` on the same payloads (rtol 1e-6: the two
-    stacks' weighted sums may add in another order)."""
+    ``DenseAllreduce.reference`` on the same payloads, full and partial
+    (rtol 1e-6: the two stacks' weighted sums may add in another order)."""
     from repro.comm import codec as jcodec
 
     rng = np.random.default_rng(8)
@@ -293,8 +293,14 @@ def test_dense_allreduce_reference_matches_jax(scalar_weight):
         w, length,
     )
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
-    with pytest.raises(ValueError, match="item 6"):
-        COLLECTIVES["dense_allreduce"].reference(
-            coo, coo.encode(torch.from_numpy(vals), torch.from_numpy(idx).long(), length),
-            w, length, participation=torch.ones(n),
-        )
+    # a partial round: the weights masked and renormalized, as in JAX
+    mask = np.array([1, 0, 1, 1, 0], np.float32)
+    want = np.asarray(jcoll.COLLECTIVES["dense_allreduce"].reference(
+        jc, jpay, weights if scalar_weight else jnp.asarray(weights), length,
+        participation=jnp.asarray(mask),
+    ))
+    got = COLLECTIVES["dense_allreduce"].reference(
+        coo, coo.encode(torch.from_numpy(vals), torch.from_numpy(idx).long(), length),
+        w, length, participation=torch.from_numpy(mask),
+    )
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)

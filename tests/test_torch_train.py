@@ -491,3 +491,355 @@ def test_cli_takes_the_wire_flags(flags, capsys):
         assert res.counts.rounds == 0
     if "--link-topo" in flags:
         assert "link-topo data: alpha=2.000e-06 s/msg beta=5.000e-12 s/B" in out
+
+
+# ---------------------------------------------------------------------------
+# partial participation and the adaptive-k controller
+# ---------------------------------------------------------------------------
+ADAPTIVE_SPEC = "1.0,0.001,0.02"
+
+
+def _adaptive(mod):
+    return mod.parse_adaptive_k(ADAPTIVE_SPEC)
+
+
+def _jax_adaptive_train():
+    """The JAX trainer at W = 1 (Auto mesh) with ``--adaptive-k``: (initial
+    params, losses, per-step k metric, final params, (state, controller))."""
+    from repro.comm import controller as jctl
+
+    cfg = JaxModelConfig(family="dense", remat=False, **TINY)
+    mesh = jax.make_mesh(
+        (1, 1), ("data", "model"), axis_types=(AxisType.Auto, AxisType.Auto)
+    )
+    dist = jd.DistConfig(
+        sparsifier=JaxSparsifierConfig(kind="regtopk", sparsity=SPARSITY),
+        optimizer=JaxOptConfig(kind="adam", learning_rate=LR),
+        dp_axes=("data",), adaptive_k=_adaptive(jctl),
+    )
+    mod = get_family(cfg)
+    asm = jd.assemble(mod, cfg, dist, mesh)
+    params, _ = mod.init(jax.random.PRNGKey(0), cfg)
+    p0 = jax.tree.map(np.asarray, params)
+    opt_state = jax_make_optimizer(dist.optimizer).init(params)
+    sp, _ = jd.init_sparsifier_state(asm.plan, 1, mesh, ("data",), jnp.float32)
+    sp = (sp, jd.init_controller_state(asm.plan, dist)[0])
+    step = jax.jit(asm.train_step)
+    losses, ks = [], []
+    with mesh:
+        for b in _batches(STEPS):
+            params, opt_state, sp, m = step(
+                params, opt_state, sp, jax.tree.map(jnp.asarray, b)
+            )
+            losses.append(float(m["loss"]))
+            ks.append((float(m["adaptive_k"]), [int(c.k) for c in _ctrl_leaves(sp[1])]))
+    return p0, losses, ks, jax.tree.map(np.asarray, params), sp
+
+
+def _ctrl_leaves(ctrl):
+    """A JAX controller tree's ``ControllerState``s in sorted-key order,
+    the order of the port's ``tree_items``."""
+    from repro.comm.controller import ControllerState
+
+    return jax.tree.leaves(ctrl, is_leaf=lambda x: isinstance(x, ControllerState))
+
+
+@pytest.mark.parametrize("fastpath", ["off", "on"])
+def test_adaptive_k_train_steps_match_jax(fastpath):
+    """Three steps under ``--adaptive-k`` against the JAX trainer at W = 1:
+    losses and params to the file's tolerances, every leaf's controller k
+    after every step exactly, ``err_ratio`` to rtol 1e-5, each leaf's
+    capacity its k_max bound; the fused leaves keep the kernel."""
+    from repro_torch.comm import controller as tctl
+
+    p0, jlosses, jks, jparams, (jsp, jctrl) = _jax_adaptive_train()
+    cfg = ModelConfig(**TINY)
+    dist = td.DistConfig(
+        sparsifier=SparsifierConfig(kind="regtopk", sparsity=SPARSITY),
+        optimizer=OptConfig(kind="adam", learning_rate=LR),
+        fastpath=fastpath, adaptive_k=_adaptive(tctl),
+    )
+    params = convert.params_from_jax(p0, device="cpu")
+    plan = td.build_plan(params, SPARSITY, dist)
+    counts = FastpathCounts()
+    step = td.make_train_step(cfg, dist, plan, 1, counts)
+    opt_state = make_optimizer(dist.optimizer).init(params)
+    sp = (td.init_sparsifier_state(plan, 1, "cpu"),
+          td.init_controller_state(plan, dist, "cpu"))
+    losses, ks = [], []
+    for b in _batches(STEPS):
+        tb = {k: torch.from_numpy(v).long() for k, v in b.items()}
+        params, opt_state, sp, m = step(params, opt_state, sp, tb)
+        losses.append(float(m["loss"]))
+        ks.append((float(m["adaptive_k"]), [int(c.k) for _, c in tree_items(sp[1])]))
+    np.testing.assert_allclose(losses, jlosses, rtol=RTOL)
+    # every leaf's k, step by step, exactly; the mean over leaves to the
+    # last bits (XLA:CPU divides by the leaf count as a reciprocal product)
+    assert [k for _, k in ks] == [k for _, k in jks]
+    np.testing.assert_allclose([m for m, _ in ks], [m for m, _ in jks], rtol=1e-6)
+    assert len({m for m, _ in ks}) > 1  # the controller moved k
+    for path, leaf in tree_items(params):
+        _close(leaf.numpy(), dict(tree_items(jparams))[path], path)
+    for (path, c), jcs in zip(tree_items(sp[1]), _ctrl_leaves(jctrl), strict=True):
+        assert int(c.k) == int(jcs.k) and int(c.t) == int(jcs.t) == STEPS, path
+        np.testing.assert_allclose(float(c.err_ratio), float(jcs.err_ratio),
+                                   rtol=1e-5, err_msg=path)
+    for path, p in tree_items(plan):
+        assert p.k == dist.adaptive_k.bounds(p.local_len)[1]
+    if fastpath == "on":
+        assert counts.rounds == STEPS * sum(p.fused for _, p in tree_items(plan)) > 0
+
+
+def _batches_w(n, W):
+    """``n`` global batches of W rows (one per worker), from numpy."""
+    rng = np.random.default_rng(13)
+    return [{key: rng.integers(0, TINY["vocab"], (W, 16)).astype(np.int32)
+             for key in ("tokens", "labels")} for _ in range(n)]
+
+
+def _jax_composed_train(W, participation=None, adaptive=None):
+    """The JAX trainer's step at W workers in this one-device process: the
+    JAX model's per-worker ``value_and_grad`` under ``jax.vmap``, the
+    runtime's own per-worker round (``_spa_leaf``, with the round's
+    participation context and the controller's k, and ``_ctrl_update``)
+    under ``jax.vmap(axis_name="data")``, as ``make_sparsify_aggregate``
+    runs them under ``shard_map``, and its Adam. Returns (initial params,
+    losses, per-step leaf ks, final params, final state, final
+    controller)."""
+    from jax.sharding import PartitionSpec as P
+
+    from repro.comm import worker_index
+
+    cfg = JaxModelConfig(family="dense", remat=False, **TINY)
+    mod = get_family(cfg)
+    params, _ = mod.init(jax.random.PRNGKey(0), cfg)
+    p0 = jax.tree.map(np.asarray, params)
+    opt = jax_make_optimizer(JaxOptConfig(kind="adam", learning_rate=LR))
+    opt_state = opt.init(params)
+    omega = 1.0 / W if participation is None else participation.effective_omega(W)
+    scfg = JaxSparsifierConfig(kind="regtopk", sparsity=SPARSITY, omega=omega)
+
+    def k_of(n):
+        return (adaptive.bounds(n)[1] if adaptive is not None
+                else jd.sparsity_to_k(n, SPARSITY))
+
+    plan = jax.tree.map(lambda x: jd.LeafPlan(
+        x.shape, x.shape, int(np.prod(x.shape)), k_of(int(np.prod(x.shape))),
+        P(None)), params)
+    is_plan = jd._is_plan
+    codec = jd.comm.get_codec("coo_fp32")
+
+    def init_state(p):
+        st = jc.compact_init(p.local_len, p.k)
+        one = jc.CompactState(
+            eps=st.eps.reshape((1,) + p.local_shape),
+            sent_vals=st.sent_vals[None, None], sent_g=st.sent_g[None, None],
+            sent_idx=st.sent_idx[None, None], sent_w=st.sent_w[None, None],
+            t=st.t[None])
+        return jax.tree.map(lambda x: jnp.stack([x] * W), one)
+
+    state = jax.tree.map(init_state, plan, is_leaf=is_plan)
+    ctrl = None
+    if adaptive is not None:
+        ctrl = jax.tree.map(lambda p: adaptive.init(
+            jd.sparsity_to_k(p.local_len, SPARSITY), *adaptive.bounds(p.local_len)),
+            plan, is_leaf=is_plan)
+
+    def rounds(grads, st, ct):
+        flat_p, tdef = jax.tree.flatten(plan, is_leaf=is_plan)
+        flat_g, flat_s = tdef.flatten_up_to(grads), tdef.flatten_up_to(st)
+        flat_c = tdef.flatten_up_to(ct) if ct is not None else [None] * len(flat_p)
+        part_ctx = None
+        if participation is not None:
+            pmask = participation.round_mask(flat_s[0].t[0], W)
+            m = pmask[worker_index(("data",), (W,))]
+            part_ctx = (m, 1.0 / jnp.maximum(pmask.sum(), 1.0))
+        outs = [jd._spa_leaf(g, s, p, scfg, codec, "sparse_allgather", ("data",),
+                             part_ctx, False, None if c is None else c.k)
+                for g, s, p, c in zip(flat_g, flat_s, flat_p, flat_c, strict=True)]
+        agg = tdef.unflatten([o[0] for o in outs])
+        new = tdef.unflatten([o[1] for o in outs])
+        if ct is None:
+            return agg, new, None
+        new_c = tdef.unflatten([
+            jd._ctrl_update(adaptive, c, o[1], o[0], p, ("data",), (),
+                            *adaptive.bounds(p.local_len))
+            for o, c, p in zip(outs, flat_c, flat_p, strict=True)])
+        return agg, new, new_c
+
+    def train_step(params, opt_state, st, ct, batch):
+        wb = jax.tree.map(lambda x: x.reshape((W, 1) + x.shape[1:]), batch)
+        losses, grads = jax.vmap(jax.value_and_grad(
+            lambda p, b: mod.loss_fn(p, cfg, b)[0]), in_axes=(None, 0))(params, wb)
+        grads = jax.tree.map(lambda g: g[:, None], grads)
+        agg, new, new_c = jax.vmap(rounds, axis_name="data",
+                                   in_axes=(0, 0, None))(grads, st, ct)
+        agg = jax.tree.map(lambda x: x[0], agg)
+        new_c = None if new_c is None else jax.tree.map(lambda x: x[0], new_c)
+        new_params, new_opt = opt.update(agg, opt_state, params)
+        return new_params, new_opt, new, new_c, losses.mean()
+
+    step = jax.jit(train_step)
+    losses, ks = [], []
+    for b in _batches_w(STEPS, W):
+        params, opt_state, state, ctrl, loss = step(
+            params, opt_state, state, ctrl, jax.tree.map(jnp.asarray, b))
+        losses.append(float(loss))
+        if ctrl is not None:
+            ks.append([int(c.k) for c in _ctrl_leaves(ctrl)])
+    return p0, losses, ks, jax.tree.map(np.asarray, params), state, ctrl
+
+
+COMPOSED = {
+    "round_robin": ("round_robin:2", None),
+    "adaptive": (None, ADAPTIVE_SPEC),
+    "round_robin-adaptive": ("round_robin:2", ADAPTIVE_SPEC),
+}
+
+
+@pytest.mark.parametrize("case", list(COMPOSED))
+def test_partial_and_adaptive_train_steps_match_jax_at_four_workers(case):
+    """``--participation round_robin:2`` and ``--adaptive-k`` on one card
+    with W = 4, three steps against the JAX step at W = 4
+    (``_jax_composed_train``): losses and params to the file's tolerances,
+    every worker's round counter exactly, its error to rtol 1e-5 with the
+    file's floor, the sent sets by index, and every leaf's k exactly."""
+    from repro.comm import controller as jctl
+    from repro.comm import participation as jpart
+    from repro_torch.comm import controller as tctl
+    from repro_torch.comm import participation as tpart
+
+    W = 4
+    pspec, aspec = COMPOSED[case]
+    p0, jlosses, jks, jparams, jstate, jctrl = _jax_composed_train(
+        W, pspec and jpart.parse_participation(pspec),
+        aspec and jctl.parse_adaptive_k(aspec))
+    cfg = ModelConfig(**TINY)
+    dist = td.DistConfig(
+        sparsifier=SparsifierConfig(kind="regtopk", sparsity=SPARSITY),
+        optimizer=OptConfig(kind="adam", learning_rate=LR),
+        participation=pspec and tpart.parse_participation(pspec),
+        adaptive_k=aspec and tctl.parse_adaptive_k(aspec),
+    )
+    params = convert.params_from_jax(p0, device="cpu")
+    plan = td.build_plan(params, SPARSITY, dist)
+    step = td.make_train_step(cfg, dist, plan, W)
+    opt_state = make_optimizer(dist.optimizer).init(params)
+    sp = td.init_sparsifier_state(plan, W, "cpu")
+    if aspec:
+        sp = (sp, td.init_controller_state(plan, dist, "cpu"))
+    losses, ks = [], []
+    for b in _batches_w(STEPS, W):
+        tb = {k: torch.from_numpy(v).long() for k, v in b.items()}
+        params, opt_state, sp, m = step(params, opt_state, sp, tb)
+        losses.append(float(m["loss"]))
+        if aspec:
+            ks.append([int(c.k) for _, c in tree_items(sp[1])])
+    np.testing.assert_allclose(losses, jlosses, rtol=RTOL)
+    assert ks == jks
+    if aspec:
+        assert len({tuple(k) for k in ks}) > 1
+    for path, leaf in tree_items(params):
+        _close(leaf.numpy(), dict(tree_items(jparams))[path], path)
+    cstate = sp[0] if aspec else sp
+    jflat = jax.tree.leaves(jstate, is_leaf=lambda x: isinstance(x, jc.CompactState))
+    for (path, st), js in zip(tree_items(cstate), jflat, strict=True):
+        np.testing.assert_array_equal(st.t.numpy(), np.asarray(js.t).reshape(W))
+        _close(st.eps.numpy(), np.asarray(js.eps).reshape(W, -1), path)
+        jidx = np.asarray(js.sent_idx).reshape(W, -1)
+        for w in range(W):
+            np.testing.assert_array_equal(np.sort(st.sent_idx.numpy()[w]),
+                                          np.sort(jidx[w]), err_msg=f"{path} w{w}")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--workers", "4", "--participation", "round_robin:2"],
+    ["--workers", "4", "--participation", "bernoulli:0.25", "--fastpath", "on"],
+    ["--workers", "2", "--adaptive-k", ADAPTIVE_SPEC, "--fastpath", "on"],
+    ["--workers", "4", "--participation", "sampled:2,5", "--adaptive-k", "0.5",
+     "--collective", "dense_allreduce"],
+])
+def test_cli_takes_participation_and_adaptive_k(flags, capsys):
+    """``--participation`` and ``--adaptive-k``, two smoke steps on the CPU:
+    the JAX trainer's printed lines, the per-step k column, finite losses,
+    and partial rounds priced below the full round's measured bytes."""
+    import re
+
+    from repro_torch.launch import train
+
+    args = train.parse_args(["--smoke", "--steps", "2", "--seq", "16",
+                             "--device", "cpu", "--log-every", "1", *flags])
+    res = train.run(args)
+    out = capsys.readouterr().out
+    assert all(np.isfinite(res.losses)) and len(res.losses) == 2
+    pred, meas = (float(x) for x in re.search(
+        r"([\d.]+) MB/worker/round \(predicted ([\d.]+) MB", out).groups()[::-1])
+    if "--participation" in flags:
+        kind = flags[flags.index("--participation") + 1].split(":")[0]
+        assert re.search(rf"participation: {kind} — expected [\d.]+/4 workers on "
+                         r"time per round \(renormalized weights\)", out)
+        assert pred < meas
+    if "--adaptive-k" in flags:
+        assert "adaptive-k: budget=" in out and "momentum=0.9 hysteresis=0.25" in out
+        assert len(re.findall(r"^step +\d+ loss \S+ k +[\d.]+ \(", out, re.M)) == 2
+        assert isinstance(res.sp_state, tuple)
+    if "on" in flags:
+        assert res.counts.rounds > 0
+
+
+def test_cli_refuses_stale_as_jax():
+    """``stale`` needs the simulator's pending buffer: the trainer refuses
+    it as the JAX trainer does; an unrealizable schedule fails at start."""
+    from repro_torch.launch import train
+
+    base = ["--smoke", "--steps", "1", "--seq", "16", "--device", "cpu"]
+    with pytest.raises(ValueError, match="simulator-only"):
+        train.run(train.parse_args([*base, "--workers", "4",
+                                    "--participation", "stale:1,2,0.5"]))
+    with pytest.raises(ValueError, match="would drop every one"):
+        train.run(train.parse_args([*base, "--workers", "2",
+                                    "--participation", "round_robin:2"]))
+    with pytest.raises(ValueError, match="bad --participation spec"):
+        train.run(train.parse_args([*base, "--participation", "bogus"]))
+
+
+@pytest.mark.parametrize("spec", ["round_robin:2", "bernoulli:0.25", "sampled:3"])
+def test_comm_round_bytes_price_partial_rounds_as_jax(spec):
+    """Partial rounds priced as the JAX package prices them: the predicted
+    bytes and cost at the expected participants, the measured bytes the
+    full round's; under adaptive k at each leaf's k_max capacity."""
+    from jax.sharding import PartitionSpec as P
+
+    from repro.comm import controller as jctl
+    from repro.comm import participation as jpart
+    from repro_torch.comm import controller as tctl
+    from repro_torch.comm import participation as tpart
+
+    class _Mesh:
+        shape = {"data": 8}
+
+    shapes = {"big": (3 * 8192 + 17,), "small": (4, 33)}
+    for coll in ("sparse_allgather", "hierarchical", "dense_allreduce"):
+        for adaptive in (None, "0.5,2,0.05"):
+            dist = td.DistConfig(
+                sparsifier=SparsifierConfig(kind="regtopk", sparsity=0.01),
+                collective=coll, participation=tpart.parse_participation(spec),
+                adaptive_k=adaptive and tctl.parse_adaptive_k(adaptive))
+            jdist = jd.DistConfig(
+                sparsifier=JaxSparsifierConfig(kind="regtopk", sparsity=0.01),
+                collective=coll, participation=jpart.parse_participation(spec),
+                adaptive_k=adaptive and jctl.parse_adaptive_k(adaptive))
+            plan = td.build_plan({n: torch.zeros(s) for n, s in shapes.items()},
+                                 0.01, dist)
+            jplan = {n: jd.LeafPlan(s, s, p.local_len, p.k, P(None))
+                     for (n, s), p in zip(shapes.items(), plan.values(), strict=True)}
+            if adaptive:
+                assert all(p.k == dist.adaptive_k.bounds(p.local_len)[1]
+                           for p in plan.values())
+            got, want = td.comm_round_bytes(plan, dist, 8), jd.comm_round_bytes(
+                jplan, jdist, _Mesh())
+            assert got == want and got[0] < got[1]
+            gc, wc = td.comm_round_cost(plan, dist, 8), jd.comm_round_cost(
+                jplan, jdist, _Mesh())
+            assert (gc.bytes_on_wire, gc.n_messages, gc.seconds) == (
+                wc.bytes_on_wire, wc.n_messages, wc.seconds)
