@@ -71,7 +71,8 @@ Phases, each raising on failure (the script then exits non-zero):
               5 steps): (a) nccl at world size 1 in this process (a
               FileStore), coo_fp32 + sparse_allgather with the fastpath on,
               params, every CompactState field and every encoded payload
-              equal in bits to the one-card --workers 1 run; (b) 8 ranks
+              equal in bits to the one-card --workers 1 run, and
+              --calibrate reporting that it skipped; (b) 8 ranks
               spawned on this one card over gloo (nccl refuses two ranks on
               one device), in turn sparse_allgather + coo_fp32 (fastpath
               on), --coord-weights, dense_allreduce (which fuses no leaf)
@@ -109,13 +110,33 @@ Phases, each raising on failure (the script then exits non-zero):
               against off (params bit-equal), kernel 1's launches, the hit
               rate, each leaf's k, and measured bytes <= 1.05 x the full
               round's prediction (the partial round's printed beside it).
+11. planners — the per-leaf planner, the overlap schedule and the
+              calibration at full width: (a) the simulator (N = 8, J =
+              4,458,752, RegTop-k at S = 0.01) under codec and collective
+              "auto" with AlphaBeta(), on dp (2, 4) under a slow outer axis
+              (PLAN_TOPO), and so with overlap="buckets:4", 5 rounds each,
+              fastpath on against off in bits, the resolved wire, the
+              predicted round and round_timeline's sync and overlapped
+              seconds; (b) the trainer (W = 8, 5 steps) under --codec auto
+              --collective auto --fastpath on (the per-leaf picks; kernel 1
+              on the plan's fused leaves; params and payloads bit-equal to
+              the same plan with the fastpath off, and params to auto with
+              the fastpath off, whose plan differs), --overlap buckets:4
+              (params bit-equal to off; one profiled step's spa_bucketNNN
+              ranges) and --calibrate, which skips in one process; (c)
+              three more runs in phase 9's spawn of 8 gloo ranks:
+              --calibrate on --multi-pod (the fitted alpha and beta per
+              axis, equal on every rank), --codec auto --collective auto
+              --calibrate (one per-leaf plan on every rank) and
+              --replan-every 2 over 6 steps (the replan lines, the picks
+              and the params equal across the ranks).
 
 Each kernel's launch count is set to 0 just before the path that runs it
 (select: ``count_above``, ``global_max``, ``block_topk_candidates``;
 trainer, each fused wire run, each run of every rank and each of phase
-10's trainer runs: ``fused_candidates``; sim, the wire simulator's
-fastpath-on run and phase 10's simulator runs: ``regtopk_score``) and
-read just after; the
+10's and phase 11's trainer runs: ``fused_candidates``; sim, the wire
+simulator's fastpath-on run and phase 10's and phase 11's simulator runs:
+``regtopk_score``) and read just after; the
 ``kernels`` line sums each kernel's main-path launches. The line before the last is the card's nvidia-smi line; before it,
 the ``kernels`` JSON line. The last line is the device JSON.
 ``--details FILE`` also writes every phase's results to FILE as JSON.
@@ -1122,26 +1143,28 @@ def _bits_equal(x: torch.Tensor, y: torch.Tensor) -> bool:
 
 
 class _PayloadRecorder:
-    """Records every payload ``codec.encode`` returns while installed,
-    in call order (``encode_fused`` of every fusing codec calls
-    ``encode``, so each leaf's payload is recorded once)."""
+    """Records every payload the ``encode`` of any of ``codecs`` returns
+    while installed, in call order (``encode_fused`` of every fusing codec
+    calls ``encode``, so each leaf's payload is recorded once)."""
 
-    def __init__(self, codec):
-        self.codec, self.payloads = codec, []
+    def __init__(self, *codecs):
+        self.codecs, self.payloads = codecs, []
 
     def __enter__(self):
-        encode = type(self.codec).encode
+        for codec in self.codecs:
+            encode = type(codec).encode
 
-        def recording(vals, idx, length):
-            payload = encode(self.codec, vals, idx, length)
-            self.payloads.append(payload)
-            return payload
+            def recording(vals, idx, length, codec=codec, encode=encode):
+                payload = encode(codec, vals, idx, length)
+                self.payloads.append(payload)
+                return payload
 
-        self.codec.encode = recording
+            codec.encode = recording
         return self
 
     def __exit__(self, *exc):
-        del self.codec.encode
+        for codec in self.codecs:
+            del codec.encode
 
 
 def _timed_step(step, params, sp_state, batch, reps: int = 3):
@@ -1466,6 +1489,7 @@ RANK_STEPS = 5
 # keeps the fused leaves fused (``fastpath.shape_fusable``'s budget is about
 # 1.5% of a leaf), where the default 25% would fuse none
 TRAIN_ADAPTIVE = "1.0,0.001,0.012"
+PLAN_AUTO = ["--codec", "auto", "--collective", "auto"]
 RANK_RUNS = {
     "sparse_allgather": [],
     "coord_weights": ["--coord-weights", "--fastpath", "off"],
@@ -1475,19 +1499,31 @@ RANK_RUNS = {
     "auto": ["--fastpath", "auto"],
     "round_robin": ["--participation", "round_robin:2"],
     "adaptive": ["--adaptive-k", TRAIN_ADAPTIVE],
+    # phase 11 (c): the planners across ranks
+    "calibrate": ["--calibrate", "--multi-pod"],
+    "auto_calibrate": [*PLAN_AUTO, "--calibrate"],
+    "replan": [*PLAN_AUTO, "--replan-every", "2", "--steps", "6"],
 }
 # whether a run's plan fuses leaves: dense_allreduce moves the dense
 # vector, so it fuses none, and neither does coordinate weighting; under
 # auto rank 0's measured table decides, for every rank (``_rank_body``)
 RANK_FUSED = {"sparse_allgather": True, "coord_weights": False,
               "dense_allreduce": False, "hierarchical": True,
-              "round_robin": True, "adaptive": True}
-# the runs whose sums all_reduce takes in the backend's order
-RANK_ALL_REDUCE = ("dense_allreduce", "hierarchical")
+              "round_robin": True, "adaptive": True, "calibrate": True,
+              "auto_calibrate": True, "replan": True}
+# the runs whose sums take another order than the one card's: all_reduce
+# sums in the backend's order, and on ("pod", "data") the gathered stack
+# has the pod index fastest
+RANK_ALL_REDUCE = ("dense_allreduce", "hierarchical", "calibrate")
 # the runs whose difference from the one-card run is reported, not held:
 # the controller's norm is a sum over the ranks in gloo's order, so a k at
-# a rounding boundary may part the two runs
-RANK_REPORTED = ("round_robin", "adaptive")
+# a rounding boundary may part the two runs; the calibrated and replanned
+# plans are priced by the ranks' fitted model, the one card's by the
+# defaults (it has no wire to probe)
+RANK_REPORTED = ("round_robin", "adaptive", "auto_calibrate", "replan")
+# the runs whose plan changes mid-run, so kernel 1's launches are held to
+# the fused worker-rounds counted, not to steps x the last plan's fused leaves
+RANK_REPLANNED = ("replan",)
 
 
 def _sync(device: str) -> None:
@@ -1584,7 +1620,7 @@ def _wire_bytes(args, plan, payloads, dp_sizes):
     pred, _ = td.comm_round_bytes(plan, dcfg, dp_sizes)
     meas, leaves = 0, tree_leaves(plan)
     last = payloads[-len(leaves):] if payloads else [{}] * len(leaves)
-    for p, (_, coll, dense), pay in zip(
+    for p, (_, _, coll, dense), pay in zip(
             leaves, td._leaf_wire_patterns(plan, dcfg), last, strict=True):
         meas += cost.measured_bytes(coll, p.local_len, {} if dense else pay,
                                     dp_sizes)
@@ -1595,11 +1631,15 @@ def _rank_body(rank: int, world: int, store: str, out_dir: str,
                device: str, base: list) -> None:
     """One of phase 9's ranks over gloo: every run of ``RANK_RUNS`` on the
     flags ``base`` in turn, kernel 1's launches counted from 0 around
-    each. Rank 0 saves its params per run; every rank saves its numbers
-    to ``out_dir/rank{rank}.json``."""
+    each. Rank 0 saves its params per run and prints its lines; every
+    rank saves its numbers (its plan's wires and its link model among
+    them) to ``out_dir/rank{rank}.json``."""
+    import contextlib
+    import io
+
     import torch.distributed as dist
 
-    from repro_torch.comm.codec import get_codec
+    from repro_torch.comm.codec import CODECS
     from repro_torch.comm.fastpath import ThroughputTable
     from repro_torch.core import distributed as td
     from repro_torch.kernels import fused_encode as fe
@@ -1623,10 +1663,14 @@ def _rank_body(rank: int, world: int, store: str, out_dir: str,
                          else ThroughputTable(fused_bps=1.0))
             fe.fused_candidates.launches = 0
             _sync(device)
-            with _PayloadRecorder(get_codec(args.codec)) as rec:
+            printed = io.StringIO()
+            with (_PayloadRecorder(*CODECS.values()) as rec,
+                  contextlib.redirect_stdout(printed)):
                 res = train.run(args, table=table, mesh=groups)
             _sync(device)
             launches = fe.fused_candidates.launches
+            print(printed.getvalue(), end="", flush=True)
+            link = res.dist.link_topo or res.dist.link_model
             pred, meas = _wire_bytes(args, res.plan, rec.payloads, groups.shape)
             partial, _ = td.comm_round_bytes(res.plan, _dist_of(args), groups.shape)
             out[name] = {
@@ -1640,6 +1684,14 @@ def _rank_body(rank: int, world: int, store: str, out_dir: str,
                 "rounds": res.counts.rounds, "hit_rate": res.counts.hit_rate,
                 "digest": _params_digest(res.params), "predicted_bytes": pred,
                 "measured_bytes": meas, "dp": list(groups.shape),
+                "steps": args.steps,
+                "wires": [[path, *td.leaf_wire(p, res.dist), p.fused]
+                          for path, p in _flat(res.plan).items()],
+                "link": (None if link is None else
+                         [[lk.alpha, lk.beta] for lk in getattr(link, "links",
+                                                                 (link,))]),
+                "planner_lines": [ln for ln in printed.getvalue().splitlines()
+                                  if ln.startswith(("calibrat", "replan"))],
             }
             if name == "sparse_allgather":
                 out[name]["step_ms"], out[name]["profile"] = _step_ms(
@@ -1694,23 +1746,33 @@ def ranks_world_one(device: str = DEVICE, backend: str = "nccl") -> dict:
     from repro_torch.kernels import fused_encode as fe
     from repro_torch.launch import mesh, train
 
-    args = _rank_args(TRAIN_ARGS, [], device, workers=1)
+    import contextlib
+    import io
+
+    args = _rank_args(TRAIN_ARGS, ["--calibrate"], device, workers=1)
 
     def traced(groups=None):
         fe.fused_candidates.launches = 0
         _sync(device)
-        with _PayloadRecorder(get_codec(args.codec)) as rec:
+        printed = io.StringIO()
+        with (_PayloadRecorder(get_codec(args.codec)) as rec,
+              contextlib.redirect_stdout(printed)):
             res = train.run(args, mesh=groups)
         _sync(device)
-        return res, rec.payloads, fe.fused_candidates.launches
+        print(printed.getvalue(), end="", flush=True)
+        return res, rec.payloads, fe.fused_candidates.launches, printed.getvalue()
 
-    one, pay_one, _ = traced()
+    one, pay_one, _, _ = traced()
     with tempfile.TemporaryDirectory() as d:
         mesh.init_file_store(f"{d}/store", 0, 1, backend)
         try:
-            rk, pay_rk, launches = traced(mesh.make_host_groups())
+            rk, pay_rk, launches, printed = traced(mesh.make_host_groups())
         finally:
             dist.destroy_process_group()
+    skipped = "calibration skipped (single device); using defaults"
+    if skipped not in printed.splitlines():
+        raise AssertionError(f"ranks (a): --calibrate at world size 1 did not "
+                             f"report {skipped!r}")
     for path, w in _flat(one.params).items():
         if not _bits_equal(_flat(rk.params)[path], w):
             raise AssertionError(f"ranks (a): params {path} differ from one card")
@@ -1727,7 +1789,8 @@ def ranks_world_one(device: str = DEVICE, backend: str = "nccl") -> dict:
                              f"{RANK_STEPS} x {n_fused}")
     log(f"ranks (a): {backend} at world size 1, {RANK_STEPS} steps: params, "
         f"CompactState and {len(pay_rk)} payloads bit-equal to the one-card "
-        f"--workers 1 run; {launches} kernel 1 launches")
+        f"--workers 1 run; {launches} kernel 1 launches; --calibrate: "
+        f"{skipped!r}")
     return {"backend": backend, "launches": launches, "losses": rk.losses,
             "payloads": len(pay_rk)}
 
@@ -1764,14 +1827,22 @@ def ranks_spawned(smi: str, device: str = f"{DEVICE}:0", world: int = W,
         rows = [rk[name] for rk in ranks]
         if len({row["digest"] for row in rows}) != 1:
             raise AssertionError(f"ranks (b) {name}: ranks' params differ in bits")
-        if any(row["fused_paths"] != rows[0]["fused_paths"] for row in rows):
+        if any(row["fused_paths"] != rows[0]["fused_paths"]
+               or row["wires"] != rows[0]["wires"] for row in rows):
             raise AssertionError(f"ranks (b) {name}: the ranks' plans differ")
+        if any(row["link"] != rows[0]["link"] for row in rows):
+            raise AssertionError(f"ranks (b) {name}: the ranks' link models differ")
         for r, row in enumerate(rows):
-            if row["launches"] != RANK_STEPS * row["fused_leaves"]:
+            # a replanned run's fused leaves change mid-run: each launch is
+            # one of this rank's fused leaf-rounds
+            want = (row["rounds"] if name in RANK_REPLANNED
+                    else row["steps"] * row["fused_leaves"])
+            if row["launches"] != want or (name in RANK_REPLANNED
+                                           and not want):
                 raise AssertionError(
                     f"ranks (b) {name}: rank {r} launched kernel 1 "
-                    f"{row['launches']} times, expected {RANK_STEPS} x "
-                    f"{row['fused_leaves']} fused leaves")
+                    f"{row['launches']} times, expected {want} ({row['steps']} "
+                    f"steps, {row['fused_leaves']} fused leaves at the end)")
             if row["measured_bytes"] != row["predicted_bytes"]:
                 raise AssertionError(
                     f"ranks (b) {name}: rank {r} measured {row['measured_bytes']} "
@@ -1798,6 +1869,7 @@ def ranks_spawned(smi: str, device: str = f"{DEVICE}:0", world: int = W,
         if rows[0]["ks"] is not None:
             log(f"ranks (b) {name}: k per leaf after {RANK_STEPS} steps, every "
                 f"rank {rows[0]['ks']}, one card {one_card[name]['ks']}")
+        _planner_checks(name, rows[0])
         if rows[0]["predicted_partial_bytes"] != rows[0]["predicted_bytes"]:
             log(f"ranks (b) {name}: the partial round is priced at "
                 f"{rows[0]['predicted_partial_bytes']} B per worker per round")
@@ -1833,6 +1905,34 @@ def ranks_spawned(smi: str, device: str = f"{DEVICE}:0", world: int = W,
     return out
 
 
+def _planner_checks(name: str, row: dict) -> None:
+    """Phase 11 (c) on rank 0's row (the ranks' wires and link models are
+    held equal beside it): the fitted model per dp axis, the plan's picks
+    and the replans, printed; raises where one is missing."""
+    default = [1e-5, 1e-11]  # cost.AlphaBeta()
+    if name in ("calibrate", "auto_calibrate"):
+        axes = ("pod", "data") if name == "calibrate" else ("data",)
+        if row["link"] is None or len(row["link"]) != len(axes) or default in row["link"]:
+            raise AssertionError(f"ranks (b) {name}: fitted link {row['link']}")
+        log(f"ranks (b) {name}: every rank holds rank 0's fit: " + ", ".join(
+            f"{ax} alpha={a:.4e} s/msg beta={b:.4e} s/B"
+            for ax, (a, b) in zip(axes, row["link"], strict=True))
+            + " (gloo; the ranks share one card)")
+    if name in ("auto_calibrate", "replan"):
+        picks = {}
+        for _, c, coll, fused in row["wires"]:
+            key = f"{c}/{coll}{' fused' if fused else ''}"
+            picks[key] = picks.get(key, 0) + 1
+        log(f"ranks (b) {name}: one plan on every rank: {picks}")
+    if name == "replan":
+        lines = row["planner_lines"]
+        steps = [int(ln.split("@step ")[1].split(":")[0]) for ln in lines
+                 if ln.startswith("replan @step")]
+        if steps != list(range(2, row["steps"], 2)):
+            raise AssertionError(f"ranks (b) replan: replans at steps {steps}")
+        log("ranks (b) replan: " + " | ".join(lines))
+
+
 def phase_ranks(smi: str) -> dict:
     one = ranks_world_one()
     spawned = ranks_spawned(smi)
@@ -1850,7 +1950,8 @@ SAMPLED, SAMPLED_N = "sampled:8,7", 32
 def _sim_bits_check(label: str):
     """A ``_paired_sims`` check: the two runs' theta, g_agg, g_agg_prev,
     every worker-state slot, the stale pending buffer and countdown and
-    the controller's state, equal in bits every round."""
+    the controller's state, equal in bits every round; ``label`` begins
+    the error."""
     def check(r, a, b):
         (sa, ga), (sb, gb) = a, b
         pairs = {"g_agg": (ga, gb), "theta": (sa.theta, sb.theta),
@@ -1866,8 +1967,8 @@ def _sim_bits_check(label: str):
                 sa.ctrl._fields, sa.ctrl, sb.ctrl, strict=True)})
         for name, (x, y) in pairs.items():
             if not _bits_equal(x, y):
-                raise AssertionError(f"stragglers sim {label} round {r}: {name} "
-                                     "differ between fastpath on and off")
+                raise AssertionError(f"{label} round {r}: {name} differ "
+                                     "between fastpath on and off")
     return check
 
 
@@ -1892,7 +1993,7 @@ def _sampled_fleet(g0, theta0, J: int, rounds: int, smi: str) -> dict:
                                  participation=part, fastpath=mode, device=DEVICE)
             for mode in ("on", "off")}
     states = {mode: sim.init(theta0) for mode, sim in sims.items()}
-    check = _sim_bits_check(SAMPLED)
+    check = _sim_bits_check(f"stragglers sim {SAMPLED}")
     cohorts = []
     for r in range(rounds):
         outs = {mode: sims[mode].step_fn(states[mode]) for mode in ("on", "off")}
@@ -1943,8 +2044,8 @@ def stragglers_sim(smi: str, rounds: int = 5, adaptive_rounds: int = 10,
         rs.regtopk_score.launches = 0
         sims, states = _paired_sims(
             grad_fn, theta0, J, rounds, {**kw, "participation": part, "fastpath": "on"},
-            {**kw, "participation": part, "fastpath": "off"}, _sim_bits_check(spec),
-            spec)
+            {**kw, "participation": part, "fastpath": "off"},
+            _sim_bits_check(f"stragglers sim {spec}"), spec)
         n = rs.regtopk_score.launches
         if n != rounds:
             raise AssertionError(f"stragglers sim {spec}: {n} score launches, "
@@ -1964,7 +2065,7 @@ def stragglers_sim(smi: str, rounds: int = 5, adaptive_rounds: int = 10,
     launches += out[SAMPLED]["launches"]
 
     ctrl, ks = parse_adaptive_k(SIM_ADAPTIVE), []
-    check = _sim_bits_check("adaptive")
+    check = _sim_bits_check("stragglers sim adaptive")
 
     def check_k(r, a, b):
         check(r, a, b)
@@ -2015,8 +2116,7 @@ def stragglers_trainer(smi: str, steps: int = WIRE_STEPS) -> dict:
         if row["launches"] == 0 or row_off["launches"]:
             raise AssertionError(f"stragglers trainer {name}: kernel 1 launched "
                                  f"{row['launches']} times on, {row_off['launches']} off")
-        bad = sum(_bit_mismatches(a, b) for (_, a), (_, b) in zip(
-            tree_items(on.params), tree_items(off.params), strict=True))
+        bad = _mismatches(on.params, off.params)
         if bad:
             raise AssertionError(f"stragglers trainer {name}: params differ in {bad} "
                                  "elements between fastpath on and off")
@@ -2051,6 +2151,233 @@ def stragglers_trainer(smi: str, steps: int = WIRE_STEPS) -> dict:
 
 def phase_stragglers(smi: str) -> dict:
     return {"sim": stragglers_sim(smi), "trainer": stragglers_trainer(smi)}
+
+
+# phase 11 (a): the simulator's planned runs. PLAN_TOPO is a slow outer
+# axis over AlphaBeta()'s defaults: 10x alpha and 20x beta on (pod, data) =
+# (2, 4), a slow inter-node link over a fast intra-node one
+PLAN_TOPO = ((1e-4, 2e-10), (1e-5, 1e-11))
+PLAN_SIM_RUNS = {
+    "auto": {},
+    "auto slow-outer": {"dp_shape": (2, 4), "topo": PLAN_TOPO},
+    "auto slow-outer buckets:4": {"dp_shape": (2, 4), "topo": PLAN_TOPO,
+                                  "overlap": "buckets:4"},
+}
+
+
+def _plan_sim_kw(spec: dict) -> dict:
+    from repro_torch.comm import cost
+
+    kw = dict(codec="auto", collective="auto", aggregation="sparse_allgather")
+    if "topo" in spec:
+        kw["link_topo"] = cost.LinkTopo(
+            tuple(cost.AlphaBeta(*ab) for ab in spec["topo"]))
+    kw.update({k: v for k, v in spec.items() if k in ("dp_shape", "overlap")})
+    return kw
+
+
+def planners_sim(smi: str, rounds: int = 5, cfg=None) -> dict:
+    """Phase 11 (a): the simulator at full width (N = 8, J = 4,458,752,
+    RegTop-k at S = 0.01) under ``codec="auto", collective="auto"``, on one
+    dp axis under ``AlphaBeta()``, on (2, 4) under ``PLAN_TOPO``, and so
+    with ``overlap="buckets:4"``; each run fastpath on against off in bits
+    for ``rounds`` rounds, kernel 2 once a round, the resolved wire, the
+    predicted round and the round timeline's sync and overlapped seconds;
+    ``cfg`` replaces paper-resnet-proxy for a rehearsal on the CPU."""
+    from repro_torch.kernels import regtopk_score as rs
+
+    grad_fn, theta0, J = _flat_model(cfg)
+    g0 = grad_fn(theta0, torch.arange(W, device=DEVICE))
+    out, launches = {}, 0
+    for name, spec in PLAN_SIM_RUNS.items():
+        kw = _plan_sim_kw(spec)
+        rs.regtopk_score.launches = 0
+        sims, states = _paired_sims(
+            grad_fn, theta0, J, rounds, {**kw, "fastpath": "on"},
+            {**kw, "fastpath": "off"}, _sim_bits_check(f"planners sim {name}"), name)
+        n = rs.regtopk_score.launches
+        if n != rounds:
+            raise AssertionError(f"planners sim {name}: {n} score launches, "
+                                 f"expected {rounds}")
+        launches += n
+        wire = [(s.codec, s.resolved_collective) for s in sims]
+        if wire[0] != wire[1]:
+            raise AssertionError(f"planners sim {name}: on and off resolved {wire}")
+        est = sims[0].wire_bytes_per_round()
+        row = {"rounds": rounds, "launches": n, "wire": list(wire[0]),
+               "bytes": est.bytes_on_wire, "messages": est.n_messages,
+               "predicted_ms": 1e3 * est.seconds,
+               "round": _round_ms(sims[0], states[0], g0)}
+        timeline = ""
+        if sims[0].overlap != "off":
+            bplan, tl = sims[0].round_timeline()
+            if not (bplan.n_buckets == 1 and tl.seconds <= tl.sync_seconds):
+                raise AssertionError(f"planners sim {name}: timeline {tl}")
+            row["timeline"] = {"buckets": bplan.n_buckets,
+                               "sync_ms": 1e3 * tl.sync_seconds,
+                               "overlapped_ms": 1e3 * tl.seconds}
+            timeline = (f"; round_timeline {bplan.n_buckets} bucket (one leaf): "
+                        f"{1e3 * tl.sync_seconds:.4f} ms sync -> "
+                        f"{1e3 * tl.seconds:.4f} ms overlapped")
+        log(f"planners sim {name}: resolved {wire[0][0]}/{wire[0][1]}, "
+            f"{est.bytes_on_wire} B and {1e3 * est.seconds:.4f} ms per worker "
+            f"per round predicted{timeline}; fastpath on == off for {rounds} "
+            f"rounds (theta, g_agg, worker states bit-equal), {n} score "
+            f"launches; round {row['round']['ms']:.2f} ms (gradient fixed, host "
+            f"clock; {smi})")
+        out[name] = row
+    out["launches"] = launches
+    return out
+
+
+def _train_on_plan(args, dist, plan, steps: int):
+    """``steps`` steps of a run of ``args`` from its start (train.run's
+    weights, data and optimizer) on a given ``plan``: (params, state)."""
+    from repro_torch.core import distributed as td
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import lm
+    from repro_torch.optim import make_optimizer
+
+    cfg = _model_cfg(args)
+    params = lm.init(cfg, seed=0, device=args.device)
+    step = td.make_train_step(cfg, dist, plan, args.workers)
+    opt_state = make_optimizer(dist.optimizer).init(params)
+    sp = td.init_sparsifier_state(plan, args.workers, args.device)
+    pipe = TokenPipeline(cfg, args.global_batch, args.seq, 0, args.device)
+    for t in range(steps):
+        params, opt_state, sp, _ = step(params, opt_state, sp, pipe.batch_at(t))
+    return params, sp
+
+
+def _mismatches(a, b) -> int:
+    """f32 bit mismatches between two parameter trees."""
+    from repro_torch.tree import tree_items
+
+    return sum(_bit_mismatches(x, y) for (_, x), (_, y) in zip(
+        tree_items(a), tree_items(b), strict=True))
+
+
+def _bucket_profile(args, res) -> dict:
+    """One step of run ``res`` (of ``args``, under ``--overlap``) under
+    torch.profiler: each ``spa_bucketNNN`` range's host and device time,
+    and the step's host-clock time (median of 3)."""
+    from repro_torch.core import distributed as td
+    from repro_torch.data import TokenPipeline
+    from repro_torch.optim import make_optimizer
+
+    cfg, dist = _model_cfg(args), _dist_of(args)
+    step = td.make_train_step(cfg, dist, res.plan, W)
+    opt_state = make_optimizer(dist.optimizer).init(res.params)
+    batch = TokenPipeline(cfg, args.global_batch, args.seq, 1, DEVICE).batch_at(0)
+    _, step_ms = _timed_step(lambda p, s, b: step(p, opt_state, s, b),
+                             res.params, res.sp_state, batch)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        step(res.params, opt_state, res.sp_state, batch)
+        torch.cuda.synchronize()
+    # the host-side ranges: their host time, and the device time of the
+    # kernels launched inside them
+    ranges = {ev.key: {"host_ms": ev.cpu_time_total / 1e3,
+                       "device_ms": ev.device_time_total / 1e3}
+              for ev in prof.key_averages()
+              if ev.key.startswith("spa_bucket")
+              and ev.device_type == torch.autograd.DeviceType.CPU}
+    return {"step_ms": step_ms, "ranges": dict(sorted(ranges.items()))}
+
+
+def planners_trainer(smi: str, steps: int = WIRE_STEPS) -> dict:
+    """Phase 11 (b): the trainer at full width, W = 8 on one card, under
+    ``--codec auto --collective auto``: with the fastpath on (the per-leaf
+    picks printed; kernel 1 on the plan's fused leaves), against the same
+    plan with the fastpath off and against auto with the fastpath off (a
+    plan of its own), each with params equal in bits; ``--overlap
+    buckets:4`` against off, params equal in bits, and one profiled step's
+    ``spa_bucketNNN`` ranges; ``--calibrate``, which skips in one
+    process."""
+    import contextlib
+    import io
+
+    from repro_torch.core import distributed as td
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_items, tree_map
+
+    out = {}
+    args, on, row = _wire_train("auto", [*PLAN_AUTO, "--fastpath", "on"], steps)
+    if row["launches"] == 0:
+        raise AssertionError("planners trainer auto: kernel 1 never launched")
+    picks = {path: [p.codec, p.collective, p.fused] for path, p in tree_items(on.plan)}
+    log("planners trainer auto (fastpath on) picks: " + "; ".join(
+        f"{path} {c}/{s}{' fused' if f else ''}" for path, (c, s, f) in picks.items()))
+    same_plan = tree_map(lambda p: p._replace(fused=False), on.plan)
+    params_off, sp_off = _train_on_plan(args, _dist_of(args, fastpath="off"),
+                                        same_plan, steps)
+    bad = _mismatches(on.params, params_off)
+    for (path, a), (_, b) in zip(tree_items(on.sp_state), tree_items(sp_off),
+                                 strict=True):
+        if not (_bits_equal(a.sent_vals, b.sent_vals)
+                and torch.equal(a.sent_idx, b.sent_idx)):
+            raise AssertionError(f"planners trainer auto: {path} payload differs "
+                                 "between fastpath on and off on one plan")
+    _, off, row_off = _wire_train("auto off", [*PLAN_AUTO, "--fastpath", "off"], steps)
+    off_picks = {path: [p.codec, p.collective, p.fused]
+                 for path, p in tree_items(off.plan)}
+    bad_off = _mismatches(on.params, off.params)
+    if bad or bad_off or row_off["launches"]:
+        raise AssertionError(f"planners trainer auto: params differ from the same "
+                             f"plan's fastpath off in {bad} elements, from auto "
+                             f"off's in {bad_off}; {row_off['launches']} launches off")
+    log(f"planners trainer auto: {steps} steps, {row['launches']} kernel 1 launches "
+        f"({row['fused_leaves']} fused leaves), hit rate {row['hit_rate']:.4f}; "
+        "params and payloads bit-equal to the same plan with the fastpath off; "
+        "params bit-equal to auto with the fastpath off, whose plan differs in "
+        f"{sum(off_picks[p][:2] != v[:2] for p, v in picks.items())} leaves' "
+        f"codec or collective ({smi})")
+    row.update(picks=picks, off_picks=off_picks, off_losses=off.losses)
+    out["auto"] = row
+
+    args_ov, ov, row_ov = _wire_train(
+        "auto buckets:4", [*PLAN_AUTO, "--fastpath", "on", "--overlap", "buckets:4"],
+        steps)
+    bad = _mismatches(on.params, ov.params)
+    if bad or row_ov["launches"] != row["launches"]:
+        raise AssertionError(f"planners trainer buckets:4: params differ from off in "
+                             f"{bad} elements; {row_ov['launches']} launches")
+    bplan, tl = td.comm_round_timeline(ov.plan, _dist_of(args_ov), W)
+    prof = _bucket_profile(args_ov, ov)
+    want = [f"spa_bucket{i:03d}" for i in range(bplan.n_buckets)]
+    if list(prof["ranges"]) != want:
+        raise AssertionError(f"planners trainer buckets:4: profiled ranges "
+                             f"{list(prof['ranges'])}, expected {want}")
+    row_ov.update(buckets=[list(b.leaves) for b in bplan.buckets],
+                  sync_ms=1e3 * tl.sync_seconds, overlapped_ms=1e3 * tl.seconds,
+                  profile=prof,
+                  on_step_ms=_bucket_profile(args, on)["step_ms"])
+    log(f"planners trainer buckets:4: params bit-equal to overlap off; buckets "
+        f"{row_ov['buckets']}, predicted {row_ov['sync_ms']:.4f} ms sync -> "
+        f"{row_ov['overlapped_ms']:.4f} ms overlapped; profiled step "
+        + ", ".join(f"{k} {v['host_ms']:.2f} ms host / {v['device_ms']:.2f} ms "
+                    "device" for k, v in prof["ranges"].items())
+        + f"; step {prof['step_ms']:.1f} ms, {row_ov['on_step_ms']:.1f} ms "
+        f"without buckets (host clock; {smi})")
+    out["overlap"] = row_ov
+
+    base = [a for a in TRAIN_ARGS if a not in ("--fastpath", "on")]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train.run(train.parse_args([*base, "--steps", "1", "--calibrate"]))
+    skipped = [ln for ln in buf.getvalue().splitlines() if "calibrat" in ln]
+    if skipped != ["calibration skipped (one process: no process group, so no "
+                   "wire to probe); using defaults"]:
+        raise AssertionError(f"planners trainer --calibrate: {skipped}")
+    log(f"planners trainer --calibrate, one process: {skipped[0]}")
+    out["calibrate"] = skipped[0]
+    out["launches"] = row["launches"] + row_ov["launches"]
+    return out
+
+
+def phase_planners(smi: str) -> dict:
+    return {"sim": planners_sim(smi), "trainer": planners_trainer(smi)}
 
 
 def ab_times() -> dict:
@@ -2136,6 +2463,7 @@ def main(argv=None) -> int:
     wire = phase_wire(smi)
     ranks = phase_ranks(smi)
     stragglers = phase_stragglers(smi)
+    planners = phase_planners(smi)
     ab = phase_ab(args.parent) if args.parent is not None else None
     per_step = kernels["per_step"]
     per_round = score["per_round"]
@@ -2145,7 +2473,8 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/fused_encode.cu",
         "replaces": "src/repro/kernels/fused_encode.py:111",
         "launches": (trainer["launches"] + wire["trainer"]["launches"]
-                     + ranks["launches"] + stragglers["trainer"]["launches"]),
+                     + ranks["launches"] + stragglers["trainer"]["launches"]
+                     + planners["trainer"]["launches"]),
         "max_abs_err": kernels["max_abs_err"],
         "ms": per_step["ms"],
         "plain_ms": per_step["plain_ms"],
@@ -2158,7 +2487,8 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/regtopk_score.cu",
         "replaces": "src/repro/kernels/regtopk_score.py:82",
         "launches": (sim["launches"] + wire["sim"]["launches"]
-                     + stragglers["sim"]["launches"]),
+                     + stragglers["sim"]["launches"]
+                     + planners["sim"]["launches"]),
         "max_abs_err": score["max_abs_err"],
         "ms": per_round["ms"],
         "plain_ms": per_round["plain_ms"],
@@ -2191,7 +2521,7 @@ def main(argv=None) -> int:
             {"device": device_name, "nvidia_smi": smi, "build_seconds": builds,
              "kernels": kernels, "score": score, "select": select,
              "trainer": trainer, "sim": sim, "wire": wire, "ranks": ranks,
-             "stragglers": stragglers, "ab": ab,
+             "stragglers": stragglers, "planners": planners, "ab": ab,
              "kernels_line": line},
             indent=1,
         ))

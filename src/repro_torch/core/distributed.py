@@ -38,18 +38,31 @@ accumulated gradient in ``eps`` with its ``sent_*`` frozen. The adaptive-k
 controller (``DistConfig.adaptive_k``) sizes every leaf's payload at its
 ``k_max`` and sends the controller's per-leaf k; the train step then
 carries the pair ``(compact state tree, controller state tree)``.
+
+The wire is chosen per leaf: ``DistConfig.codec="auto"`` /
+``collective="auto"`` make ``build_plan`` pick each leaf's (codec,
+collective) with the alpha–beta planner (``repro_torch.comm.autotune``),
+and each leaf then runs its own codec and collective, on one card and
+across ranks (every rank plans the same plan, so every rank issues the
+leaves' collectives in one order). ``DistConfig.overlap="buckets:B"``
+runs the leaves in the bucket order of ``repro_torch.comm.overlap``, each
+bucket inside a ``torch.profiler.record_function("spa_bucketNNN")``
+range, and the metrics gain the predicted ``timeline`` stamps: the
+numbers are those of ``"off"``, bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as torch_dist
 
-from repro_torch.comm import cost
+from repro_torch.comm import autotune, cost
 from repro_torch.comm import fastpath as fp
+from repro_torch.comm import overlap as overlap_lib
 from repro_torch.comm.controller import AdaptiveKController
 from repro_torch.comm.participation import Participation, worker_index
 from repro_torch.comm.codec import get_codec
@@ -73,7 +86,6 @@ from repro_torch.tree import (
     tree_leaves,
     tree_map,
     tree_unflatten,
-    tree_unzip,
 )
 
 
@@ -83,7 +95,9 @@ class DistConfig:
         kind="regtopk", sparsity=0.001
     )
     optimizer: OptConfig = OptConfig(kind="adam", learning_rate=1e-4)
+    # a wire codec, or "auto": build_plan picks each leaf's
     codec: str = "coo_fp32"
+    # a collective, or "auto": build_plan picks each leaf's
     collective: str = "sparse_allgather"
     # "on" routes every fusable leaf through the fused select→encode
     # kernel (same payload: its certificate falls back to dense selection
@@ -94,8 +108,12 @@ class DistConfig:
     # coordinate by the mass of the workers that sent it and records that
     # mass (CompactState.sent_w) for RegTop-k's next posterior
     weighting: str = "worker"
+    # the scalar link model that prices the wire and drives "auto"
+    # planning (the CLI's --calibrate on one dp axis); None is
+    # cost.AlphaBeta()'s defaults
+    link_model: Optional[cost.AlphaBeta] = None
     # one cost.AlphaBeta per dp mesh axis, outermost first (the CLI's
-    # --link-topo); None prices with cost.AlphaBeta()'s defaults
+    # --link-topo, or --calibrate on two dp axes); wins over link_model
     link_topo: Optional[cost.LinkTopo] = None
     # partial-participation schedule over the dp workers (the CLI's
     # --participation); None or a full schedule is the all-workers round,
@@ -105,6 +123,10 @@ class DistConfig:
     # the static k, bit for bit. Every leaf's payload capacity is then its
     # k_max, and the train step carries a ControllerState tree
     adaptive_k: Optional[AdaptiveKController] = None
+    # the bucketed overlap schedule, "off" or "buckets:B" (the CLI's
+    # --overlap): the leaves run bucket by bucket, with the numbers of
+    # "off" bit for bit, and the metrics gain the predicted timeline
+    overlap: str = "off"
 
     def resolved_participation(self) -> Optional[Participation]:
         """The schedule when it drops anyone, else None."""
@@ -168,7 +190,22 @@ class DistConfig:
         return self.fastpath
 
     def resolved_link_model(self) -> cost.LinkModel:
-        return self.link_topo if self.link_topo is not None else cost.AlphaBeta()
+        """The per-axis topology when given, else the scalar model, else
+        ``cost.AlphaBeta()``'s defaults."""
+        if self.link_topo is not None:
+            return self.link_topo
+        return self.link_model or cost.AlphaBeta()
+
+    def resolved_overlap(self) -> Optional[overlap_lib.OverlapConfig]:
+        """The bucketed-overlap config, None when "off"; an unknown spec
+        or a bucket count below 1 raises."""
+        return overlap_lib.parse_overlap(self.overlap)
+
+    @property
+    def auto(self) -> bool:
+        """Whether the plan picks each leaf's wire."""
+        return self.codec == "auto" or self.collective == "auto"
+
 
 
 class LeafPlan(NamedTuple):
@@ -176,34 +213,98 @@ class LeafPlan(NamedTuple):
     local_len: int
     k: int
     fused: bool = False
+    # the leaf's own wire under "auto" planning; None is DistConfig's
+    codec: Optional[str] = None
+    collective: Optional[str] = None
+
+
+def leaf_wire(p: LeafPlan, dist: DistConfig) -> Tuple[str, str]:
+    """One leaf's (codec, collective): its plan's own, else the
+    ``DistConfig``'s. ``"auto"`` must have been resolved by
+    ``build_plan(..., dist=dist)``."""
+    codec = p.codec or dist.codec
+    coll = p.collective or dist.collective
+    if codec == "auto" or coll == "auto":
+        raise ValueError(
+            "codec/collective='auto' requires a plan built with "
+            "build_plan(..., dist=dist) so per-leaf choices are resolved"
+        )
+    return codec, coll
+
+
+def plan_fastpath(dist: DistConfig, device) -> str:
+    """The fastpath mode a plan prices with on ``device``:
+    ``dist.resolved_fastpath()``, "off" for a config the kernel cannot
+    fuse, and "auto" only where the device runs the kernel
+    (``fastpath.backend_supports``)."""
+    mode = dist.resolved_fastpath()
+    if mode != "off" and not fp.config_fusable(dist.sparsifier)[0]:
+        return "off"
+    if mode == "auto" and not fp.backend_supports(device):
+        return "off"
+    return mode
 
 
 def build_plan(params, sparsity: float, dist: Optional[DistConfig] = None,
-               table: Optional[fp.ThroughputTable] = None):
+               table: Optional[fp.ThroughputTable] = None, workers=None):
     """Per-leaf static plan: length, ``k = sparsity_to_k(length, S)`` (the
     controller's ``k_max`` bound under ``dist.adaptive_k``: the payload
     capacity) and whether the leaf is fused (``fastpath.leaf_fused`` under
     ``dist.resolved_fastpath()``). ``"auto"`` prices each leaf with
     ``table`` (its defaults when None), and fuses only where the leaf's
-    device can run the kernel (``fastpath.backend_supports``)."""
-    mode = "off" if dist is None else dist.resolved_fastpath()
+    device can run the kernel (``fastpath.backend_supports``).
+
+    Under ``codec``/``collective="auto"`` each leaf also gets the (codec,
+    collective, fused) that ``autotune.choose_leaf`` picks on the dp
+    layout ``workers`` (W, or the dp sizes outermost first), priced under
+    ``dist.resolved_link_model()`` at the payload capacity and the
+    schedule's expected participants."""
     ctrl = None if dist is None else dist.resolved_adaptive_k()
     if dist is not None:
         dist.resolved_weighting()
+    auto = dist is not None and dist.auto
+    if auto:
+        if workers is None:
+            raise ValueError(
+                "codec/collective='auto' plans against the dp layout: pass "
+                "build_plan(..., workers=W or the dp sizes)"
+            )
+        dp = _dp_sizes(workers)
+        restrict = autotune.auto_candidates(dist.sparsifier.kind, dist.codec,
+                                            dist.collective)
+        participants = _participants(dist, dp)
+        model = dist.resolved_link_model()
 
     def mk(leaf):
         n = leaf.numel()
         k = sparsity_to_k(n, sparsity) if ctrl is None else ctrl.bounds(n)[1]
-        leaf_mode = mode
-        if mode == "auto" and not fp.backend_supports(leaf.device):
-            leaf_mode = "off"
-        fused = leaf_mode != "off" and fp.leaf_fused(
-            leaf_mode, dist.codec, dist.collective, n, k, table,
-            scfg=dist.sparsifier,
-        )
+        if dist is None:
+            return LeafPlan(tuple(leaf.shape), n, k)
+        mode = plan_fastpath(dist, leaf.device)
+        if auto:
+            d = autotune.choose_leaf(
+                n, k, dp, model, participants=participants, fastpath=mode,
+                compute=table, **restrict,
+            )
+            return LeafPlan(tuple(leaf.shape), n, k, d.fused, d.codec,
+                            d.collective)
+        fused = fp.leaf_fused(mode, dist.codec, dist.collective, n, k, table)
         return LeafPlan(tuple(leaf.shape), n, k, fused)
 
     return tree_map(mk, params)
+
+
+def apply_plan_decisions(plan, comm_plan):
+    """Graft a ``CommPlan``'s (or its ``decisions`` tree's) per-leaf
+    (codec, collective, fused) onto a ``LeafPlan`` tree: how ``replan``'s
+    picks reach the round. Capacities stay, so the sparsifier and
+    controller states carry over."""
+    decisions = getattr(comm_plan, "decisions", comm_plan)
+    return tree_map(
+        lambda p, d: p._replace(codec=d.codec, collective=d.collective,
+                                fused=d.fused),
+        plan, decisions,
+    )
 
 
 def init_sparsifier_state(plan, workers: int, device="cuda"):
@@ -373,19 +474,21 @@ def make_sparsify_aggregate(plan, dist: DistConfig, n_workers: int,
     # partial round
     omega = 1.0 / n_workers if part is None else part.effective_omega(n_workers)
     scfg = dataclasses.replace(dist.sparsifier, omega=omega)
-    codec = get_codec(dist.codec)
-    collective = get_collective(dist.collective)
     coord = dist.resolved_weighting() == "coordinate"
     ctrl_cfg = dist.resolved_adaptive_k()
-    for p in tree_leaves(plan):
+    plan_flat = tree_leaves(plan)
+    # each leaf's own wire, resolved and checked up front
+    wires = [leaf_wire(p, dist) for p in plan_flat]
+    codecs = [get_codec(c) for c, _ in wires]
+    colls = [get_collective(s) for _, s in wires]
+    for p, (cname, sname) in zip(plan_flat, wires, strict=True):
         if p.fused:
-            ok, why = fp.fusable(
-                dist.sparsifier, dist.codec, dist.collective, p.local_len, p.k
-            )
+            ok, why = fp.fusable(dist.sparsifier, cname, sname, p.local_len,
+                                 p.k)
             if not ok:
                 raise ValueError(
-                    f"plan marks a {p.local_len}-element leaf fused but it "
-                    f"is not fusable: {why}"
+                    f"plan marks a {p.local_len}-element leaf fused but the "
+                    f"({cname}, {sname}) pair is not fusable: {why}"
                 )
         if ctrl_cfg is not None and p.k != ctrl_cfg.bounds(p.local_len)[1]:
             raise ValueError(
@@ -407,24 +510,41 @@ def make_sparsify_aggregate(plan, dist: DistConfig, n_workers: int,
         m = pmask if groups is None else pmask[worker_index(mesh)][None]
         return m, torch.ones_like(pmask[0]) / torch.clamp(pmask.sum(), min=1.0)
 
+    # the leaves' launch order: one group in plan order, or under overlap
+    # the buckets in order, each in its own profiler range. Every rank
+    # plans the same buckets, so every rank issues the same collectives in
+    # the same order.
+    bucket_order: List[Tuple[int, ...]] = [tuple(range(len(plan_flat)))]
+    bucket_names: List[Optional[str]] = [None]
+    ocfg = dist.resolved_overlap()
+    if ocfg is not None and plan_flat:
+        bplan = overlap_lib.bucketize(
+            _leaf_overlap_costs(plan, dist, _layout(n_workers, mesh)), ocfg)
+        bucket_order = [b.leaves for b in bplan.buckets]
+        bucket_names = [f"spa_bucket{i:03d}" for i in range(len(bucket_order))]
+
     def spa(grads, state, ctrl=None):
         part_ctx = round_ctx(state)
-        outs = tree_map(
-            lambda g, s, p, c: _spa_leaf(
-                g, s, p, scfg, codec, collective, coord, counts, groups,
-                part_ctx, None if c is None else c.k,
-            ),
-            grads, state, plan,
-            ctrl if ctrl is not None else tree_map(lambda _: None, plan),
-        )
-        agg, new_state = tree_unzip(outs, 2)
+        g_flat, s_flat = tree_leaves(grads), tree_leaves(state)
+        c_flat = [None] * len(plan_flat) if ctrl is None else tree_leaves(ctrl)
+        outs: List[Any] = [None] * len(plan_flat)
+        for name, leaves in zip(bucket_names, bucket_order, strict=True):
+            with (contextlib.nullcontext() if name is None
+                  else torch.profiler.record_function(name)):
+                for i in leaves:
+                    outs[i] = _spa_leaf(
+                        g_flat[i], s_flat[i], plan_flat[i], scfg, codecs[i],
+                        colls[i], coord, counts, groups, part_ctx,
+                        None if c_flat[i] is None else c_flat[i].k,
+                    )
+        agg = tree_unflatten(plan, [o[0] for o in outs])
+        new_state = tree_unflatten(plan, [o[1] for o in outs])
         if ctrl_cfg is None:
             return agg, new_state
-        new_ctrl = tree_map(
-            lambda c, o, p: _ctrl_update(ctrl_cfg, c, o[1], o[0], p, groups,
-                                         n_workers),
-            ctrl, outs, plan,
-        )
+        new_ctrl = tree_unflatten(plan, [
+            _ctrl_update(ctrl_cfg, c, o[1], o[0], p, groups, n_workers)
+            for c, o, p in zip(c_flat, outs, plan_flat, strict=True)
+        ])
         return agg, new_state, new_ctrl
 
     return spa
@@ -446,18 +566,25 @@ def _payload_bytes(codec, length: int, k: int) -> int:
 
 
 def _leaf_wire_patterns(plan, dist: DistConfig):
-    """``(leaf, effective collective, dense wire)`` per leaf: kind "none"
-    and ``dense_allreduce`` put the dense f32 vector on the wire."""
+    """``(leaf, codec, effective collective, dense wire)`` per leaf, each
+    with its own wire (``leaf_wire``): kind "none" and
+    ``dense_allreduce`` put the dense f32 vector on the wire."""
     for p in tree_leaves(plan):
-        dense = dist.sparsifier.kind == "none" or (
-            dist.collective == "dense_allreduce"
-        )
-        yield p, "dense_allreduce" if dense else dist.collective, dense
+        cname, coll = leaf_wire(p, dist)
+        dense = dist.sparsifier.kind == "none" or coll == "dense_allreduce"
+        yield (p, get_codec(cname), "dense_allreduce" if dense else coll,
+               dense)
 
 
 def _dp_sizes(workers) -> Tuple[int, ...]:
     """The dp axis sizes, outermost first: an int is one axis of W."""
     return (workers,) if isinstance(workers, int) else tuple(workers)
+
+
+def _layout(n_workers: int, mesh: Optional[DpGroups]):
+    """The dp sizes the accounting prices: W on one card, the dp layout's
+    shape across ranks."""
+    return n_workers if mesh is None else mesh.shape
 
 
 def _participants(dist: DistConfig, dp: Tuple[int, ...]) -> Optional[float]:
@@ -480,11 +607,10 @@ def comm_round_bytes(plan, dist: DistConfig, workers) -> Tuple[int, int]:
     schedule the predicted side prices the expected partial round, while
     the measured side stays the full round: every worker's buffer still
     crosses the wire, a dropped one with weight 0."""
-    codec = get_codec(dist.codec)
     dp = _dp_sizes(workers)
     participants = _participants(dist, dp)
     pred = meas = 0
-    for p, coll, dense in _leaf_wire_patterns(plan, dist):
+    for p, codec, coll, dense in _leaf_wire_patterns(plan, dist):
         pred += cost.predicted_bytes(codec, coll, p.local_len, p.k, dp,
                                      participants=participants)
         payload = {} if dense else _one_payload(codec, p.local_len, p.k)
@@ -497,13 +623,12 @@ def comm_round_cost(plan, dist: DistConfig, workers) -> cost.CostEstimate:
     leaves under ``dist.resolved_link_model()``; ``workers`` as in
     ``comm_round_bytes``. A partial schedule prices the expected partial
     round."""
-    codec = get_codec(dist.codec)
     model = dist.resolved_link_model()
     dp = _dp_sizes(workers)
     participants = _participants(dist, dp)
     total_bytes = total_msgs = 0
     total_seconds = 0.0
-    for p, coll, _ in _leaf_wire_patterns(plan, dist):
+    for p, codec, coll, _ in _leaf_wire_patterns(plan, dist):
         est = cost.predict(codec, coll, p.local_len, p.k, dp, model,
                            participants=participants)
         total_bytes += est.bytes_on_wire
@@ -512,6 +637,37 @@ def comm_round_cost(plan, dist: DistConfig, workers) -> cost.CostEstimate:
     return cost.CostEstimate(
         bytes_on_wire=total_bytes, n_messages=total_msgs, seconds=total_seconds
     )
+
+
+def _leaf_overlap_costs(plan, dist: DistConfig, workers):
+    """Per-leaf ``overlap.LeafCost`` rows in plan order under
+    ``dist.resolved_link_model()``, each leaf on its own wire: the
+    ``bucketize`` input, priced as ``comm_round_cost`` prices the round."""
+    model = dist.resolved_link_model()
+    dp = _dp_sizes(workers)
+    participants = _participants(dist, dp)
+    return [
+        overlap_lib.leaf_cost(codec, coll, p.local_len, p.k, dp, model,
+                              participants=participants)
+        for p, codec, coll, _ in _leaf_wire_patterns(plan, dist)
+    ]
+
+
+def comm_round_timeline(plan, dist: DistConfig, workers,
+                        compute_seconds=None):
+    """``(BucketPlan, Timeline)`` of one round under
+    ``dist.resolved_overlap()`` (raises when overlap is "off");
+    ``workers`` as in ``comm_round_bytes``. ``compute_seconds`` threads
+    per-bucket backward times into the launch stamps."""
+    ocfg = dist.resolved_overlap()
+    if ocfg is None:
+        raise ValueError(
+            "comm_round_timeline needs DistConfig.overlap != 'off' "
+            "(e.g. overlap='buckets:4')"
+        )
+    bplan = overlap_lib.bucketize(_leaf_overlap_costs(plan, dist, workers),
+                                  ocfg)
+    return bplan, overlap_lib.overlap_timeline(bplan, compute_seconds)
 
 
 def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
@@ -528,15 +684,22 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
     Under ``dist.adaptive_k`` the sparsifier state is the pair
     ``(compact state tree, controller state tree)``
     (:func:`init_controller_state`) and the metrics gain
-    ``"adaptive_k"``, the mean per-leaf k the round used."""
+    ``"adaptive_k"``, the mean per-leaf k the round used. Under
+    ``dist.overlap`` they gain ``"timeline"``, the ``[n_buckets, 2]`` f32
+    (launch, complete) stamps of ``comm_round_timeline``."""
     set_fp32_matmul()
     opt = make_optimizer(dist.optimizer)
     spa = make_sparsify_aggregate(plan, dist, n_workers, counts, mesh)
     adaptive = dist.resolved_adaptive_k() is not None
     W = n_workers
-    wire_pred, wire_meas = comm_round_bytes(
-        plan, dist, W if mesh is None else mesh.shape
-    )
+    wire_pred, wire_meas = comm_round_bytes(plan, dist, _layout(W, mesh))
+    # the predicted (launch, complete) stamps of each bucket, beside the
+    # spa_bucketNNN profiler ranges the round opens
+    timeline = None
+    if dist.resolved_overlap() is not None:
+        _, tl = comm_round_timeline(plan, dist, _layout(W, mesh))
+        timeline = torch.tensor(list(zip(tl.launch, tl.complete)),
+                                dtype=torch.float32)
     mine = range(W) if mesh is None else [mesh.rank]
 
     def worker_grads(params, wbatch):
@@ -575,6 +738,8 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
             "comm_bytes": wire_meas,
             "comm_bytes_predicted": wire_pred,
         }
+        if timeline is not None:
+            metrics["timeline"] = timeline
         if adaptive:
             # the k each leaf used this round (ctrl carries the next)
             ks = torch.stack([c.k.float() for c in tree_leaves(ctrl_state)])

@@ -33,9 +33,12 @@ per-worker ``||eps||`` against ``||g_agg||`` after each round. The four
 codecs (a lossy codec's decode residual folds back through
 ``Sparsifier.on_wire_residual``), the three collectives, both weightings
 and the alpha–beta cost of a round (:meth:`DistributedSim.
-wire_bytes_per_round`) are ported. ``overlap``, ``codec="auto"``,
-``collective="auto"`` and :meth:`DistributedSim.round_timeline` raise,
-naming ROADMAP queue 1 item 6, which ports the planners.
+wire_bytes_per_round`) are the JAX simulator's. ``codec="auto"`` /
+``collective="auto"`` pick the single leaf's wire at construction with
+``repro_torch.comm.autotune.choose_leaf``, as ``build_plan`` picks a
+leaf's; ``overlap="buckets:B"`` clamps to one bucket (one leaf) and
+leaves the numbers alone, and :meth:`DistributedSim.round_timeline`
+prices its schedule.
 """
 from __future__ import annotations
 
@@ -45,7 +48,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.comm import collectives, cost, fastpath
+from repro_torch.comm import autotune, collectives, cost, fastpath
+from repro_torch.comm import overlap as overlap_lib
 from repro_torch.comm.codec import get_codec
 from repro_torch.comm.controller import AdaptiveKController, ControllerState
 from repro_torch.comm.participation import Participation
@@ -59,12 +63,6 @@ from repro_torch.core.sparsify import (
 from repro_torch.kernels.regtopk_score import ieee_div
 
 FASTPATH_MODES = ("off", "on", "auto")
-
-
-def _not_ported(option: str, value) -> ValueError:
-    return ValueError(
-        f"{option}={value!r} is not ported; ROADMAP queue 1 item 6 ports it"
-    )
 
 
 class SimState(NamedTuple):
@@ -108,7 +106,10 @@ class DistributedSim:
     ``comm.participation.Participation``; None or a full schedule is the
     all-workers round, bit for bit) and ``adaptive_k`` (a
     ``comm.controller.AdaptiveKController``; None is the static k, bit for
-    bit) are the JAX simulator's."""
+    bit) are the JAX simulator's. ``codec``/``collective`` take
+    ``"auto"``, resolved at construction on the dp layout and link model;
+    ``overlap`` (``"off"`` or ``"buckets:B"``) prices
+    :meth:`round_timeline` and leaves the numbers alone."""
 
     grad_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
     n_workers: int
@@ -129,6 +130,8 @@ class DistributedSim:
     device: str = "cuda"
 
     def __post_init__(self):
+        # a bad spec fails here, not at the first round_timeline()
+        self._overlap_cfg = overlap_lib.parse_overlap(self.overlap)
         self._validate()
         # a partial schedule aggregates with its effective weight: the
         # renormalized 1/E|P_t|, 1/S for client sampling, and under
@@ -163,8 +166,33 @@ class DistributedSim:
                 f"dp_shape {dp} does not factor n_workers={self.n_workers}"
             )
         self._dp_sizes = dp
+        if self.codec == "auto" or self.resolved_collective == "auto":
+            self._plan_wire(cfg.kind)
+        coll = self.resolved_collective
         self._codec = get_codec(self.codec)
-        self._strategy = collectives.get_collective(self.resolved_collective)
+        self._strategy = collectives.get_collective(coll)
+        if coll != "dense_allreduce" and cfg.kind == "hard_threshold":
+            raise ValueError(
+                "hard_threshold produces a variable-cardinality mask; the "
+                f"fixed-k payload collective {coll!r} would silently drop "
+                "coordinates beyond k. Use aggregation/collective="
+                "'dense_allreduce' for hard_threshold (or a fixed-k "
+                "sparsifier for payload collectives)."
+            )
+
+    def _plan_wire(self, kind: str) -> None:
+        """The single leaf's ``build_plan`` auto planning: the payload
+        capacity priced on the dp layout, the link model and the expected
+        participants, under ``autotune.auto_candidates``."""
+        d = autotune.choose_leaf(
+            self.length, self._k_payload, self._dp_sizes,
+            self.resolved_link_model, participants=self._participants,
+            **autotune.auto_candidates(kind, self.codec,
+                                       self.resolved_collective),
+        )
+        if self.codec == "auto":
+            self.codec = d.codec
+        self.collective = self.aggregation = d.collective
 
     def _validate(self) -> None:
         if self.device.startswith("cuda") and not torch.cuda.is_available():
@@ -176,8 +204,6 @@ class DistributedSim:
             raise ValueError(
                 f"unknown fastpath {self.fastpath!r}; available: {FASTPATH_MODES}"
             )
-        if self.overlap != "off":
-            raise _not_ported("overlap", self.overlap)
         if self.participation is not None:
             self.participation.validate(self.n_workers)
         collectives.check_weighting(self.weighting)
@@ -216,19 +242,6 @@ class DistributedSim:
                     "bounded stable top-k); got "
                     f"{self.sparsifier_cfg.selector!r}"
                 )
-        if self.codec == "auto":
-            raise _not_ported("codec", self.codec)
-        coll = self.resolved_collective
-        if coll == "auto":
-            raise _not_ported("collective", coll)
-        if coll != "dense_allreduce" and self.sparsifier_cfg.kind == "hard_threshold":
-            raise ValueError(
-                "hard_threshold produces a variable-cardinality mask; the "
-                f"fixed-k payload collective {coll!r} would silently drop "
-                "coordinates beyond k. Use aggregation/collective="
-                "'dense_allreduce' for hard_threshold (or a fixed-k "
-                "sparsifier for payload collectives)."
-            )
 
     @property
     def resolved_collective(self) -> str:
@@ -455,10 +468,22 @@ class DistributedSim:
         )
 
     def round_timeline(self, compute_seconds=None):
-        raise NotImplementedError(
-            "round_timeline needs comm/overlap.py; ROADMAP queue 1 item 6 "
-            "ports it"
+        """``(BucketPlan, Timeline)`` of one round under ``overlap``
+        (raises when "off"), as ``distributed.comm_round_timeline`` prices
+        the trainer's: the single leaf clamps to one bucket, so the
+        timeline's seconds are ``wire_bytes_per_round()``'s."""
+        if self._overlap_cfg is None:
+            raise ValueError(
+                "round_timeline needs overlap != 'off' "
+                "(e.g. overlap='buckets:4')"
+            )
+        lc = overlap_lib.leaf_cost(
+            self._codec, self.resolved_collective, self.length,
+            self._k_payload, self._dp_sizes, self.resolved_link_model,
+            participants=self._participants,
         )
+        bplan = overlap_lib.bucketize([lc], self._overlap_cfg)
+        return bplan, overlap_lib.overlap_timeline(bplan, compute_seconds)
 
     def run(
         self,

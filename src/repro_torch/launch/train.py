@@ -29,6 +29,16 @@ axes. Only rank 0 prints.
 the JAX trainer; ``stale`` is refused (it needs the simulator's pending
 buffer), and the step line gains the mean per-leaf k under
 ``--adaptive-k``.
+
+The planners, as in the JAX trainer: ``--codec auto`` / ``--collective
+auto`` pick each leaf's wire with the alpha–beta planner (the picks are
+printed); ``--calibrate`` fits the link model from collectives timed
+across the ranks (one model per dp axis under ``--multi-pod``; rank 0's
+fit on every rank; skipped in one process, which has no process group
+and so no wire to probe); ``--overlap buckets:B`` runs the leaves bucket
+by bucket with the numbers of ``off``; ``--replan-every N`` calibrates on
+the live groups every N steps, re-plans at the current k and rebuilds the
+step, its state carried over.
 """
 from __future__ import annotations
 
@@ -42,7 +52,10 @@ import torch
 import torch.distributed as torch_dist
 
 from repro_torch import configs as cfglib
-from repro_torch.comm import cost
+from collections import Counter
+
+from repro_torch.comm import autotune, cost
+from repro_torch.comm import calibrate as cal
 from repro_torch.comm.codec import CODECS
 from repro_torch.comm.collectives import COLLECTIVES
 from repro_torch.comm.controller import parse_adaptive_k
@@ -54,19 +67,23 @@ from repro_torch.comm.fastpath import (
 from repro_torch.comm.participation import parse_participation
 from repro_torch.core.distributed import (
     DistConfig,
+    apply_plan_decisions,
     build_plan,
     comm_round_bytes,
     comm_round_cost,
+    comm_round_timeline,
     init_controller_state,
     init_sparsifier_state,
+    leaf_wire,
     make_train_step,
+    plan_fastpath,
 )
 from repro_torch.core.sparsify import SparsifierConfig
 from repro_torch.data import TokenPipeline
 from repro_torch.launch.mesh import DpGroups, dp_axes_of, make_production_groups
 from repro_torch.models import lm
 from repro_torch.optim import OptConfig, make_optimizer
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -79,9 +96,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     choices=["none", "topk", "regtopk", "cyclic"])
     ap.add_argument("--sparsity", type=float, default=0.01)
     ap.add_argument("--mu", type=float, default=1.0)
-    ap.add_argument("--codec", default="coo_fp32", choices=sorted(CODECS))
+    ap.add_argument("--codec", default="coo_fp32",
+                    choices=[*sorted(CODECS), "auto"],
+                    help="'auto' plans each leaf's codec by the alpha-beta "
+                         "model")
     ap.add_argument("--collective", default="sparse_allgather",
-                    choices=sorted(COLLECTIVES))
+                    choices=[*sorted(COLLECTIVES), "auto"],
+                    help="'auto' plans each leaf's collective by the "
+                         "alpha-beta model")
     ap.add_argument("--fastpath", default="off", choices=["off", "on", "auto"],
                     help="'on' fuses every fusable leaf through the CUDA "
                          "select->encode kernel (same payload, with a "
@@ -98,6 +120,21 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "line: 'data:alpha,beta' or a bare 'alpha,beta' "
                          "(seconds per message, per byte); under "
                          "--multi-pod 'pod:a,b;data:a,b'")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="fit the alpha-beta link model from collectives "
+                         "timed across the ranks before planning (one per "
+                         "dp axis under --multi-pod; ignored when "
+                         "--link-topo is given; skipped in one process)")
+    ap.add_argument("--overlap", default="off", metavar="SPEC",
+                    help="bucketed overlap schedule: 'off' or 'buckets:B', "
+                         "the leaves run in B size-balanced buckets (the "
+                         "numbers of 'off', bit for bit; the metrics gain "
+                         "the predicted per-bucket 'timeline' stamps)")
+    ap.add_argument("--replan-every", type=int, default=0, metavar="N",
+                    help="every N steps, re-fit the link model from "
+                         "collectives timed on the live groups and re-plan "
+                         "each leaf's codec/collective at the current k "
+                         "(0 disables)")
     ap.add_argument("--participation", default=None, metavar="SPEC",
                     help="partial-participation schedule over the dp "
                          "workers: 'full' (default), "
@@ -137,11 +174,14 @@ class RunResult(NamedTuple):
     sp_state: dict
     counts: FastpathCounts
     plan: dict
+    dist: DistConfig  # with the link model --calibrate fitted
 
 
 def dist_config(args: argparse.Namespace,
-                link_topo: Optional[cost.LinkTopo] = None) -> DistConfig:
-    """The ``DistConfig`` that the flags describe."""
+                link_topo: Optional[cost.LinkTopo] = None,
+                link_model: Optional[cost.AlphaBeta] = None) -> DistConfig:
+    """The ``DistConfig`` that the flags describe, with the link model of
+    ``--link-topo`` or ``--calibrate``."""
     return DistConfig(
         participation=(parse_participation(args.participation)
                        if args.participation else None),
@@ -156,6 +196,8 @@ def dist_config(args: argparse.Namespace,
         fastpath=args.fastpath,
         weighting="coordinate" if args.coord_weights else "worker",
         link_topo=link_topo,
+        link_model=link_model,
+        overlap=args.overlap,
     )
 
 
@@ -179,8 +221,9 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
     makes this rank one worker of W = ``mesh.size``: it returns the
     common params and losses, and its own worker's state and counts.
     Under ``--fastpath auto`` rank 0's table (``ThroughputTable.measure``
-    on the card when none is given) is broadcast, so every rank builds
-    one plan."""
+    on the card when none is given) is broadcast, and ``--calibrate`` and
+    ``--replan-every`` fit rank 0's samples, so every rank builds one
+    plan. ``RunResult.plan`` is the last plan the run stepped with."""
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise RuntimeError(
             f"--device {args.device} requested but CUDA is not available"
@@ -202,13 +245,17 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
             )
     if args.global_batch % W:
         raise SystemExit(f"--global-batch must be divisible by {W} workers")
-    link_topo = None
+    link_topo = link_model = None
     if args.link_topo:
         link_topo = cost.parse_link_topo(args.link_topo, axes)
         for axis, lk in zip(axes, link_topo.links, strict=True):
             say(f"link-topo {axis}: alpha={lk.alpha:.3e} s/msg "
                 f"beta={lk.beta:.3e} s/B")
-    dist = dist or dist_config(args, link_topo)
+        if args.calibrate:
+            say("--link-topo given; skipping --calibrate")
+    elif args.calibrate:
+        link_topo, link_model = _calibrate(mesh, axes, args.device, say)
+    dist = dist or dist_config(args, link_topo, link_model)
     part = dist.participation
     if part is not None:
         part.validate(W)
@@ -240,7 +287,7 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
             torch_dist.broadcast_object_list(shared, src=0)
             table = shared[0]
     params = lm.init(cfg, seed=0, device=args.device)
-    plan = build_plan(params, dist.sparsifier.sparsity, dist, table)
+    plan = build_plan(params, dist.sparsifier.sparsity, dist, table, dp_sizes)
     counts = FastpathCounts()
     step_fn = make_train_step(cfg, dist, plan, W, counts, mesh)
     opt_state = make_optimizer(dist.optimizer).init(params)
@@ -258,10 +305,49 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
         f"(predicted {pred_b / 1e6:.3f} MB, "
         f"{round_cost.seconds * 1e3:.3f} ms/round under the link model)"
     )
+    if dist.resolved_overlap() is not None:
+        bplan, tline = comm_round_timeline(plan, dist, dp_sizes)
+        say(f"comm:   overlap {bplan.n_buckets} buckets ({dist.overlap}): "
+            f"{tline.sync_seconds * 1e3:.3f} ms sync -> "
+            f"{tline.seconds * 1e3:.3f} ms overlapped")
+    if dist.auto:
+        for (c, s), n in _picks(plan, dist):
+            say(f"comm:   auto-plan {c}/{s}: {n} leaves")
     leaves = tree_leaves(plan)
     if dist.resolved_fastpath() != "off":
         say(f"comm:   fastpath: {sum(p.fused for p in leaves)}/{len(leaves)} "
             "leaves fused")
+
+    def replan_step(t: int, plan):
+        """``--replan-every``: calibrate on the live groups (rank 0's fit
+        on every rank), re-plan each leaf's wire at the k being sent, and
+        rebuild the step on the regrafted plan; capacities, and so every
+        state, carry over, and ``counts`` goes on counting."""
+        res = cal.calibrate(mesh, None if mesh is None else axes,
+                            device=args.device)
+        if not res.calibrated:
+            say(f"replan @step {t + 1}: skipped (no dp axis with >1 worker)")
+            return plan, step_fn
+        part = dist.resolved_participation()
+        cp = autotune.replan(
+            plan, [W] if mesh is None else list(mesh.shape), res.samples,
+            k_overrides=(None if ctrl is None else
+                         tree_map(lambda c: int(c.k), sp_state[1])),
+            participants=(None if part is None
+                          else part.expected_participants(W)),
+            fastpath=plan_fastpath(dist, args.device), compute=table,
+            **autotune.auto_candidates(dist.sparsifier.kind, dist.codec,
+                                       dist.collective),
+        )
+        new_plan = apply_plan_decisions(plan, cp)
+        lk = cp.model.links[0]
+        say(f"replan @step {t + 1}: alpha={lk.alpha:.3e} s/msg "
+            f"beta={lk.beta:.3e} s/B -> {cp.total_seconds * 1e3:.3f} "
+            "ms/round predicted")
+        for (c, s), n in _picks(new_plan, dist):
+            say(f"replan:   {c}/{s}: {n} leaves")
+        return new_plan, make_train_step(cfg, dist, new_plan, W, counts, mesh)
+
     losses = []
     t0 = time.time()
     for t in range(args.steps):
@@ -275,11 +361,48 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
                      if "adaptive_k" in m else "")
             say(f"step {t:5d} loss {losses[-1]:.4f}{extra} "
                 f"({dt / (t + 1):.2f}s/step)")
+        if (args.replan_every and t < args.steps - 1
+                and (t + 1) % args.replan_every == 0):
+            plan, step_fn = replan_step(t, plan)
     if counts.rounds:
         say(f"fastpath: certificate hit rate {counts.hit_rate:.4f} "
             f"({counts.rounds - counts.fallbacks}/{counts.rounds} "
             "worker-leaf rounds used the kernel's answer)")
-    return RunResult(losses, params, sp_state, counts, plan)
+    return RunResult(losses, params, sp_state, counts, plan, dist)
+
+
+def _picks(plan, dist: DistConfig):
+    """``[((codec, collective), leaves), ...]`` of a plan, sorted."""
+    return sorted(Counter(leaf_wire(p, dist) for p in tree_leaves(plan)).items())
+
+
+def _calibrate(mesh: Optional[DpGroups], axes, device: str, say):
+    """``--calibrate``: ``(link_topo, link_model)`` fitted from collectives
+    timed across the ranks of ``mesh``, one model per dp axis on two
+    axes. In one process there is no process group, so no wire to probe:
+    the defaults stay."""
+    if mesh is None:
+        say("calibration skipped (one process: no process group, so no "
+            "wire to probe); using defaults")
+        return None, None
+    if len(axes) > 1:
+        res = cal.calibrate_topo(mesh, axes, device=device)
+        if not res.calibrated:
+            say("calibration skipped (no dp axis with >1 worker); using "
+                "defaults")
+            return None, None
+        for ax, c in zip(res.axes, res.per_axis, strict=True):
+            say(f"calibrated {ax}: alpha={c.model.alpha:.3e} s/msg "
+                f"beta={c.model.beta:.3e} s/B (rms {c.residual:.2e}s over "
+                f"{len(c.samples)} probes)" if c.calibrated
+                else f"calibrated {ax}: size-1 axis, defaults kept")
+        return res.topo, None
+    res = cal.calibrate(mesh, axes, device=device)
+    say(f"calibrated alpha={res.model.alpha:.3e} s/msg "
+        f"beta={res.model.beta:.3e} s/B (rms {res.residual:.2e}s over "
+        f"{len(res.samples)} probes)" if res.calibrated
+        else "calibration skipped (single device); using defaults")
+    return None, res.model
 
 
 def rank_device(device: str) -> str:

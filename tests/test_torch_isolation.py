@@ -70,7 +70,10 @@ def test_importing_the_port_loads_no_jax():
 
 def test_the_wire_modules_are_checked():
     """The wire's modules, ``comm/cost.py`` (plain arithmetic that the JAX
-    package also has) among them, are in both checks above."""
-    for name in ("codec", "collectives", "cost", "fastpath"):
+    package also has) among them, and the planners (``overlap`` and
+    ``autotune``, host arithmetic, and ``calibrate``) are in both checks
+    above."""
+    for name in ("codec", "collectives", "cost", "fastpath", "overlap",
+                 "autotune", "calibrate"):
         assert PORT / "comm" / f"{name}.py" in _sources()
         assert f"repro_torch.comm.{name}" in _modules()

@@ -13,8 +13,8 @@
 * a run continued from a JAX state (``convert.sim_state_from_jax``);
 * the fastpath on equals off with ``torch.equal`` (RegTop-k through the
   kernel wrapper, which computes the plain chain on the CPU) at y = 1
-  and y = 2; ``"auto"`` declines on the CPU; every option that is not
-  ported, and every refused combination, raises;
+  and y = 2; ``"auto"`` declines on the CPU; every refused option or
+  combination raises with the JAX simulator's message;
 * each codec, ``hierarchical`` and coordinate weighting, 40 rounds
   against the JAX simulator as above, and ``wire_bytes_per_round``
   equal to the JAX package's;
@@ -181,15 +181,16 @@ def test_auto_declines_on_the_cpu():
      "does not compose"),
     (dict(adaptive_k=AdaptiveKController(budget=0.1),
           sparsifier_cfg=SparsifierConfig(kind="dgc")), "adaptive_k drives"),
-    (dict(overlap="buckets:2"), "item 6"),
+    (dict(overlap="stream"), "unknown overlap spec"),
     (dict(weighting="coordinate", fastpath="on"), "scalar omega"),
     (dict(weighting="per-worker"), "unknown weighting"),
     (dict(weighting="coordinate",
           sparsifier_cfg=SparsifierConfig(kind="none")), "sparse payloads"),
     (dict(codec="bogus"), "unknown codec"),
-    (dict(codec="auto"), "item 6"),
+    (dict(codec="auto", sparsifier_cfg=SparsifierConfig(kind="hard_threshold"),
+          collective="sparse_allgather"), "hard_threshold"),
     (dict(dp_shape=(3, 2)), "does not factor"),
-    (dict(collective="auto"), "item 6"),
+    (dict(overlap="buckets:0"), "n_buckets must be >= 1"),
     (dict(aggregation="ring"), "unknown collective"),
     (dict(fastpath="always"), "unknown fastpath"),
     (dict(sparsifier_cfg=SparsifierConfig(kind="hard_threshold"),
@@ -203,11 +204,11 @@ def test_unsupported_options_raise(kw, match):
 def test_cost_methods_wait_for_comm_cost():
     """``wire_bytes_per_round`` is ported with ``comm/cost.py`` (its
     numbers are held against the JAX package's below);
-    ``round_timeline`` waits for ``comm/overlap.py`` (ROADMAP queue 1
-    item 6)."""
+    ``round_timeline`` needs a schedule, as the JAX simulator's does: it
+    raises with overlap "off"."""
     est = _sim().wire_bytes_per_round()
     assert est.bytes_on_wire > 0 and est.seconds > 0
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="overlap != 'off'"):
         _sim().round_timeline()
 
 

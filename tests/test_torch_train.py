@@ -597,15 +597,19 @@ def _batches_w(n, W):
              for key in ("tokens", "labels")} for _ in range(n)]
 
 
-def _jax_composed_train(W, participation=None, adaptive=None):
+def _jax_composed_train(W, participation=None, adaptive=None, dist=None):
     """The JAX trainer's step at W workers in this one-device process: the
     JAX model's per-worker ``value_and_grad`` under ``jax.vmap``, the
     runtime's own per-worker round (``_spa_leaf``, with the round's
     participation context and the controller's k, and ``_ctrl_update``)
     under ``jax.vmap(axis_name="data")``, as ``make_sparsify_aggregate``
-    runs them under ``shard_map``, and its Adam. Returns (initial params,
-    losses, per-step leaf ks, final params, final state, final
-    controller)."""
+    runs them under ``shard_map``, and its Adam. ``dist`` (a JAX
+    ``DistConfig``, e.g. with ``codec``/``collective="auto"``) plans the
+    leaves with ``build_plan`` on a W-worker dp axis, each leaf then on
+    its own wire (``leaf_wire``); None is ``coo_fp32`` +
+    ``sparse_allgather``. Returns (initial params, losses, per-step leaf
+    ks, final params, final state, final controller), and the plan when
+    ``dist`` is given."""
     from jax.sharding import PartitionSpec as P
 
     from repro.comm import worker_index
@@ -623,11 +627,19 @@ def _jax_composed_train(W, participation=None, adaptive=None):
         return (adaptive.bounds(n)[1] if adaptive is not None
                 else jd.sparsity_to_k(n, SPARSITY))
 
-    plan = jax.tree.map(lambda x: jd.LeafPlan(
-        x.shape, x.shape, int(np.prod(x.shape)), k_of(int(np.prod(x.shape))),
-        P(None)), params)
+    if dist is None:
+        plan = jax.tree.map(lambda x: jd.LeafPlan(
+            x.shape, x.shape, int(np.prod(x.shape)), k_of(int(np.prod(x.shape))),
+            P(None)), params)
+        wire_dist = jd.DistConfig(codec="coo_fp32", collective="sparse_allgather")
+    else:
+        class _Mesh:
+            shape = {"data": W}
+
+        plan = jd.build_plan(params, jax.tree.map(lambda _: P(), params), _Mesh(),
+                             SPARSITY, dist)
+        wire_dist = dist
     is_plan = jd._is_plan
-    codec = jd.comm.get_codec("coo_fp32")
 
     def init_state(p):
         st = jc.compact_init(p.local_len, p.k)
@@ -654,9 +666,12 @@ def _jax_composed_train(W, participation=None, adaptive=None):
             pmask = participation.round_mask(flat_s[0].t[0], W)
             m = pmask[worker_index(("data",), (W,))]
             part_ctx = (m, 1.0 / jnp.maximum(pmask.sum(), 1.0))
-        outs = [jd._spa_leaf(g, s, p, scfg, codec, "sparse_allgather", ("data",),
-                             part_ctx, False, None if c is None else c.k)
-                for g, s, p, c in zip(flat_g, flat_s, flat_p, flat_c, strict=True)]
+        wires = [jd.leaf_wire(p, wire_dist) for p in flat_p]
+        outs = [jd._spa_leaf(g, s, p, scfg, jd.comm.get_codec(cname), coll,
+                             ("data",), part_ctx, False,
+                             None if c is None else c.k)
+                for g, s, p, c, (cname, coll) in zip(
+                    flat_g, flat_s, flat_p, flat_c, wires, strict=True)]
         agg = tdef.unflatten([o[0] for o in outs])
         new = tdef.unflatten([o[1] for o in outs])
         if ct is None:
@@ -687,7 +702,8 @@ def _jax_composed_train(W, participation=None, adaptive=None):
         losses.append(float(loss))
         if ctrl is not None:
             ks.append([int(c.k) for c in _ctrl_leaves(ctrl)])
-    return p0, losses, ks, jax.tree.map(np.asarray, params), state, ctrl
+    out = (p0, losses, ks, jax.tree.map(np.asarray, params), state, ctrl)
+    return out if dist is None else (*out, plan)
 
 
 COMPOSED = {
