@@ -95,6 +95,9 @@ Phases, each raising on failure (the script then exits non-zero):
               round_robin and adaptive runs the difference from one card
               is reported, not held, the bytes measured against the full
               round's prediction, the partial round's printed beside it;
+              the sparse_allgather run also writes --checkpoint (rank 0
+              the gathered state of the 8 workers), which phase 12
+              resumes;
 10. stragglers — partial participation and the adaptive-k controller at
               full width: (a) the simulator (N = 8, J = 4,458,752, RegTop-k at
               S = 0.01, sparse_allgather, coo_fp32) under round_robin:2,
@@ -130,11 +133,29 @@ Phases, each raising on failure (the script then exits non-zero):
               --calibrate (one per-leaf plan on every rank) and
               --replan-every 2 over 6 steps (the replan lines, the picks
               and the params equal across the ranks).
+12. options — the trainer's remaining options at full width (W = 8, batch
+              32 x 128, RegTop-k at S = 0.01, 5 steps a run), each held in
+              bits (params and every sparsifier-state field) against its
+              twin: (a) --microbatches 2, fastpath on against off; (b)
+              --checkpoint after 5 steps and --resume for 5 more against
+              the unbroken 10 steps (losses too), with the fastpath on,
+              again under --participation bernoulli:0.25 --adaptive-k
+              1.0,0.001,0.012 (the controller's state too), and from the
+              checkpoint phase 9's 8 gloo ranks wrote after their 5
+              sparse_allgather steps, resumed with --workers 8; (c)
+              state_dtype="bfloat16" through ``train.run(args, dist=...)``:
+              --fastpath auto fuses no leaf and launches nothing, "on"
+              raises, the state's bytes against f32's and the step time
+              against the f32 step's; (d) the optimizers sgd, momentum
+              (weight decay, which only Adam applies, clip and warmup) and
+              Adam (weight decay, clip, warmup, bf16 moments), fastpath on
+              against off; (e) --aggregation dense_allreduce against
+              --collective dense_allreduce.
 
 Each kernel's launch count is set to 0 just before the path that runs it
 (select: ``count_above``, ``global_max``, ``block_topk_candidates``;
 trainer, each fused wire run, each run of every rank and each of phase
-10's and phase 11's trainer runs: ``fused_candidates``; sim, the wire
+10's, 11's and 12's trainer runs: ``fused_candidates``; sim, the wire
 simulator's fastpath-on run and phase 10's and phase 11's simulator runs:
 ``regtopk_score``) and read just after; the
 ``kernels`` line sums each kernel's main-path launches. The line before the last is the card's nvidia-smi line; before it,
@@ -154,6 +175,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1217,9 +1239,11 @@ def _payloads_equal(a: list, b: list) -> bool:
         for x, y in zip(a, b, strict=True))
 
 
-def _wire_train(name: str, extra: list, steps: int = WIRE_STEPS, table=None):
+def _wire_train(name: str, extra: list, steps: int = WIRE_STEPS, table=None,
+                fields=None):
     """``steps`` full-width training steps with ``TRAIN_ARGS`` and
-    ``extra`` flags, kernel 1's launches counted from 0 around the run."""
+    ``extra`` flags (and the ``DistConfig`` ``fields`` the flags cannot
+    set), kernel 1's launches counted from 0 around the run."""
     from repro_torch.kernels import fused_encode as fe
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves
@@ -1230,7 +1254,8 @@ def _wire_train(name: str, extra: list, steps: int = WIRE_STEPS, table=None):
     fe.fused_candidates.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = train.run(args, table=table)
+    res = train.run(args, table=table,
+                    dist=None if fields is None else _dist_of(args, **fields))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = fe.fused_candidates.launches
@@ -1271,7 +1296,7 @@ def wire_trainer(smi: str) -> dict:
                 raise AssertionError(f"wire trainer {codec}: {path} sent_vals differ")
         pred, _ = td.comm_round_bytes(plan, _dist_of(args), W)
         meas = sum(
-            cost.measured_bytes(args.collective, p.local_len,
+            cost.measured_bytes(_dist_of(args).resolved_collective(), p.local_len,
                                 {k: v[:1] for k, v in pay.items()}, (W,))
             for p, pay in zip(tree_leaves(plan), pay_on, strict=True))
         if meas > 1.05 * pred:
@@ -1551,11 +1576,12 @@ def _dist_of(args, **fields):
     return dataclasses.replace(train.dist_config(args), **fields)
 
 
-def _step_ms(args, res, mesh=None, reps: int = 3):
+def _step_ms(args, res, mesh=None, reps: int = 3, dcfg=None):
     """Median host-clock milliseconds of one training step from the state
-    run ``res`` reached (this rank's step across the ranks of ``mesh``),
-    and one more step under torch.profiler: the device time of its
-    kernels and the host operators that took the most time (self time)."""
+    run ``res`` reached (this rank's step across the ranks of ``mesh``;
+    under ``dcfg``, else the flags' ``DistConfig``), and one more step
+    under torch.profiler: the device time of its kernels and the host
+    operators that took the most time (self time)."""
     import torch.distributed as dist
 
     from repro_torch.core import distributed as td
@@ -1563,7 +1589,7 @@ def _step_ms(args, res, mesh=None, reps: int = 3):
     from repro_torch.optim import make_optimizer
 
     cfg = _model_cfg(args)
-    dcfg = _dist_of(args)
+    dcfg = dcfg or _dist_of(args)
     workers = args.workers if mesh is None else mesh.size
     step = td.make_train_step(cfg, dcfg, res.plan, workers, mesh=mesh)
     opt_state = make_optimizer(dcfg.optimizer).init(res.params)
@@ -1620,20 +1646,22 @@ def _wire_bytes(args, plan, payloads, dp_sizes):
     pred, _ = td.comm_round_bytes(plan, dcfg, dp_sizes)
     meas, leaves = 0, tree_leaves(plan)
     last = payloads[-len(leaves):] if payloads else [{}] * len(leaves)
-    for p, (_, _, coll, dense), pay in zip(
+    for p, (_, _, coll, wb, dense), pay in zip(
             leaves, td._leaf_wire_patterns(plan, dcfg), last, strict=True):
         meas += cost.measured_bytes(coll, p.local_len, {} if dense else pay,
-                                    dp_sizes)
+                                    dp_sizes, word_bytes=wb)
     return pred, meas
 
 
 def _rank_body(rank: int, world: int, store: str, out_dir: str,
-               device: str, base: list) -> None:
+               device: str, base: list, ckpt_dir=None) -> None:
     """One of phase 9's ranks over gloo: every run of ``RANK_RUNS`` on the
     flags ``base`` in turn, kernel 1's launches counted from 0 around
     each. Rank 0 saves its params per run and prints its lines; every
     rank saves its numbers (its plan's wires and its link model among
-    them) to ``out_dir/rank{rank}.json``."""
+    them) to ``out_dir/rank{rank}.json``. The ``sparse_allgather`` run
+    also writes ``--checkpoint ckpt_dir``, which phase 12 resumes on one
+    card."""
     import contextlib
     import io
 
@@ -1652,6 +1680,8 @@ def _rank_body(rank: int, world: int, store: str, out_dir: str,
     try:
         out = {}
         for name, extra in RANK_RUNS.items():
+            if name == "sparse_allgather" and ckpt_dir is not None:
+                extra = [*extra, "--checkpoint", ckpt_dir]
             args = _rank_args(base, extra, device, world)
             groups = mesh.make_production_groups(multi_pod=args.multi_pod)
             # auto: rank 0 measures its table (outside the counted run);
@@ -1796,9 +1826,10 @@ def ranks_world_one(device: str = DEVICE, backend: str = "nccl") -> dict:
 
 
 def ranks_spawned(smi: str, device: str = f"{DEVICE}:0", world: int = W,
-                  timeout: float = 480.0) -> dict:
+                  timeout: float = 480.0, ckpt_dir=None) -> dict:
     """Phase 9 (b): ``world`` ranks spawned on ``device`` over gloo, each
-    run of ``RANK_RUNS`` against the one-card ``--workers world`` run."""
+    run of ``RANK_RUNS`` against the one-card ``--workers world`` run; the
+    ``sparse_allgather`` run checkpoints to ``ckpt_dir`` when given."""
     import tempfile
 
     from repro_torch.launch import mesh, train
@@ -1816,7 +1847,8 @@ def ranks_spawned(smi: str, device: str = f"{DEVICE}:0", world: int = W,
                 args, res)
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
-        mesh.spawn(_rank_body, world, (f"{d}/store", d, device, TRAIN_ARGS),
+        mesh.spawn(_rank_body, world,
+                   (f"{d}/store", d, device, TRAIN_ARGS, ckpt_dir),
                    timeout=timeout)
         seconds = time.perf_counter() - t0
         ranks = [json.loads(Path(f"{d}/rank{r}.json").read_text())
@@ -1933,9 +1965,9 @@ def _planner_checks(name: str, row: dict) -> None:
         log("ranks (b) replan: " + " | ".join(lines))
 
 
-def phase_ranks(smi: str) -> dict:
+def phase_ranks(smi: str, ckpt_dir=None) -> dict:
     one = ranks_world_one()
-    spawned = ranks_spawned(smi)
+    spawned = ranks_spawned(smi, ckpt_dir=ckpt_dir)
     return {"world_one": one, "spawned": spawned,
             "launches": one["launches"] + spawned["launches"]}
 
@@ -2380,6 +2412,203 @@ def phase_planners(smi: str) -> dict:
     return {"sim": planners_sim(smi), "trainer": planners_trainer(smi)}
 
 
+# phase 12: the trainer's remaining options (microbatches, checkpoint and
+# resume, bf16 state, the optimizers, aggregation), each run at full width
+# (W = 8, batch 32 x 128, RegTop-k at S = 0.01) held in bits against its
+# twin
+OPT_STEPS = 5
+OPT_OPTIMIZERS = {
+    "sgd": dict(kind="sgd", learning_rate=0.05),
+    "momentum": dict(kind="momentum", learning_rate=0.02, momentum=0.9,
+                     weight_decay=0.1, grad_clip=1.0, warmup_steps=3),
+    "adam": dict(kind="adam", learning_rate=1e-3, weight_decay=0.01,
+                 grad_clip=1.0, warmup_steps=3, moment_dtype="bfloat16"),
+}
+
+
+def _states_equal(a, b) -> bool:
+    """Two sparsifier states (a ``CompactState`` tree, or the pair with the
+    controller tree) equal in every field's bits."""
+    from repro_torch.tree import tree_leaves
+
+    if isinstance(a, tuple):
+        return _states_equal(a[0], b[0]) and all(
+            _bits_equal(x, y) for ca, cb in zip(tree_leaves(a[1]), tree_leaves(b[1]),
+                                                strict=True)
+            for x, y in zip(ca, cb, strict=True))
+    return all(_bits_equal(x, y) for sa, sb in zip(tree_leaves(a), tree_leaves(b),
+                                                   strict=True)
+               for x, y in zip(sa, sb, strict=True))
+
+
+def _same_run(name: str, got, want, got_losses=None, want_losses=None) -> None:
+    """Raise unless two runs end with the same params and sparsifier state
+    in bits, and log the same losses (``got_losses``/``want_losses`` when
+    given, else each run's)."""
+    bad = _mismatches(got.params, want.params)
+    if bad or not _states_equal(got.sp_state, want.sp_state):
+        raise AssertionError(f"options {name}: params differ in {bad} elements "
+                             "or the sparsifier states differ")
+    gl = got.losses if got_losses is None else got_losses
+    wl = want.losses if want_losses is None else want_losses
+    if gl != wl:
+        raise AssertionError(f"options {name}: losses {gl} vs {wl}")
+
+
+def _state_bytes(sp_state) -> int:
+    from repro_torch.tree import tree_leaves
+
+    return sum(x.numel() * x.element_size() for st in tree_leaves(sp_state)
+               for x in st)
+
+
+def _on_off(name: str, extra: list, fields=None, steps: int = OPT_STEPS):
+    """A run with the fastpath on against the same run off, in bits;
+    returns (args, the on run, its row, the off run)."""
+    args, on, row = _wire_train(f"{name} on", [*extra, "--fastpath", "on"], steps,
+                                fields=fields)
+    _, off, row_off = _wire_train(f"{name} off", [*extra, "--fastpath", "off"],
+                                  steps, fields=fields)
+    if row["launches"] == 0 or row_off["launches"]:
+        raise AssertionError(f"options {name}: kernel 1 launched {row['launches']} "
+                             f"times on, {row_off['launches']} off")
+    _same_run(name, on, off)
+    return args, on, row, off
+
+
+def options_resume(ckpt_dir, steps: int = OPT_STEPS) -> dict:
+    """Phase 12 (b): ``steps`` steps with ``--checkpoint``, then ``steps``
+    with ``--resume``, against the unbroken ``2 x steps`` run, in bits;
+    with the fastpath on, once more under ``--participation
+    bernoulli:0.25 --adaptive-k``, and from the checkpoint phase 9's 8
+    gloo ranks wrote after ``steps`` steps (``ckpt_dir``), resumed with
+    ``--workers 8`` on the card. Returns (the results, the unbroken run
+    with the fastpath on)."""
+    out, launches = {}, 0
+    runs = {"fastpath_on": [],
+            "bernoulli_adaptive": ["--participation", "bernoulli:0.25",
+                                   "--adaptive-k", TRAIN_ADAPTIVE]}
+    with tempfile.TemporaryDirectory() as d:
+        for name, extra in runs.items():
+            flags = [*extra, "--fastpath", "on"]
+            _, whole, row_whole = _wire_train(f"resume {name} whole", flags, 2 * steps)
+            _, first, row_first = _wire_train(f"resume {name} first", [
+                *flags, "--checkpoint", f"{d}/{name}"], steps)
+            _, rest, row_rest = _wire_train(f"resume {name} resumed", [
+                *flags, "--resume", f"{d}/{name}"], steps)
+            _same_run(f"resume {name}", rest, whole, first.losses + rest.losses)
+            n = row_whole["launches"] + row_first["launches"] + row_rest["launches"]
+            launches += n
+            out[name] = {"losses": whole.losses, "launches": n,
+                         "seconds": {"whole": row_whole["seconds"],
+                                     "first": row_first["seconds"],
+                                     "resumed": row_rest["seconds"]}}
+            log(f"options resume {name}: {steps} steps, --checkpoint, {steps} steps "
+                f"--resume == {2 * steps} unbroken steps in bits (params, every "
+                f"state field, losses); {n} kernel 1 launches")
+            if name == "fastpath_on":
+                unbroken = whole
+    if ckpt_dir is not None:
+        _, ranks, row = _wire_train("resume ranks", [
+            "--fastpath", "on", "--resume", ckpt_dir], steps)
+        _same_run("resume ranks", ranks, unbroken, want_losses=unbroken.losses[steps:])
+        launches += row["launches"]
+        out["ranks"] = {"losses": ranks.losses, "launches": row["launches"]}
+        log(f"options resume ranks: the checkpoint of phase 9's {W} gloo ranks "
+            f"after {steps} steps, resumed on one card with --workers {W} for "
+            f"{steps} steps == the unbroken one-card run in bits; "
+            f"{row['launches']} kernel 1 launches")
+    out["launches"] = launches
+    return out, unbroken
+
+
+def phase_options(smi: str, ckpt_dir=None) -> dict:
+    """Phase 12: the trainer's remaining options at full width (see the
+    module docstring), each held in bits against its twin; kernel 1's
+    launches counted over the fastpath-on runs."""
+    import dataclasses
+
+    from repro_torch.core import distributed as td
+    from repro_torch.launch import train
+    from repro_torch.optim import OptConfig
+    from repro_torch.tree import tree_leaves, tree_map
+
+    out, launches, t0 = {}, 0, time.perf_counter()
+    # (a) microbatches: the gradient accumulated over 2 chunks per worker
+    args, on, row, _ = _on_off("microbatches 2", ["--microbatches", "2"])
+    launches += row["launches"]
+    out["microbatches"] = {"losses": on.losses, "launches": row["launches"],
+                           "step_ms": row["seconds"] / OPT_STEPS * 1e3,
+                           "hit_rate": row["hit_rate"]}
+    log(f"options microbatches 2: {OPT_STEPS} steps, params and state bit-equal "
+        f"fastpath on == off; {row['launches']} kernel 1 launches "
+        f"({row['fused_leaves']} fused leaves); {out['microbatches']['step_ms']:.1f} "
+        f"ms a step with the run's setup (host clock; {smi})")
+    f32_bytes = _state_bytes(on.sp_state)
+
+    # (b) checkpoint and resume
+    out["resume"], unbroken = options_resume(ckpt_dir)
+    launches += out["resume"]["launches"]
+
+    # (c) bf16 state: auto fuses no leaf, on raises
+    args_c, bf16, row_c = _wire_train("bf16 state auto", ["--fastpath", "auto"],
+                                      OPT_STEPS, fields={"state_dtype": "bfloat16"})
+    if row_c["fused_leaves"] or row_c["launches"]:
+        raise AssertionError(f"options bf16: {row_c['fused_leaves']} fused leaves, "
+                             f"{row_c['launches']} launches under auto")
+    if any(st.eps.dtype != torch.bfloat16 for st in tree_leaves(bf16.sp_state)):
+        raise AssertionError("options bf16: the state is not bf16")
+    try:
+        train.run(args_c, dist=_dist_of(args_c, state_dtype="bfloat16", fastpath="on"))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("options bf16: fastpath on did not raise")
+    if "requires state_dtype='float32'" not in refused:
+        raise AssertionError(f"options bf16: fastpath on raised {refused!r}")
+    dist_c = _dist_of(args_c, state_dtype="bfloat16")
+    bf16_ms, bf16_prof = _step_ms(args_c, bf16, dcfg=dist_c)
+    # the f32 twin of that step: the unbroken run of (b), unfused
+    f32_ms, f32_prof = _step_ms(args_c, unbroken._replace(plan=tree_map(
+        lambda p: p._replace(fused=False), unbroken.plan)),
+        dcfg=dataclasses.replace(dist_c, state_dtype="float32"))
+    out["bf16_state"] = {
+        "losses": bf16.losses, "state_bytes": _state_bytes(bf16.sp_state),
+        "f32_state_bytes": f32_bytes, "step_ms": bf16_ms, "f32_step_ms": f32_ms,
+        "device_ms": bf16_prof["device_ms"], "f32_device_ms": f32_prof["device_ms"],
+        "refused": refused, "comm_bytes": td.comm_round_bytes(bf16.plan, dist_c, W)}
+    log(f"options bf16 state: {OPT_STEPS} steps, --fastpath auto fused 0 leaves, "
+        f"on raised ({refused[:60]}...); state {out['bf16_state']['state_bytes']} B "
+        f"against {f32_bytes} B in f32; step {bf16_ms:.1f} ms against {f32_ms:.1f} "
+        f"ms in f32 unfused (host clock, median of 3), device {bf16_prof['device_ms']:.2f}"
+        f" against {f32_prof['device_ms']:.2f} ms ({smi})")
+
+    # (d) the optimizers, fastpath on == off
+    out["optimizers"] = {}
+    for name, kw in OPT_OPTIMIZERS.items():
+        fields = {"optimizer": OptConfig(**kw)}
+        _, res, row, _ = _on_off(f"optimizer {name}", [], fields)
+        launches += row["launches"]
+        out["optimizers"][name] = {"losses": res.losses, "launches": row["launches"],
+                                   "step_ms": row["seconds"] / OPT_STEPS * 1e3}
+        log(f"options optimizer {name} {kw}: {OPT_STEPS} steps, params and state "
+            f"bit-equal fastpath on == off; {row['launches']} kernel 1 launches; "
+            f"losses {res.losses[0]:.4f} -> {res.losses[-1]:.4f}")
+
+    # (e) --aggregation is --collective's older name
+    _, agg, _ = _wire_train("aggregation", ["--aggregation", "dense_allreduce"])
+    _, coll, _ = _wire_train("collective", ["--collective", "dense_allreduce"])
+    if agg.dist.resolved_collective() != "dense_allreduce":
+        raise AssertionError(f"options aggregation: {agg.dist.resolved_collective()}")
+    _same_run("aggregation", agg, coll)
+    log("options --aggregation dense_allreduce == --collective dense_allreduce in "
+        "bits")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log(f"options: phase 12 took {out['seconds']:.1f} s, {launches} kernel 1 launches")
+    return out
+
+
 def ab_times() -> dict:
     """Kernel 1's device time per training step (every leaf of the main
     path, W = 8, the trainer's budgets) and ``block_topk_candidates``' at
@@ -2461,9 +2690,12 @@ def main(argv=None) -> int:
     trainer = phase_trainer()
     sim = phase_sim()
     wire = phase_wire(smi)
-    ranks = phase_ranks(smi)
-    stragglers = phase_stragglers(smi)
-    planners = phase_planners(smi)
+    # phase 9's ranks checkpoint here, and phase 12 resumes it on one card
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        ranks = phase_ranks(smi, f"{ckpt_dir}/ranks")
+        stragglers = phase_stragglers(smi)
+        planners = phase_planners(smi)
+        options = phase_options(smi, f"{ckpt_dir}/ranks")
     ab = phase_ab(args.parent) if args.parent is not None else None
     per_step = kernels["per_step"]
     per_round = score["per_round"]
@@ -2474,7 +2706,7 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/fused_encode.py:111",
         "launches": (trainer["launches"] + wire["trainer"]["launches"]
                      + ranks["launches"] + stragglers["trainer"]["launches"]
-                     + planners["trainer"]["launches"]),
+                     + planners["trainer"]["launches"] + options["launches"]),
         "max_abs_err": kernels["max_abs_err"],
         "ms": per_step["ms"],
         "plain_ms": per_step["plain_ms"],
@@ -2521,7 +2753,8 @@ def main(argv=None) -> int:
             {"device": device_name, "nvidia_smi": smi, "build_seconds": builds,
              "kernels": kernels, "score": score, "select": select,
              "trainer": trainer, "sim": sim, "wire": wire, "ranks": ranks,
-             "stragglers": stragglers, "planners": planners, "ab": ab,
+             "stragglers": stragglers, "planners": planners,
+             "options": options, "ab": ab,
              "kernels_line": line},
             indent=1,
         ))

@@ -31,7 +31,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.regtopk_score import ieee_div
+from repro_torch.kernels.regtopk_score import const_div
 
 Payload = Dict[str, torch.Tensor]
 
@@ -219,12 +219,13 @@ class CooQ8(Codec):
     supports_fused = True
 
     def encode(self, vals, idx, length):
-        # in f32 whatever the input dtype, and with true divisions (CUDA
-        # multiplies by the reciprocal when dividing by a Python scalar);
+        # in f32 whatever the input dtype; the scale is amax times
+        # fl(1/127), as the jitted JAX encode computes amax / 127.0, and
+        # v / scale a true division (a traced divisor in JAX too);
         # torch.round, like jnp.round, rounds half to even
         v = vals.float()
         amax = v.abs().amax(dim=-1, keepdim=True)
-        scale = torch.where(amax > 0, ieee_div(amax, 127.0), 1.0)
+        scale = torch.where(amax > 0, const_div(amax, 127.0), 1.0)
         q = torch.clamp(torch.round(v / scale), -127, 127).to(torch.int8)
         return {"q": q, "scale": scale[:, 0], "idx": idx.int()}
 

@@ -11,8 +11,9 @@ pressure 1.
 k stays a tensor operand: the round selects at the static capacity
 ``k_max`` and keeps the first k winners (``compact_select(k_dyn=...)``,
 ``Sparsifier.step_dyn``), so a change of k changes no shape. The ceil,
-floor and clip run in float32, and every division is an IEEE division
-(``ieee_div``), as the JAX package's traced law computes them.
+floor and clip run in float32, and ``pressure = ratio / budget`` is the
+product with ``fl(1/budget)`` (``const_div``) that the jitted JAX law
+computes.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels.regtopk_score import ieee_div
+from repro_torch.kernels.regtopk_score import const_div
 
 _TINY = 1e-30  # guards the error ratio against a zero aggregated gradient
 
@@ -134,7 +135,7 @@ class AdaptiveKController:
         >>> int(c.plan_k(torch.tensor(0.11), torch.tensor(16), 1, 256))
         16
         """
-        pressure = ieee_div(err_ratio.float(), self.budget)
+        pressure = const_div(err_ratio.float(), self.budget)
         scale = torch.clamp(pressure, 1.0 / self.gain, self.gain)
         kf = k.float()
         kept = torch.where(

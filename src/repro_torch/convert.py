@@ -64,6 +64,57 @@ def compact_state_from_jax(tree_of_numpy: Any, device="cuda"):
     )
 
 
+def _is_compact_tree(sp_state) -> bool:
+    return not isinstance(sp_state, tuple)
+
+
+def trainer_state_to_jax(sp_state: Any, plan: Any) -> Any:
+    """The trainer's sparsifier state (a tree of ``CompactState``, or under
+    ``adaptive_k`` the pair with the controller tree) in the JAX trainer's
+    layout (``repro.core.distributed.sparsifier_state_shapes`` with one
+    model shard): ``eps [W, *global_shape]``, ``sent_* [W, 1, k]``,
+    ``sent_idx`` int32, ``t [W]``. The controller tree is common to both
+    packages. This is what a checkpoint holds."""
+    if not _is_compact_tree(sp_state):
+        return (trainer_state_to_jax(sp_state[0], plan), sp_state[1])
+
+    def leaf(st: CompactState, p) -> CompactState:
+        W = st.eps.shape[0]
+        return CompactState(
+            eps=st.eps.reshape((W,) + tuple(p.global_shape)),
+            sent_vals=st.sent_vals[:, None], sent_g=st.sent_g[:, None],
+            sent_idx=st.sent_idx.to(torch.int32)[:, None],
+            sent_w=st.sent_w[:, None], t=st.t,
+        )
+
+    return tree_map(leaf, sp_state, plan)
+
+
+def trainer_state_from_jax(sp_state: Any, plan: Any) -> Any:
+    """:func:`trainer_state_to_jax` undone: a state in the JAX trainer's
+    layout (torch tensors, e.g. restored from a checkpoint) as the port
+    keeps it, ``eps [W, L]``, ``sent_* [W, k]``, ``sent_idx`` int64. Only
+    one model shard (``sent_*``'s middle axis of 1) is supported."""
+    if not _is_compact_tree(sp_state):
+        return (trainer_state_from_jax(sp_state[0], plan), sp_state[1])
+
+    def leaf(st: CompactState, p) -> CompactState:
+        W = st.eps.shape[0]
+        if st.sent_vals.shape[1] != 1:
+            raise ValueError(
+                f"a state of {st.sent_vals.shape[1]} model shards; the port "
+                "keeps one"
+            )
+        return CompactState(
+            eps=st.eps.reshape(W, p.local_len),
+            sent_vals=st.sent_vals[:, 0], sent_g=st.sent_g[:, 0],
+            sent_idx=st.sent_idx[:, 0].to(torch.int64),
+            sent_w=st.sent_w[:, 0], t=st.t.to(torch.int32),
+        )
+
+    return tree_map(leaf, sp_state, plan)
+
+
 def sim_state_from_jax(tree_of_numpy: Any, device="cuda"):
     """The JAX simulator's state with numpy leaves
     (``jax.tree.map(np.asarray, state)``) → the port's ``SimState``, with

@@ -41,10 +41,13 @@ class CompactState(NamedTuple):
     t: torch.Tensor  # [W] int32 round counter
 
 
-def compact_init(workers: int, length: int, k: int, device="cuda") -> CompactState:
-    z = torch.zeros((workers, k), device=device)
+def compact_init(workers: int, length: int, k: int, device="cuda",
+                 dtype: torch.dtype = torch.float32) -> CompactState:
+    """The all-zero state of ``workers`` rows, the error and ``sent_*``
+    slots in ``dtype`` (the trainer's ``state_dtype``)."""
+    z = torch.zeros((workers, k), dtype=dtype, device=device)
     return CompactState(
-        eps=torch.zeros((workers, length), device=device),
+        eps=torch.zeros((workers, length), dtype=dtype, device=device),
         sent_vals=z,
         sent_g=z.clone(),
         sent_idx=torch.zeros((workers, k), dtype=torch.int64, device=device),

@@ -39,6 +39,12 @@ controller (``DistConfig.adaptive_k``) sizes every leaf's payload at its
 ``k_max`` and sends the controller's per-leaf k; the train step then
 carries the pair ``(compact state tree, controller state tree)``.
 
+Each worker's gradient is cast to ``DistConfig.state_dtype`` (the dtype
+of ``eps`` and the ``sent_*`` slots; bf16 scores unfused, so it keeps the
+fastpath off) and, under ``DistConfig.microbatches``, accumulated over
+that many chunks of the worker's shard. ``aggregation`` is the JAX
+package's older name of ``collective``.
+
 The wire is chosen per leaf: ``DistConfig.codec="auto"`` /
 ``collective="auto"`` make ``build_plan`` pick each leaf's (codec,
 collective) with the alpha–beta planner (``repro_torch.comm.autotune``),
@@ -76,7 +82,7 @@ from repro_torch.comm.collectives import (
 from repro_torch.core import compact as C
 from repro_torch.core.selectors import sparsity_to_k
 from repro_torch.core.sparsify import SparsifierConfig
-from repro_torch.kernels.regtopk_score import ieee_div
+from repro_torch.kernels.regtopk_score import const_div, ordered_mean
 from repro_torch.launch.mesh import DpGroups, dp_axes_of
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
@@ -89,16 +95,29 @@ from repro_torch.tree import (
 )
 
 
+STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 @dataclasses.dataclass(frozen=True)
 class DistConfig:
     sparsifier: SparsifierConfig = SparsifierConfig(
         kind="regtopk", sparsity=0.001
     )
     optimizer: OptConfig = OptConfig(kind="adam", learning_rate=1e-4)
+    # the JAX package's older name for the collective: used where
+    # ``collective`` is None (resolved_collective)
+    aggregation: str = "sparse_allgather"
     # a wire codec, or "auto": build_plan picks each leaf's
     codec: str = "coo_fp32"
-    # a collective, or "auto": build_plan picks each leaf's
-    collective: str = "sparse_allgather"
+    # a collective, or "auto": build_plan picks each leaf's; None is
+    # ``aggregation``
+    collective: Optional[str] = None
+    # microbatches each worker's shard splits into, their gradients
+    # accumulated in ``state_dtype`` (the CLI's --microbatches)
+    microbatches: int = 1
+    # the dtype of the error ``eps`` and the ``sent_*`` slots, "float32" or
+    # "bfloat16"; each worker's gradient is cast to it before the round
+    state_dtype: str = "float32"
     # "on" routes every fusable leaf through the fused select→encode
     # kernel (same payload: its certificate falls back to dense selection
     # per worker); "auto" fuses the leaves a ThroughputTable prices faster,
@@ -127,6 +146,10 @@ class DistConfig:
     # --overlap): the leaves run bucket by bucket, with the numbers of
     # "off" bit for bit, and the metrics gain the predicted timeline
     overlap: str = "off"
+
+    def resolved_collective(self) -> str:
+        """``collective``, else ``aggregation``."""
+        return self.collective or self.aggregation
 
     def resolved_participation(self) -> Optional[Participation]:
         """The schedule when it drops anyone, else None."""
@@ -166,18 +189,18 @@ class DistConfig:
     def resolved_fastpath(self) -> str:
         """The fastpath mode with the config gates applied: the fused
         kernel scores RegTop-k with a scalar omega, so coordinate
-        weighting refuses "on" and resolves "auto" to "off". Whether the
-        device can run the kernel is ``build_plan``'s to decide."""
+        weighting refuses "on" and resolves "auto" to "off"; it scores in
+        f32, while a bf16 ``state_dtype`` scores in bf16 unfused, so that
+        refuses "on" and resolves "auto" to "off" too. Whether the device
+        can run the kernel is ``build_plan``'s to decide."""
         if self.fastpath not in fp.FASTPATH_MODES:
             raise ValueError(
                 f"unknown fastpath {self.fastpath!r}; "
                 f"available: {fp.FASTPATH_MODES}"
             )
-        if (
-            self.fastpath != "off"
-            and self.weighting == "coordinate"
-            and self.sparsifier.kind == "regtopk"
-        ):
+        if self.fastpath == "off":
+            return "off"
+        if self.weighting == "coordinate" and self.sparsifier.kind == "regtopk":
             if self.fastpath == "on":
                 raise ValueError(
                     "fastpath='on' cannot fuse regtopk under "
@@ -187,7 +210,26 @@ class DistConfig:
                     "fastpath='off'/'auto'"
                 )
             return "off"
+        if self.state_dtype != "float32":
+            if self.fastpath == "on":
+                raise ValueError(
+                    "fastpath='on' requires state_dtype='float32': the "
+                    "fused pipeline scores in f32 while the unfused path "
+                    f"scores in {self.state_dtype} — selection would not "
+                    "be bit-for-bit"
+                )
+            return "off"
         return self.fastpath
+
+    def resolved_state_dtype(self) -> torch.dtype:
+        """The torch dtype of ``state_dtype``."""
+        try:
+            return STATE_DTYPES[self.state_dtype]
+        except KeyError:
+            raise ValueError(
+                f"unknown state_dtype {self.state_dtype!r}; available: "
+                f"{sorted(STATE_DTYPES)}"
+            ) from None
 
     def resolved_link_model(self) -> cost.LinkModel:
         """The per-axis topology when given, else the scalar model, else
@@ -203,7 +245,9 @@ class DistConfig:
 
     @property
     def auto(self) -> bool:
-        """Whether the plan picks each leaf's wire."""
+        """Whether the plan picks each leaf's wire (``collective="auto"``
+        plans; ``aggregation="auto"`` does not, as in the JAX
+        ``build_plan``)."""
         return self.codec == "auto" or self.collective == "auto"
 
 
@@ -223,7 +267,7 @@ def leaf_wire(p: LeafPlan, dist: DistConfig) -> Tuple[str, str]:
     ``DistConfig``'s. ``"auto"`` must have been resolved by
     ``build_plan(..., dist=dist)``."""
     codec = p.codec or dist.codec
-    coll = p.collective or dist.collective
+    coll = p.collective or dist.resolved_collective()
     if codec == "auto" or coll == "auto":
         raise ValueError(
             "codec/collective='auto' requires a plan built with "
@@ -271,9 +315,10 @@ def build_plan(params, sparsity: float, dist: Optional[DistConfig] = None,
             )
         dp = _dp_sizes(workers)
         restrict = autotune.auto_candidates(dist.sparsifier.kind, dist.codec,
-                                            dist.collective)
+                                            dist.resolved_collective())
         participants = _participants(dist, dp)
         model = dist.resolved_link_model()
+        word_bytes = dist.resolved_state_dtype().itemsize
 
     def mk(leaf):
         n = leaf.numel()
@@ -284,11 +329,12 @@ def build_plan(params, sparsity: float, dist: Optional[DistConfig] = None,
         if auto:
             d = autotune.choose_leaf(
                 n, k, dp, model, participants=participants, fastpath=mode,
-                compute=table, **restrict,
+                compute=table, word_bytes=word_bytes, **restrict,
             )
             return LeafPlan(tuple(leaf.shape), n, k, d.fused, d.codec,
                             d.collective)
-        fused = fp.leaf_fused(mode, dist.codec, dist.collective, n, k, table)
+        fused = fp.leaf_fused(mode, dist.codec, dist.resolved_collective(), n,
+                              k, table)
         return LeafPlan(tuple(leaf.shape), n, k, fused)
 
     return tree_map(mk, params)
@@ -307,9 +353,13 @@ def apply_plan_decisions(plan, comm_plan):
     )
 
 
-def init_sparsifier_state(plan, workers: int, device="cuda"):
+def init_sparsifier_state(plan, workers: int, device="cuda",
+                          dtype: torch.dtype = torch.float32):
+    """One ``CompactState`` of ``workers`` rows per leaf of ``plan``, its
+    error and ``sent_*`` slots in ``dtype`` (``DistConfig.state_dtype``)."""
     return tree_map(
-        lambda p: C.compact_init(workers, p.local_len, p.k, device), plan
+        lambda p: C.compact_init(workers, p.local_len, p.k, device, dtype),
+        plan,
     )
 
 
@@ -333,16 +383,17 @@ def init_controller_state(plan, dist: DistConfig, device="cuda"):
 def _ctrl_update(ctrl_cfg, ctrl_leaf, new_st, agg, p: LeafPlan, groups,
                  n_workers: int):
     """Fold one leaf's round into its controller state: the workers' mean
-    ``||eps||`` (summed over the ranks of ``groups`` across ranks, then
-    divided by W, as ``pmean``) against ``||g_agg||``."""
+    ``||eps||`` (in worker order on one card; summed over the ranks of
+    ``groups`` across ranks; then times fl(1/W), as the jitted ``pmean``)
+    against ``||g_agg||``."""
     eps = new_st.eps.float()
     norms = torch.sqrt((eps * eps).sum(-1))
-    total = norms.sum() if groups is None else _psum(norms[0], groups)
+    mean = (ordered_mean(norms) if groups is None
+            else const_div(_psum(norms[0], groups), float(n_workers)))
     ag = agg.reshape(p.local_len).float()
     lo, hi = ctrl_cfg.bounds(p.local_len)
     return ctrl_cfg.observe(
-        ctrl_leaf, ieee_div(total, float(n_workers)),
-        torch.sqrt((ag * ag).sum()), k_min=lo, k_max=hi,
+        ctrl_leaf, mean, torch.sqrt((ag * ag).sum()), k_min=lo, k_max=hi,
     )
 
 
@@ -378,12 +429,12 @@ def _spa_leaf(g, st, p: LeafPlan, scfg, codec, collective, coord, counts,
             wm = m * w_part
             mean = (_weighted_sum(gl.float(), wm) if groups is None
                     else _psum(gl[0].float() * wm[0], groups))
-        elif groups is None:
-            mean = gl.float().mean(0)
-        else:  # pmean: the sum over the ranks, divided by their number
+        elif groups is None:  # pmean: in worker order, times fl(1/W)
+            mean = ordered_mean(gl.float())
+        else:  # pmean: the sum over the ranks, times fl(1/their number)
             n = math.prod(torch_dist.get_world_size(gr) for gr in groups)
-            mean = ieee_div(_psum(gl[0].float(), groups), float(n))
-        return mean.reshape(p.global_shape), st._replace(t=st.t + 1)
+            mean = const_div(_psum(gl[0].float(), groups), float(n))
+        return mean.reshape(p.global_shape).to(g.dtype), st._replace(t=st.t + 1)
     a, vals, idx = C.compact_select(
         scfg, st, gl, p.k, k_dyn=k_dyn, fastpath="on" if p.fused else None,
         counts=counts,
@@ -566,14 +617,19 @@ def _payload_bytes(codec, length: int, k: int) -> int:
 
 
 def _leaf_wire_patterns(plan, dist: DistConfig):
-    """``(leaf, codec, effective collective, dense wire)`` per leaf, each
-    with its own wire (``leaf_wire``): kind "none" and
-    ``dense_allreduce`` put the dense f32 vector on the wire."""
+    """``(leaf, codec, effective collective, word bytes, dense wire)`` per
+    leaf, each with its own wire (``leaf_wire``): kind "none" and
+    ``dense_allreduce`` put the dense vector on the wire, in words of the
+    state dtype under ``dense_allreduce`` and of f32 under kind "none"
+    (its mean is taken in f32); payload collectives decode to f32, so
+    their dense terms stay 4-byte words."""
+    dense_word = (4 if dist.sparsifier.kind == "none"
+                  else dist.resolved_state_dtype().itemsize)
     for p in tree_leaves(plan):
         cname, coll = leaf_wire(p, dist)
         dense = dist.sparsifier.kind == "none" or coll == "dense_allreduce"
         yield (p, get_codec(cname), "dense_allreduce" if dense else coll,
-               dense)
+               dense_word if dense else cost.WORD_BYTES, dense)
 
 
 def _dp_sizes(workers) -> Tuple[int, ...]:
@@ -610,11 +666,12 @@ def comm_round_bytes(plan, dist: DistConfig, workers) -> Tuple[int, int]:
     dp = _dp_sizes(workers)
     participants = _participants(dist, dp)
     pred = meas = 0
-    for p, codec, coll, dense in _leaf_wire_patterns(plan, dist):
+    for p, codec, coll, wb, dense in _leaf_wire_patterns(plan, dist):
         pred += cost.predicted_bytes(codec, coll, p.local_len, p.k, dp,
-                                     participants=participants)
+                                     word_bytes=wb, participants=participants)
         payload = {} if dense else _one_payload(codec, p.local_len, p.k)
-        meas += cost.measured_bytes(coll, p.local_len, payload, dp)
+        meas += cost.measured_bytes(coll, p.local_len, payload, dp,
+                                    word_bytes=wb)
     return pred, meas
 
 
@@ -628,9 +685,9 @@ def comm_round_cost(plan, dist: DistConfig, workers) -> cost.CostEstimate:
     participants = _participants(dist, dp)
     total_bytes = total_msgs = 0
     total_seconds = 0.0
-    for p, codec, coll, _ in _leaf_wire_patterns(plan, dist):
+    for p, codec, coll, wb, _ in _leaf_wire_patterns(plan, dist):
         est = cost.predict(codec, coll, p.local_len, p.k, dp, model,
-                           participants=participants)
+                           word_bytes=wb, participants=participants)
         total_bytes += est.bytes_on_wire
         total_msgs += est.n_messages
         total_seconds += est.seconds
@@ -648,8 +705,8 @@ def _leaf_overlap_costs(plan, dist: DistConfig, workers):
     participants = _participants(dist, dp)
     return [
         overlap_lib.leaf_cost(codec, coll, p.local_len, p.k, dp, model,
-                              participants=participants)
-        for p, codec, coll, _ in _leaf_wire_patterns(plan, dist)
+                              word_bytes=wb, participants=participants)
+        for p, codec, coll, wb, _ in _leaf_wire_patterns(plan, dist)
     ]
 
 
@@ -681,6 +738,11 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
     so the logged mean is the one-card mean. Matrix products run in full
     float32 (no TF32).
 
+    Under ``dist.microbatches`` each worker's shard splits into that many
+    contiguous chunks, their gradients accumulated in
+    ``dist.state_dtype``, and every worker's gradient enters the round in
+    that dtype.
+
     Under ``dist.adaptive_k`` the sparsifier state is the pair
     ``(compact state tree, controller state tree)``
     (:func:`init_controller_state`) and the metrics gain
@@ -702,12 +764,41 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
                                 dtype=torch.float32)
     mine = range(W) if mesh is None else [mesh.rank]
 
-    def worker_grads(params, wbatch):
+    n_mb = dist.microbatches
+    if n_mb < 1:
+        raise ValueError(f"microbatches must be >= 1, got {n_mb}")
+    acc_dt = dist.resolved_state_dtype()
+
+    def value_and_grad(params, mbatch):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        leaves = tree_leaves(live)
-        loss = lm.loss_fn(live, cfg, wbatch)[0]
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), grads
+        loss = lm.loss_fn(live, cfg, mbatch)[0]
+        return loss.detach(), torch.autograd.grad(loss, tree_leaves(live))
+
+    def worker_grads(params, wbatch):
+        """The worker's loss and gradient; under ``microbatches`` its
+        shard's ``n_mb`` contiguous chunks in order, the loss accumulated
+        in f32 and the gradient in the state dtype from zero, each term
+        times fl(1/n_mb), as the jitted JAX scan adds ``x / n_mb``."""
+        if n_mb == 1:
+            return value_and_grad(params, wbatch)
+        rows = wbatch["tokens"].shape[0]
+        if rows % n_mb:
+            raise ValueError(
+                f"a worker's shard of {rows} rows does not split into "
+                f"{n_mb} microbatches"
+            )
+        per_mb = rows // n_mb
+        leaves = tree_leaves(params)
+        loss_acc = torch.zeros((), device=leaves[0].device)
+        g_acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+                 for p in leaves]
+        for i in range(n_mb):
+            mb = {key: v[i * per_mb:(i + 1) * per_mb] for key, v in wbatch.items()}
+            loss, grads = value_and_grad(params, mb)
+            loss_acc = loss_acc + const_div(loss, float(n_mb))
+            g_acc = [ac + const_div(gg, float(n_mb)).to(acc_dt)
+                     for ac, gg in zip(g_acc, grads, strict=True)]
+        return loss_acc, g_acc
 
     def train_step(params, opt_state, sp_state, batch: Dict[str, Any]):
         B = batch["tokens"].shape[0]
@@ -720,9 +811,10 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
             loss, grads = worker_grads(params, shard)
             losses.append(loss)
             per_worker.append(grads)
-        grads_w = tree_unflatten(
-            params, [torch.stack(gs) for gs in zip(*per_worker, strict=True)]
-        )
+        # each worker's gradient in the state dtype, as the round takes it
+        grads_w = tree_unflatten(params, [
+            torch.stack(gs).to(acc_dt) for gs in zip(*per_worker, strict=True)
+        ])
         if adaptive:
             cp_state, ctrl_state = sp_state
             agg, new_cp, new_ctrl = spa(grads_w, cp_state, ctrl_state)
@@ -734,7 +826,7 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
         if mesh is not None:
             losses = _gather(losses, (torch_dist.group.WORLD,))
         metrics = {
-            "loss": losses.mean(),
+            "loss": ordered_mean(losses),
             "comm_bytes": wire_meas,
             "comm_bytes_predicted": wire_pred,
         }
@@ -743,7 +835,7 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
         if adaptive:
             # the k each leaf used this round (ctrl carries the next)
             ks = torch.stack([c.k.float() for c in tree_leaves(ctrl_state)])
-            metrics["adaptive_k"] = ieee_div(ks.sum(), float(ks.numel()))
+            metrics["adaptive_k"] = const_div(ks.sum(), float(ks.numel()))
         return new_params, new_opt, new_sp, metrics
 
     return train_step

@@ -60,7 +60,7 @@ from repro_torch.core.sparsify import (
     SparsifierConfig,
     make_sparsifier,
 )
-from repro_torch.kernels.regtopk_score import ieee_div
+from repro_torch.kernels.regtopk_score import ordered_mean
 
 FASTPATH_MODES = ("off", "on", "auto")
 
@@ -399,7 +399,7 @@ class DistributedSim:
             # sampling) against the broadcast ||g_agg||
             eps = new_ws.eps.float()
             norms = torch.sqrt((eps * eps).sum(-1))
-            eps_norm = ieee_div(norms.sum(), float(norms.shape[0]))
+            eps_norm = ordered_mean(norms)
             ga = g_agg.float()
             g_norm = torch.sqrt((ga * ga).sum())
             lo, hi = self._k_bounds

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 from typing import Tuple
 
+import numpy as np
 import torch
 
 LANES = 1024
@@ -39,6 +40,30 @@ def ieee_div(x: torch.Tensor, c: float) -> torch.Tensor:
     # IEEE division by a device tensor: PyTorch's CUDA divide multiplies
     # by the reciprocal when the divisor is a Python scalar.
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def const_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` for a constant ``c`` as the JAX package computes it under
+    ``jax.jit``: XLA rewrites the division as a product with the float32
+    reciprocal ``fl(1/c)``, which differs from the IEEE quotient in the
+    last bit unless ``c`` is a power of two.
+
+    >>> x = torch.tensor([1.0, 10.0])
+    >>> bool((const_div(x, 4.0) == x / 4).all())
+    True
+    """
+    return x * float(np.float32(1.0) / np.float32(c))
+
+
+def ordered_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the first axis of ``x`` (a few workers) as XLA:CPU
+    reduces it under ``jax.jit`` (``.mean()``, ``pmean``): summed in index
+    order, then times the float32 reciprocal of the count
+    (:func:`const_div`)."""
+    total = x[0]
+    for i in range(1, x.shape[0]):
+        total = total + x[i]
+    return const_div(total, float(x.shape[0]))
 
 
 def score_chain(a, a_prev, s_prev, g_prev, *, omega, mu, q, y):

@@ -39,6 +39,16 @@ and so no wire to probe); ``--overlap buckets:B`` runs the leaves bucket
 by bucket with the numbers of ``off``; ``--replan-every N`` calibrates on
 the live groups every N steps, re-plans at the current k and rebuilds the
 step, its state carried over.
+
+``--microbatches N`` accumulates each worker's gradient over N chunks of
+its shard; ``--aggregation`` is ``--collective``'s older name, used when
+``--collective`` is not given. ``--checkpoint DIR`` saves params (with
+the step reached), optimizer and sparsifier state after the last step in
+the JAX trainer's format and layout (``repro_torch.checkpoint``; across
+ranks rank 0 writes every worker's state), and ``--resume DIR`` runs
+``--steps`` more steps from such a checkpoint, written by either trainer.
+``DistConfig.state_dtype`` and the optimizer have no flag, as in the JAX
+trainer: ``run(args, dist=...)`` takes them.
 """
 from __future__ import annotations
 
@@ -46,18 +56,19 @@ import argparse
 import os
 import sys
 import time
+from collections import Counter
 from typing import List, NamedTuple, Optional
 
 import torch
 import torch.distributed as torch_dist
 
+from repro_torch import checkpoint as ckpt
 from repro_torch import configs as cfglib
-from collections import Counter
-
+from repro_torch import convert
 from repro_torch.comm import autotune, cost
 from repro_torch.comm import calibrate as cal
 from repro_torch.comm.codec import CODECS
-from repro_torch.comm.collectives import COLLECTIVES
+from repro_torch.comm.collectives import COLLECTIVES, _gather
 from repro_torch.comm.controller import parse_adaptive_k
 from repro_torch.comm.fastpath import (
     FastpathCounts,
@@ -65,6 +76,7 @@ from repro_torch.comm.fastpath import (
     backend_supports,
 )
 from repro_torch.comm.participation import parse_participation
+from repro_torch.core.compact import CompactState, select_rows
 from repro_torch.core.distributed import (
     DistConfig,
     apply_plan_decisions,
@@ -100,10 +112,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     choices=[*sorted(CODECS), "auto"],
                     help="'auto' plans each leaf's codec by the alpha-beta "
                          "model")
-    ap.add_argument("--collective", default="sparse_allgather",
+    ap.add_argument("--aggregation", default="sparse_allgather",
+                    help="older name of --collective, used when "
+                         "--collective is not given")
+    ap.add_argument("--collective", default=None,
                     choices=[*sorted(COLLECTIVES), "auto"],
                     help="'auto' plans each leaf's collective by the "
-                         "alpha-beta model")
+                         "alpha-beta model (default: --aggregation)")
     ap.add_argument("--fastpath", default="off", choices=["off", "on", "auto"],
                     help="'on' fuses every fusable leaf through the CUDA "
                          "select->encode kernel (same payload, with a "
@@ -150,6 +165,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "fractions of the leaf length, >= 1 counts; the "
                          "payload rides at the k_max capacity")
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="split each worker's shard into this many "
+                         "microbatches and accumulate their gradients")
+    ap.add_argument("--checkpoint", default=None, metavar="DIR",
+                    help="after the last step, save params, optimizer and "
+                         "sparsifier state under DIR (the JAX trainer's "
+                         "format and layout)")
+    ap.add_argument("--resume", default=None, metavar="DIR",
+                    help="start from the checkpoint in DIR (written by "
+                         "either trainer) and run --steps more steps")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke variant of --arch")
@@ -175,6 +200,7 @@ class RunResult(NamedTuple):
     counts: FastpathCounts
     plan: dict
     dist: DistConfig  # with the link model --calibrate fitted
+    opt_state: dict
 
 
 def dist_config(args: argparse.Namespace,
@@ -191,8 +217,10 @@ def dist_config(args: argparse.Namespace,
             kind=args.sparsifier, sparsity=args.sparsity, mu=args.mu
         ),
         optimizer=OptConfig(kind="adam", learning_rate=args.lr),
+        aggregation=args.aggregation,
         codec=args.codec,
         collective=args.collective,
+        microbatches=args.microbatches,
         fastpath=args.fastpath,
         weighting="coordinate" if args.coord_weights else "worker",
         link_topo=link_topo,
@@ -292,15 +320,21 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
     step_fn = make_train_step(cfg, dist, plan, W, counts, mesh)
     opt_state = make_optimizer(dist.optimizer).init(params)
     sp_state = init_sparsifier_state(
-        plan, W if mesh is None else 1, args.device
+        plan, W if mesh is None else 1, args.device,
+        dist.resolved_state_dtype(),
     )
     if ctrl is not None:
         sp_state = (sp_state, init_controller_state(plan, dist, args.device))
+    start = 0
+    if args.resume:
+        params, opt_state, sp_state, start = _resume(
+            args.resume, params, opt_state, sp_state, plan, W, mesh)
+        say(f"resumed from step {start}")
     pipe = TokenPipeline(cfg, args.global_batch, args.seq, 0, args.device)
     pred_b, meas_b = comm_round_bytes(plan, dist, dp_sizes)
     round_cost = comm_round_cost(plan, dist, dp_sizes)
     say(
-        f"comm: codec={dist.codec} collective={dist.collective} "
+        f"comm: codec={dist.codec} collective={dist.resolved_collective()} "
         f"{meas_b / 1e6:.3f} MB/worker/round "
         f"(predicted {pred_b / 1e6:.3f} MB, "
         f"{round_cost.seconds * 1e3:.3f} ms/round under the link model)"
@@ -337,7 +371,7 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
                           else part.expected_participants(W)),
             fastpath=plan_fastpath(dist, args.device), compute=table,
             **autotune.auto_candidates(dist.sparsifier.kind, dist.codec,
-                                       dist.collective),
+                                       dist.resolved_collective()),
         )
         new_plan = apply_plan_decisions(plan, cp)
         lk = cp.model.links[0]
@@ -350,25 +384,83 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
 
     losses = []
     t0 = time.time()
-    for t in range(args.steps):
+    end = start + args.steps
+    for t in range(start, end):
         params, opt_state, sp_state, m = step_fn(
             params, opt_state, sp_state, pipe.batch_at(t)
         )
         losses.append(float(m["loss"]))
-        if t % args.log_every == 0 or t == args.steps - 1:
+        if t % args.log_every == 0 or t == end - 1:
             dt = time.time() - t0
             extra = (f" k {float(m['adaptive_k']):7.1f}"
                      if "adaptive_k" in m else "")
             say(f"step {t:5d} loss {losses[-1]:.4f}{extra} "
-                f"({dt / (t + 1):.2f}s/step)")
-        if (args.replan_every and t < args.steps - 1
-                and (t + 1) % args.replan_every == 0):
+                f"({dt / (t - start + 1):.2f}s/step)")
+        if (args.replan_every and t < end - 1
+                and (t - start + 1) % args.replan_every == 0):
             plan, step_fn = replan_step(t, plan)
     if counts.rounds:
         say(f"fastpath: certificate hit rate {counts.hit_rate:.4f} "
             f"({counts.rounds - counts.fallbacks}/{counts.rounds} "
             "worker-leaf rounds used the kernel's answer)")
-    return RunResult(losses, params, sp_state, counts, plan, dist)
+    if args.checkpoint:
+        _save(args.checkpoint, params, opt_state, sp_state, plan, end, mesh)
+        say(f"checkpointed to {args.checkpoint}")
+    return RunResult(losses, params, sp_state, counts, plan, dist, opt_state)
+
+
+def _all_workers(sp_state, mesh: Optional[DpGroups]):
+    """The sparsifier state of all W workers: this one on one card; across
+    ranks every rank's worker gathered in rank order, which is the worker
+    order (the controller tree is common to the ranks)."""
+    if mesh is None:
+        return sp_state
+    if isinstance(sp_state, tuple):
+        return (_all_workers(sp_state[0], mesh), sp_state[1])
+    world = (torch_dist.group.WORLD,)
+    return tree_map(lambda st: CompactState(*(_gather(x, world) for x in st)),
+                    sp_state)
+
+
+def _rows(sp_state, rows: torch.Tensor):
+    """The sparsifier state of the workers ``rows``."""
+    if isinstance(sp_state, tuple):
+        return (_rows(sp_state[0], rows), sp_state[1])
+    return tree_map(lambda st: select_rows(st, rows), sp_state)
+
+
+def _save(path: str, params, opt_state, sp_state, plan, step: int,
+          mesh: Optional[DpGroups]) -> None:
+    """``--checkpoint``: params (with the step reached), optimizer state
+    and the W workers' sparsifier state in the JAX trainer's layout, as
+    the JAX trainer writes them; across ranks rank 0 writes what every
+    rank gathered."""
+    full = _all_workers(sp_state, mesh)
+    if mesh is None or mesh.rank == 0:
+        ckpt.save(f"{path}/params", params, metadata={"step": step})
+        ckpt.save(f"{path}/opt", opt_state)
+        ckpt.save(f"{path}/sparsifier", convert.trainer_state_to_jax(full, plan))
+    if mesh is not None:
+        torch_dist.barrier()
+
+
+def _resume(path: str, params, opt_state, sp_state, plan, W: int,
+            mesh: Optional[DpGroups]):
+    """``--resume``: ``(params, opt_state, sp_state, step)`` from the
+    checkpoint in ``path``, each tree restored into the shapes and dtypes
+    of the fresh run's; across ranks each rank takes its worker's row."""
+    params = ckpt.restore(f"{path}/params", params)
+    opt_state = ckpt.restore(f"{path}/opt", opt_state)
+    # a donor of all W workers: this rank's rows repeated (only shapes,
+    # dtypes and devices are read)
+    donor = sp_state if mesh is None else _rows(
+        sp_state, torch.zeros(W, dtype=torch.long))
+    restored = ckpt.restore(f"{path}/sparsifier",
+                            convert.trainer_state_to_jax(donor, plan))
+    sp_state = convert.trainer_state_from_jax(restored, plan)
+    if mesh is not None:
+        sp_state = _rows(sp_state, torch.tensor([mesh.rank]))
+    return params, opt_state, sp_state, ckpt.metadata(f"{path}/params").get("step", 0)
 
 
 def _picks(plan, dist: DistConfig):

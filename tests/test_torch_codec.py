@@ -48,8 +48,11 @@ def _bits(x):
 
 
 def _jax_encode(name, vals, idx, L):
+    """The JAX encode under ``jax.jit``, as the simulator and the trainer
+    run it: ``coo_q8``'s ``amax / 127.0`` is then ``amax * fl(1/127)``."""
     c = jcodec.get_codec(name)
-    return jax.vmap(lambda v, i: c.encode(v, i, L))(jnp.asarray(vals), jnp.asarray(idx))
+    return jax.jit(jax.vmap(lambda v, i: c.encode(v, i, L)))(
+        jnp.asarray(vals), jnp.asarray(idx))
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -145,14 +148,15 @@ def test_q8_bf16_stays_within_the_f32_bound(seed, L, sparsity):
     """Known difference (ROADMAP queue 3): in bf16 the JAX package
     quantizes in bf16 and its round-trip error can exceed half a
     quantization step (Hypothesis found seed 16107, L = 1487, S = 0.5);
-    the port quantizes in f32, equals the JAX encoding of the f32-cast
-    values bit for bit, and keeps the bound."""
+    the port quantizes in f32, equals the jitted JAX encoding of the
+    f32-cast values bit for bit, and keeps the bound."""
     jvals, idx = _q8_case(seed, L, sparsity)
     v32 = np.array(jvals.astype(jnp.float32))
     tvals = torch.from_numpy(v32).to(torch.bfloat16)[None]
     tc = tcodec.get_codec("coo_q8")
     tpay = tc.encode(tvals, torch.from_numpy(idx).long()[None], L)
-    jpay = jcodec.get_codec("coo_q8").encode(jnp.asarray(v32), jnp.asarray(idx), L)
+    jpay = jax.jit(lambda v, i: jcodec.get_codec("coo_q8").encode(v, i, L))(
+        jnp.asarray(v32), jnp.asarray(idx))
     for key in ("q", "scale", "idx"):
         np.testing.assert_array_equal(_bits(tpay[key][0].numpy()), _bits(jpay[key]))
     amax = float(np.abs(v32).max())
@@ -164,3 +168,32 @@ def test_q8_bf16_stays_within_the_f32_bound(seed, L, sparsity):
         jc = jcodec.get_codec("coo_q8")
         jdv, _ = jc.decode(jc.encode(jvals, jnp.asarray(idx), L), L)
         assert float(np.abs(np.asarray(jdv) - v32).max()) > bound
+
+
+def test_default_throughput_tables_plan_another_wire():
+    """Known difference (ROADMAP queue 3, 3b): the packages' default
+    ``ThroughputTable`` rates differ (the JAX package's 819e9 B/s roofline
+    constant, the port's 2.98e12, kernel 2's rate measured on the H100),
+    and under ``fastpath="on"`` the rates enter ``choose_leaf``'s price.
+    A 4,096-element leaf at k = 41 on one dp axis of 8 with
+    ``AlphaBeta()``: the JAX package plans ``bitmap_dense`` unfused, the
+    port ``coo_idx_delta`` fused; with one shared table they plan alike
+    (the parity tests give both packages one table)."""
+    from repro.comm import autotune as jauto
+    from repro.comm import fastpath as jfp
+    from repro_torch.comm import autotune as tauto
+    from repro_torch.comm import fastpath as tfp
+
+    assert jfp.ThroughputTable().fused_bps == 819e9
+    assert tfp.ThroughputTable().fused_bps == 2.98e12
+    kw = dict(fastpath="on")
+    jd = jauto.choose_leaf(4096, 41, (8,), **kw)
+    td = tauto.choose_leaf(4096, 41, (8,), **kw)
+    assert (jd.codec, jd.collective, jd.fused) == ("bitmap_dense", "sparse_allgather",
+                                                   False)
+    assert (td.codec, td.collective, td.fused) == ("coo_idx_delta", "sparse_allgather",
+                                                   True)
+    shared = tauto.choose_leaf(4096, 41, (8,), compute=tfp.ThroughputTable(
+        fused_bps=819e9, unfused_bps=819e9), **kw)
+    assert (shared.codec, shared.collective, shared.fused) == (
+        jd.codec, jd.collective, jd.fused)

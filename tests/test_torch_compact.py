@@ -223,3 +223,57 @@ def test_compact_matches_dense_reference_step(kind, y):
         agg = 0.1 * ghat.sum(0)
         st = tc.compact_finalize(st, a, vals, idx, agg)
         g_prev = agg
+
+
+def _bf16_bits(x):
+    return np.asarray(x).view(np.uint16) if np.asarray(x).dtype.itemsize == 2 else x
+
+
+@pytest.mark.parametrize("y", [1.0, 2.0, 1.5])
+@pytest.mark.parametrize("kind", ["regtopk", "topk"])
+def test_bf16_state_rounds_match_jitted_jax_bits(kind, y):
+    """A bf16 state (the trainer's ``state_dtype="bfloat16"``): three
+    rounds of ``compact_select`` and ``compact_finalize`` on shared bf16
+    gradients, against the jitted JAX functions per worker. The bf16 score
+    chain (``pow_y``, tanh at mu = 1, the trade-off with the sent
+    statistics) and the stable top-k over bf16 keys, which tie far more
+    often than f32 ones (some selected values here share their
+    magnitude), give JAX's payload: ``a``, the values, the
+    indices in order and every state slot equal in bits."""
+    import jax
+
+    rng = np.random.default_rng(17)
+    cfg = SparsifierConfig(kind=kind, sparsity=K / L, mu=1.0, y=y, omega=0.5)
+    jcfg = JaxSparsifierConfig(**dataclasses.asdict(cfg))
+    st = tc.compact_init(W, L, K, "cpu", torch.bfloat16)
+    jsel = jax.jit(lambda s, g: jc.compact_select(jcfg, s, g, K))
+    jfin = jax.jit(jc.compact_finalize)
+    ties = 0
+    for _ in range(3):
+        g = torch.from_numpy(rng.standard_normal((W, L)).astype(np.float32)).to(
+            torch.bfloat16)
+        agg = torch.from_numpy(rng.standard_normal(L).astype(np.float32)).to(
+            torch.bfloat16)
+        a, vals, idx = tc.compact_select(cfg, st, g, K)
+        new = tc.compact_finalize(st, a, vals, idx, agg)
+        for w in range(W):
+            jst = jc.CompactState(*(jnp.asarray(x[w].float().numpy()).astype(
+                jnp.bfloat16) if x.dtype == torch.bfloat16
+                else jnp.asarray(x[w].numpy().astype(np.int32)) for x in st))
+            jg = jnp.asarray(g[w].float().numpy()).astype(jnp.bfloat16)
+            ja, jv, ji = jsel(jst, jg)
+            np.testing.assert_array_equal(_bf16_bits(a[w].view(torch.int16).numpy()),
+                                          _bf16_bits(ja))
+            np.testing.assert_array_equal(_bf16_bits(vals[w].view(torch.int16).numpy()),
+                                          _bf16_bits(jv))
+            np.testing.assert_array_equal(idx[w].numpy(), np.asarray(ji))
+            jnew = jfin(jst, ja, jv, ji, jnp.asarray(agg.float().numpy()).astype(
+                jnp.bfloat16))
+            for name in ("eps", "sent_vals", "sent_g", "sent_w"):
+                np.testing.assert_array_equal(
+                    _bf16_bits(getattr(new, name)[w].view(torch.int16).numpy()),
+                    _bf16_bits(getattr(jnew, name)), err_msg=name)
+            np.testing.assert_array_equal(new.t[w].numpy(), np.asarray(jnew.t))
+            ties += len(vals[w]) - len(set(vals[w].abs().float().tolist()))
+        st = new
+    assert ties > 0

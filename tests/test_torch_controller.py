@@ -1,8 +1,8 @@
 """The port's adaptive-k controller and its dynamic-k selection against
 the JAX package's ``repro.comm.controller``.
 
-* ``bounds``, ``init``, ``plan_k`` and ``round_wire_bits`` give JAX's
-  answers, exactly; ``parse_adaptive_k`` and the config checks raise
+* ``bounds``, ``init``, ``plan_k`` (against the jitted law) and
+  ``round_wire_bits`` give JAX's answers, exactly; ``parse_adaptive_k`` and the config checks raise
   JAX's errors;
 * ``observe`` over a 60-round numpy trajectory of norms: the k trajectory
   exactly, ``err_ratio`` to rtol 1e-5 (the jitted JAX law and the port
@@ -84,7 +84,9 @@ def test_bad_controllers_raise_as_jax(kw):
 @pytest.mark.parametrize("kw", CONTROLLERS)
 def test_plan_k_matches_jax(kw):
     """Every k on a grid of ratios around the dead band's edges, the gain
-    clamps and the bounds."""
+    clamps and the bounds, against the JAX law under ``jax.jit`` (as its
+    simulator and trainer run it: ``ratio / budget`` is then ``ratio *
+    fl(1/budget)``)."""
     tc_, jc_ = tctl.AdaptiveKController(**kw), jctl.AdaptiveKController(**kw)
     b, h, g = jc_.budget, jc_.hysteresis, jc_.gain
     ratios = np.float32([0.0, b * 1e-3, b / g, b * (1 - h), b, b * (1 + h),
@@ -95,8 +97,8 @@ def test_plan_k_matches_jax(kw):
         for k in (1, 2, 3, 5, 16, 17, 40, 255, 256):
             got = [int(tc_.plan_k(torch.tensor(r), torch.tensor(k, dtype=torch.int32),
                                   lo, hi)) for r in ratios]
-            want = np.asarray(jax.vmap(
-                lambda r: jc_.plan_k(r, jnp.asarray(k, jnp.int32), lo, hi))(
+            want = np.asarray(jax.jit(jax.vmap(
+                lambda r: jc_.plan_k(r, jnp.asarray(k, jnp.int32), lo, hi)))(
                     jnp.asarray(ratios)))
             np.testing.assert_array_equal(got, want, err_msg=f"k={k} [{lo}, {hi}]")
 

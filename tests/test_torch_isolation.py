@@ -1,5 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch/`` nor
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``.
+``chip_smoke.py`` imports ``jax``, the JAX package ``repro`` or
+``msgpack`` (absent where the card is: the checkpoint store carries its
+own codec).
 
 Checked twice: statically over the sources, and by importing every port
 module in a fresh interpreter and reading its ``sys.modules`` (never this
@@ -15,7 +17,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _sources():
@@ -55,7 +57,7 @@ def test_importing_the_port_loads_no_jax():
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
     )
@@ -66,6 +68,13 @@ def test_importing_the_port_loads_no_jax():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert int(out.stdout.split()[-1]) >= len(_modules())
+
+
+def test_the_checkpoint_store_is_checked():
+    """The store, which writes the JAX package's msgpack metadata with a
+    codec of its own, is in both checks above."""
+    assert PORT / "checkpoint" / "store.py" in _sources()
+    assert "repro_torch.checkpoint.store" in _modules()
 
 
 def test_the_wire_modules_are_checked():

@@ -25,6 +25,7 @@ per-rank round in ``tests/test_torch_ranks.py``.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -237,8 +238,9 @@ def test_reference_forms_with_participation_match_jax(coll, codec, n, r,
     ]
     tcd, jcd = get_codec(codec), jax_codec(codec)
     tpay = tcd.encode(torch.from_numpy(vals), torch.from_numpy(idx).long(), L)
-    jpay = jax_codec(codec).encode
-    jstack = {k: jnp.stack([jpay(jnp.asarray(vals[w]), jnp.asarray(idx[w]), L)[k]
+    # jitted, as the JAX runtimes encode (coo_q8's scale is amax * fl(1/127))
+    jpay = jax.jit(lambda v, i: jcd.encode(v, i, L))
+    jstack = {k: jnp.stack([jpay(jnp.asarray(vals[w]), jnp.asarray(idx[w]))[k]
                             for w in range(n)]) for k in tpay}
     tc, jc = tcoll.get_collective(coll), jcoll.get_collective(coll)
     for mask in masks:

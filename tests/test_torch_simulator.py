@@ -242,15 +242,9 @@ def test_wire_options_match_jax(linreg, kind, codec, collective, weighting):
     ``hierarchical`` and coordinate weighting, 40 rounds against the JAX
     simulator: the masks of the first 5 rounds exact, the final theta to
     rtol 1e-4 as in ``test_linreg_matches_jax``; under coordinate
-    weighting the last round's sender mass too.
-
-    ``coo_q8`` adds an absolute 1e-3 to theta's tolerance: the two stacks'
-    gradients differ in the last ulp (float32 sums in another order), and
-    where a value sits on a rounding boundary of the quantizer that moves
-    its int8 code by one, one step ``max|v| / 127`` (about 5e-4 here, times
-    the learning rate in theta) that error feedback returns over the next
-    rounds. The codec itself is bit-equal on equal inputs
-    (``test_torch_codec.py``)."""
+    weighting the last round's sender mass too. ``coo_q8`` is held like
+    the lossless codecs: its scale is ``amax * fl(1/127)``, what the jitted
+    JAX encode computes (``test_torch_codec.py``)."""
     jdata, tdata = linreg
     kw = dict(learning_rate=1e-2, codec=codec, collective=collective,
               weighting=weighting)
@@ -263,7 +257,7 @@ def test_wire_options_match_jax(linreg, kind, codec, collective, weighting):
                             trace_state_fn=lambda s: s.worker_states.s_prev)
     np.testing.assert_array_equal(tmasks[:5].numpy(), np.asarray(jmasks)[:5])
     np.testing.assert_allclose(tfin.theta.numpy(), np.asarray(jfin.theta),
-                               rtol=1e-4, atol=1e-3 if codec == "coo_q8" else 1e-5)
+                               rtol=1e-4, atol=1e-5)
     if weighting == "coordinate":
         np.testing.assert_allclose(tfin.w_agg_prev.numpy(),
                                    np.asarray(jfin.w_agg_prev), rtol=1e-6)
