@@ -151,11 +151,28 @@ Phases, each raising on failure (the script then exits non-zero):
               Adam (weight decay, clip, warmup, bf16 moments), fastpath on
               against off; (e) --aggregation dense_allreduce against
               --collective dense_allreduce.
+13. families — the dense, MoE and VLM decoders at published widths,
+              RegTop-k at S = 0.01 with the fastpath on, 3 steps each:
+              internvl2-1b (all 24 layers, through train.run's flags; W =
+              4, batch 8 x 512 behind a 256-patch prefix), qwen2.5-3b (6 of
+              36 layers; W = 2, batch 4 x 512) and deepseek-moe-16b (1 of
+              28 layers; W = 2, batch 4 x 512), the depth cut where the
+              card's 80 GB forces it, the cut configs driven through
+              build_plan and make_train_step: finite losses, kernel 1's
+              launches = steps x fused leaves, the certificate hit rate,
+              the peak device memory beside the reckoned one, one more step
+              from the trained state with the fastpath on == off (payload
+              indices and values bit-equal), the step time on and off
+              (host clock, median of 3) and one profiled step; then the
+              smoke variants of qwen2.5-3b, deepseek-moe-16b, internvl2-1b
+              and mixtral-8x7b (W = 2, 3 steps) on the card against the
+              same runs on the CPU, losses within 1e-4 relative.
 
 Each kernel's launch count is set to 0 just before the path that runs it
 (select: ``count_above``, ``global_max``, ``block_topk_candidates``;
-trainer, each fused wire run, each run of every rank and each of phase
-10's, 11's and 12's trainer runs: ``fused_candidates``; sim, the wire
+trainer, each fused wire run, each run of every rank, each of phase
+10's, 11's and 12's trainer runs and phase 13's three training runs:
+``fused_candidates``; sim, the wire
 simulator's fastpath-on run and phase 10's and phase 11's simulator runs:
 ``regtopk_score``) and read just after; the
 ``kernels`` line sums each kernel's main-path launches. The line before the last is the card's nvidia-smi line; before it,
@@ -179,7 +196,11 @@ import tempfile
 import time
 from pathlib import Path
 
-import torch
+# phase 13's full-width runs fill most of the card with tensors of many
+# sizes; growable segments keep the allocator's free space usable
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -2083,7 +2104,8 @@ def stragglers_sim(smi: str, rounds: int = 5, adaptive_rounds: int = 10,
             raise AssertionError(f"stragglers sim {spec}: {n} score launches, "
                                  f"expected {rounds}")
         launches += n
-        masks = [[int(x) for x in part.round_mask(r, W).tolist()] for r in range(rounds)]
+        masks = [[int(x) for x in part.round_mask(r, W, DEVICE).tolist()]
+                 for r in range(rounds)]
         out[spec] = {"rounds": rounds, "launches": n, "masks": masks,
                      "round": _round_ms(sims[0], states[0], g0)}
         stale = states[0].pending is not None
@@ -2609,6 +2631,228 @@ def phase_options(smi: str, ckpt_dir=None) -> dict:
     return out
 
 
+# phase 13: the decoder families at published widths. Each run: (the
+# config, the layers it runs (None: all), W, global batch, sequence, and
+# whether it goes through train.run's flags). The depth is cut only where
+# the card's 80 GB forces it.
+FAMILY_STEPS = 3
+FAMILY_SEQ = 512
+FAMILY_RUNS = {
+    "internvl2-1b": dict(layers=None, workers=4, batch=8),
+    "qwen2.5-3b": dict(layers=6, workers=2, batch=4),
+    "deepseek-moe-16b": dict(layers=1, workers=2, batch=4),
+}
+# the smoke variants held on the card against the CPU: one config per
+# family, and mixtral-8x7b (sliding windows, MoE without shared experts)
+FAMILY_SMOKE = ("qwen2.5-3b", "deepseek-moe-16b", "internvl2-1b", "mixtral-8x7b")
+FAMILY_SPARSITY = 0.01
+FAMILY_LR = 1e-3
+
+
+def _reckoned_bytes(params, workers: int) -> int:
+    """The peak the trainer's state should reach: params, Adam's two
+    moments, the aggregate and W errors, W gradients and one stacked leaf
+    (about 16 + 8 W bytes a parameter; the next step's state beside this
+    one's, another 12 + 4 W), and about 32 W bytes per element of the
+    largest leaf for its round (a, the score, the sort's keys, int64
+    indices and scratch)."""
+    from repro_torch.tree import tree_leaves
+
+    n = sum(x.numel() for x in tree_leaves(params))
+    big = max(x.numel() for x in tree_leaves(params))
+    return (28 + 12 * workers) * n + 32 * workers * big
+
+
+def _family_train(arch: str, run: dict):
+    """``FAMILY_STEPS`` training steps of ``arch`` at its published widths
+    on the card, RegTop-k at S = 0.01 with the fastpath on: through
+    ``train.run``'s flags at full depth, else through ``build_plan`` and
+    ``make_train_step`` on the depth-cut config. Returns (config, params,
+    optimizer state, sparsifier state, plan, losses, counts, launches,
+    seconds, peak bytes)."""
+    from repro_torch import configs
+    from repro_torch.comm.fastpath import FastpathCounts
+    from repro_torch.core import distributed as td
+    from repro_torch.core.sparsify import SparsifierConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import fused_encode as fe
+    from repro_torch.launch import train
+    from repro_torch.models import get_family
+    from repro_torch.optim import OptConfig, make_optimizer
+
+    W, B = run["workers"], run["batch"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fe.fused_candidates.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if run["layers"] is None:
+        args = train.parse_args([
+            "--arch", arch, "--workers", str(W), "--global-batch", str(B),
+            "--seq", str(FAMILY_SEQ), "--steps", str(FAMILY_STEPS),
+            "--sparsifier", "regtopk", "--sparsity", str(FAMILY_SPARSITY),
+            "--lr", str(FAMILY_LR), "--fastpath", "on", "--log-every", "1",
+            "--device", DEVICE])
+        res = train.run(args)
+        cfg = configs.get_config(arch)
+        params, opt_state, sp, plan = res.params, res.opt_state, res.sp_state, res.plan
+        losses, counts = res.losses, res.counts
+    else:
+        cfg = configs.get_config(arch).replace(n_layers=run["layers"])
+        dist = td.DistConfig(
+            sparsifier=SparsifierConfig(kind="regtopk", sparsity=FAMILY_SPARSITY),
+            optimizer=OptConfig(kind="adam", learning_rate=FAMILY_LR),
+            fastpath="on")
+        params = get_family(cfg).init(cfg, seed=0, device=DEVICE)
+        plan = td.build_plan(params, FAMILY_SPARSITY, dist)
+        counts = FastpathCounts()
+        step = td.make_train_step(cfg, dist, plan, W, counts)
+        opt_state = make_optimizer(dist.optimizer).init(params)
+        sp = td.init_sparsifier_state(plan, W, DEVICE)
+        pipe = TokenPipeline(cfg, B, FAMILY_SEQ, 0, DEVICE)
+        losses = []
+        for t in range(FAMILY_STEPS):
+            params, opt_state, sp, m = step(params, opt_state, sp, pipe.batch_at(t))
+            losses.append(float(m["loss"]))
+            log(f"families {arch}: step {t} loss {losses[-1]:.4f}")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (cfg, params, opt_state, sp, plan, losses, counts,
+            fe.fused_candidates.launches, seconds, torch.cuda.max_memory_allocated())
+
+
+def _family_on_off(cfg, params, opt_state, sp, W: int, B: int, smi: str):
+    """One more step from the trained state with the fastpath on and off:
+    the payload indices and values of every leaf in bits (each step's
+    outputs dropped but the payloads, so the card holds one step's state
+    at a time); then the step time on and off in turns (host clock,
+    median of 3) and one profiled fastpath-on step."""
+    from repro_torch.core import distributed as td
+    from repro_torch.core.sparsify import SparsifierConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.optim import OptConfig
+    from repro_torch.tree import tree_items
+
+    batch = TokenPipeline(cfg, B, FAMILY_SEQ, 1, DEVICE).batch_at(0)
+    steps, sent = {}, {}
+    for mode in ("on", "off"):
+        dist = td.DistConfig(
+            sparsifier=SparsifierConfig(kind="regtopk", sparsity=FAMILY_SPARSITY),
+            optimizer=OptConfig(kind="adam", learning_rate=FAMILY_LR),
+            fastpath=mode)
+        plan = td.build_plan(params, FAMILY_SPARSITY, dist)
+        steps[mode] = td.make_train_step(cfg, dist, plan, W)
+        new_sp = steps[mode](params, opt_state, sp, batch)[2]
+        sent[mode] = [(path, st.sent_idx, st.sent_vals)
+                      for path, st in tree_items(new_sp)]
+        del new_sp
+    for (path, i_on, v_on), (_, i_off, v_off) in zip(sent["on"], sent["off"],
+                                                     strict=True):
+        if not (torch.equal(i_on, i_off) and _bits_equal(v_on, v_off)):
+            raise AssertionError(f"families {cfg.name}: {path}: fastpath on/off "
+                                 "payloads differ")
+    del sent
+
+    def run(mode):
+        steps[mode](params, opt_state, sp, batch)
+
+    times = {"on": [], "off": []}
+    for _ in range(3):
+        for mode in ("on", "off"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(mode)
+            torch.cuda.synchronize()
+            times[mode].append(1e3 * (time.perf_counter() - t0))
+    step_ms = {mode: statistics.median(ts) for mode, ts in times.items()}
+    prof = profile_step(lambda: run("on"), step_ms["on"])
+    log(f"families {cfg.name}: one step from the trained state, fastpath on == "
+        f"off (payload indices and values bit-equal); step {step_ms['on']:.1f} ms "
+        f"on, {step_ms['off']:.1f} ms off (host clock, median of 3; {smi})")
+    return {"step_ms": step_ms, "samples_ms": times, "profile": prof}
+
+
+def families_smoke() -> dict:
+    """Each of ``FAMILY_SMOKE``'s smoke variants, W = 2, 3 steps with the
+    fastpath on, on the card against the same run on the CPU (the plain
+    kernel versions): losses within 1e-4 relative (float32 matmuls sum in
+    another order there)."""
+    from repro_torch.launch import train
+
+    out = {}
+    for arch in FAMILY_SMOKE:
+        small = ["--arch", arch, "--smoke", "--workers", "2", "--steps", "3",
+                 "--seq", "32", "--fastpath", "on", "--log-every", "100"]
+        gpu = train.run(train.parse_args([*small, "--device", DEVICE])).losses
+        cpu = train.run(train.parse_args([*small, "--device", "cpu"])).losses
+        for g, c in zip(gpu, cpu, strict=True):
+            if not abs(g - c) <= 1e-4 * abs(c):
+                raise AssertionError(f"families {arch} smoke: card losses {gpu} "
+                                     f"vs CPU losses {cpu}")
+        log(f"families {arch} smoke: the card matches the CPU ({gpu} vs {cpu})")
+        out[arch] = {"card": gpu, "cpu": cpu}
+    return out
+
+
+def phase_families(smi: str) -> dict:
+    """Phase 13: the dense, MoE and VLM decoders at published widths (see
+    the module docstring), kernel 1's launches counted over the three
+    training runs."""
+    from repro_torch.tree import tree_leaves
+
+    out, launches, t_phase = {}, 0, time.perf_counter()
+    for arch, run in FAMILY_RUNS.items():
+        W, B = run["workers"], run["batch"]
+        (cfg, params, opt_state, sp, plan, losses, counts, n, seconds,
+         peak) = _family_train(arch, run)
+        if len(losses) != FAMILY_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"families {arch}: losses {losses}")
+        n_fused = sum(p.fused for p in tree_leaves(plan))
+        if n != FAMILY_STEPS * n_fused or n == 0:
+            raise AssertionError(f"families {arch}: {n} kernel 1 launches, expected "
+                                 f"{FAMILY_STEPS} steps x {n_fused} fused leaves")
+        launches += n
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        largest = max(x.numel() for x in tree_leaves(params))
+        reckoned = _reckoned_bytes(params, W)
+        depth = ("all" if run["layers"] is None else
+                 f"{run['layers']} of {_full_layers(arch)}")
+        log(f"families {arch}: {depth} layers, W = {W}, batch {B} x {FAMILY_SEQ}"
+            f"{' (+' + str(cfg.n_patches) + ' patches)' if cfg.n_patches else ''}; "
+            f"{n_params:,} parameters, largest leaf {largest:,}; {FAMILY_STEPS} "
+            f"steps in {seconds:.2f} s, losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+            f"{n} kernel 1 launches ({n_fused}/{len(tree_leaves(plan))} leaves "
+            f"fused), certificate hit rate {counts.hit_rate:.4f} "
+            f"({counts.rounds - counts.fallbacks}/{counts.rounds}); peak "
+            f"{peak / 1e9:.2f} GB allocated (reckoned {reckoned / 1e9:.2f} GB)")
+        row = {"layers": cfg.n_layers, "full_layers": _full_layers(arch),
+               "workers": W, "batch": B, "seq": FAMILY_SEQ, "losses": losses,
+               "launches": n, "fused_leaves": n_fused,
+               "leaves": len(tree_leaves(plan)), "hit_rate": counts.hit_rate,
+               "rounds": counts.rounds, "fallbacks": counts.fallbacks,
+               "seconds": seconds, "params": n_params, "largest_leaf": largest,
+               "peak_bytes": peak, "reckoned_bytes": reckoned}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        row.update(_family_on_off(cfg, params, opt_state, sp, W, B, smi))
+        row["check_peak_bytes"] = torch.cuda.max_memory_allocated()
+        out[arch] = row
+        del params, opt_state, sp, plan
+        torch.cuda.empty_cache()
+    out["smoke"] = families_smoke()
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"families: phase 13 took {out['seconds']:.1f} s, {launches} kernel 1 "
+        "launches")
+    return out
+
+
+def _full_layers(arch: str) -> int:
+    from repro_torch import configs
+
+    return configs.get_config(arch).n_layers
+
+
 def ab_times() -> dict:
     """Kernel 1's device time per training step (every leaf of the main
     path, W = 8, the trainer's budgets) and ``block_topk_candidates``' at
@@ -2696,6 +2940,7 @@ def main(argv=None) -> int:
         stragglers = phase_stragglers(smi)
         planners = phase_planners(smi)
         options = phase_options(smi, f"{ckpt_dir}/ranks")
+    families = phase_families(smi)
     ab = phase_ab(args.parent) if args.parent is not None else None
     per_step = kernels["per_step"]
     per_round = score["per_round"]
@@ -2706,7 +2951,8 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/fused_encode.py:111",
         "launches": (trainer["launches"] + wire["trainer"]["launches"]
                      + ranks["launches"] + stragglers["trainer"]["launches"]
-                     + planners["trainer"]["launches"] + options["launches"]),
+                     + planners["trainer"]["launches"] + options["launches"]
+                     + families["launches"]),
         "max_abs_err": kernels["max_abs_err"],
         "ms": per_step["ms"],
         "plain_ms": per_step["plain_ms"],
@@ -2754,7 +3000,7 @@ def main(argv=None) -> int:
              "kernels": kernels, "score": score, "select": select,
              "trainer": trainer, "sim": sim, "wire": wire, "ranks": ranks,
              "stragglers": stragglers, "planners": planners,
-             "options": options, "ab": ab,
+             "options": options, "families": families, "ab": ab,
              "kernels_line": line},
             indent=1,
         ))

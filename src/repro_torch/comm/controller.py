@@ -107,10 +107,10 @@ class AdaptiveKController:
         return lo, hi
 
     def init(self, k0: int, k_min: int, k_max: int,
-             device="cpu") -> ControllerState:
-        """Start at the static k, clipped into the bounds.
+             device="cuda") -> ControllerState:
+        """Start at the static k, clipped into the bounds, on ``device``.
 
-        >>> st = AdaptiveKController(budget=0.5).init(5, 1, 250)
+        >>> st = AdaptiveKController(budget=0.5).init(5, 1, 250, device="cpu")
         >>> int(st.k), int(st.t)
         (5, 0)
         """
@@ -155,7 +155,7 @@ class AdaptiveKController:
         the first observation and is discounted with ``momentum`` after.
 
         >>> c = AdaptiveKController(budget=0.1, momentum=0.5)
-        >>> st = c.observe(c.init(16, 1, 256), torch.tensor(4.0),
+        >>> st = c.observe(c.init(16, 1, 256, device="cpu"), torch.tensor(4.0),
         ...                torch.tensor(10.0), k_min=1, k_max=256)
         >>> round(float(st.err_ratio), 3), int(st.k)
         (0.4, 32)

@@ -106,14 +106,27 @@ def wire_fusable(codec, collective: str) -> Tuple[bool, str]:
     return True, "ok"
 
 
+# kernel 1 writes each candidate's flat index as an int32
+# (csrc/fused_encode.cu), so a leaf must have fewer elements than this
+MAX_FUSED_LEN = 2**31
+
+
 def shape_fusable(length: int, k: int) -> Tuple[bool, str]:
-    """``k`` must fit in ``n_tiles * m`` candidates.
+    """``k`` must fit in ``n_tiles * m`` candidates, and every flat index
+    of the leaf in an int32 (fewer than ``MAX_FUSED_LEN`` elements): a
+    longer leaf stays unfused, where its indices are int64.
 
     >>> shape_fusable(65536, 64)[0]
     True
     >>> shape_fusable(8192, 1024)[0]
     False
+    >>> shape_fusable(2**31, 2**21)[1]
+    'a 2147483648-element leaf has flat indices beyond int32'
     """
+    if length >= MAX_FUSED_LEN:
+        return False, (
+            f"a {length}-element leaf has flat indices beyond int32"
+        )
     m = candidate_budget(length, k)
     if k > _n_tiles(length) * m:
         return False, (
@@ -331,6 +344,9 @@ def fused_compact_select(scfg, st, g: torch.Tensor, k: int, *, counts=None):
         k=k, omega=scfg.omega, mu=scfg.mu, q=scfg.q_const, y=y,
         m=candidate_budget(L, k),
     )
+    # the dense scatters are W copies of the leaf: let them go before the
+    # fallback, which builds its own for the failed rows
+    del zeros, s_prev, a_prev, g_prev
     if scfg.kind == "regtopk" and y != 1.0:
         ok = ok & (st.t > 0)
     failed = torch.nonzero(~ok)[:, 0]

@@ -148,13 +148,14 @@ class Participation:
         return self
 
     def round_mask(self, round_idx: int, n_workers: int,
-                   device="cpu") -> torch.Tensor:
-        """``{0,1}`` float32 mask ``[N]`` of the round's participants, a
-        function of ``(schedule, round_idx)`` alone.
+                   device="cuda") -> torch.Tensor:
+        """``{0,1}`` float32 mask ``[N]`` of the round's participants on
+        ``device``, a function of ``(schedule, round_idx)`` alone.
 
-        >>> Participation("round_robin", n_stragglers=1).round_mask(0, 4).tolist()
+        >>> rr = Participation("round_robin", n_stragglers=1)
+        >>> rr.round_mask(0, 4, device="cpu").tolist()
         [0.0, 1.0, 1.0, 1.0]
-        >>> Participation("round_robin", n_stragglers=1).round_mask(2, 4).tolist()
+        >>> rr.round_mask(2, 4, device="cpu").tolist()
         [1.0, 1.0, 0.0, 1.0]
         """
         n, r = int(n_workers), int(round_idx)
@@ -167,7 +168,7 @@ class Participation:
             return keep.float().to(device)
         mask = torch.zeros(n)
         if self.kind == "sampled":
-            mask[self.round_participants(r, n)] = 1.0
+            mask[self.round_participants(r, n, device="cpu")] = 1.0
             return mask.to(device)
         # round_robin / stale: n_stragglers consecutive workers rotate out;
         # r * ns wraps in int32, as the JAX package's traced product does
@@ -179,16 +180,16 @@ class Participation:
         return mask.to(device)
 
     def round_participants(self, round_idx: int, n_workers: int,
-                           device="cpu") -> torch.Tensor:
-        """``sampled`` only: the round's cohort, ``[S]`` sorted distinct
-        int64 worker indices (torch's indexing type; the JAX package's
-        are int32).
+                           device="cuda") -> torch.Tensor:
+        """``sampled`` only: the round's cohort on ``device``, ``[S]``
+        sorted distinct int64 worker indices (torch's indexing type; the
+        JAX package's are int32).
 
         >>> p = Participation("sampled", n_sampled=2, seed=0)
-        >>> s = p.round_participants(0, 6)
+        >>> s = p.round_participants(0, 6, device="cpu")
         >>> s.shape, bool((s[1:] > s[:-1]).all())
         (torch.Size([2]), True)
-        >>> Participation("full").round_participants(0, 6)
+        >>> Participation("full").round_participants(0, 6, device="cpu")
         Traceback (most recent call last):
             ...
         ValueError: round_participants is defined for kind='sampled', \

@@ -84,7 +84,7 @@ from repro_torch.core.selectors import sparsity_to_k
 from repro_torch.core.sparsify import SparsifierConfig
 from repro_torch.kernels.regtopk_score import const_div, ordered_mean
 from repro_torch.launch.mesh import DpGroups, dp_axes_of
-from repro_torch.models import lm
+from repro_torch.models import get_family
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn.layers import set_fp32_matmul
 from repro_torch.optim import OptConfig, make_optimizer
@@ -768,10 +768,11 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
     if n_mb < 1:
         raise ValueError(f"microbatches must be >= 1, got {n_mb}")
     acc_dt = dist.resolved_state_dtype()
+    loss_fn = get_family(cfg).loss_fn
 
     def value_and_grad(params, mbatch):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss = lm.loss_fn(live, cfg, mbatch)[0]
+        loss = loss_fn(live, cfg, mbatch)[0]
         return loss.detach(), torch.autograd.grad(loss, tree_leaves(live))
 
     def worker_grads(params, wbatch):
@@ -810,11 +811,16 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
             shard = {key: v[n * per:(n + 1) * per] for key, v in batch.items()}
             loss, grads = worker_grads(params, shard)
             losses.append(loss)
-            per_worker.append(grads)
-        # each worker's gradient in the state dtype, as the round takes it
-        grads_w = tree_unflatten(params, [
-            torch.stack(gs).to(acc_dt) for gs in zip(*per_worker, strict=True)
-        ])
+            per_worker.append(list(grads))
+        # each worker's gradient in the state dtype, as the round takes it;
+        # the workers' copies of a leaf are let go once it is stacked, so
+        # the card holds the W gradients once and one leaf twice
+        stacked = []
+        for i in range(len(per_worker[0])):
+            stacked.append(torch.stack([gs[i] for gs in per_worker]).to(acc_dt))
+            for gs in per_worker:
+                gs[i] = None
+        grads_w = tree_unflatten(params, stacked)
         if adaptive:
             cp_state, ctrl_state = sp_state
             agg, new_cp, new_ctrl = spa(grads_w, cp_state, ctrl_state)

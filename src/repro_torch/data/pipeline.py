@@ -4,7 +4,8 @@ stream of the trainer and the paper's distributed linear regression
 
 Same structure as the JAX pipeline: Zipf-ish token marginals from a
 squared uniform, and labels that repeat the token three back with
-probability 0.5 (else the next token). Each batch is a pure function of
+probability 0.5 (else the next token); a ``vlm`` config's batch also
+holds the vision stub's ``patches``. Each batch is a pure function of
 ``(seed, step)``: it is drawn on the CPU from a ``torch.Generator`` seeded
 from that pair and then moved to ``device``, so every device sees the same
 batches. torch cannot reproduce ``jax.random`` streams, so the numbers
@@ -37,10 +38,13 @@ class TokenPipeline:
         flip = torch.rand((B, S), generator=gen) < 0.5
         recent = torch.roll(tokens, 3, dims=1)
         labels = torch.where(flip, recent, torch.roll(tokens, -1, dims=1))
-        return {
-            "tokens": tokens.to(self.device),
-            "labels": labels.to(self.device),
-        }
+        out = {"tokens": tokens, "labels": labels}
+        if self.cfg.family == "vlm":
+            # the vision stub's patch embeddings, a prefix of the sequence
+            out["patches"] = 0.1 * torch.randn(
+                (B, self.cfg.n_patches, self.cfg.vision_dim), generator=gen
+            ).to(self.cfg.torch_dtype)
+        return {name: x.to(self.device) for name, x in out.items()}
 
 
 class LinRegDataset(NamedTuple):

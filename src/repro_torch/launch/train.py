@@ -3,6 +3,12 @@
     python -m repro_torch.launch.train --arch paper-resnet-proxy \
         --workers 8 --steps 10 --sparsifier regtopk --fastpath on
 
+``--arch`` takes every config of ``repro_torch.configs.ARCHS``: the
+paper's proxy and the dense, MoE and VLM decoders (``qwen2.5-3b``,
+``chatglm3-6b``, ``granite-3-8b``, ``granite-3-8b-swa``,
+``phi3-medium-14b``, ``mixtral-8x7b``, ``deepseek-moe-16b``,
+``internvl2-1b``); ``--smoke`` takes its ``smoke_variant()``.
+
 ``--workers W`` is the counterpart of the JAX trainer's host-mesh device
 count: W logical data-parallel workers on one card, one dp mesh axis
 named ``data`` (what ``--link-topo`` names). Runs on ``cuda`` unless
@@ -93,7 +99,7 @@ from repro_torch.core.distributed import (
 from repro_torch.core.sparsify import SparsifierConfig
 from repro_torch.data import TokenPipeline
 from repro_torch.launch.mesh import DpGroups, dp_axes_of, make_production_groups
-from repro_torch.models import lm
+from repro_torch.models import get_family
 from repro_torch.optim import OptConfig, make_optimizer
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -314,7 +320,7 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
             shared = [table]
             torch_dist.broadcast_object_list(shared, src=0)
             table = shared[0]
-    params = lm.init(cfg, seed=0, device=args.device)
+    params = get_family(cfg).init(cfg, seed=0, device=args.device)
     plan = build_plan(params, dist.sparsifier.sparsity, dist, table, dp_sizes)
     counts = FastpathCounts()
     step_fn = make_train_step(cfg, dist, plan, W, counts, mesh)

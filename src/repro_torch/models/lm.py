@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, dense family (counterpart of
-``repro.models.lm``).
+"""Decoder-only transformer LM: the dense, MoE and VLM families
+(counterpart of ``repro.models.lm``, training only).
 
 The parameter tree is the JAX package's: a dict with the same names, and
 every per-layer leaf stacked on a leading ``n_layers`` axis
@@ -7,78 +7,167 @@ every per-layer leaf stacked on a leading ``n_layers`` axis
 sparsifier runs per leaf with ``k = sparsity_to_k(leaf_len, S)``, so the
 stacking decides each leaf's length, k and selection; keeping it is what
 lets the port be held against the JAX package leaf for leaf.
+
+* ``dense``: GQA attention (QKV bias with ``qkv_bias``, half-rotary RoPE
+  with ``rope_fraction``, sliding windows), SwiGLU or tanh-GeLU MLP,
+  RMSNorm or LayerNorm;
+* ``moe``: the MLP is ``nn.moe.moe_apply``, and its Switch aux loss,
+  averaged over the layers, enters the loss times ``aux_loss_coef``;
+* ``vlm``: ``vision_proj`` maps the vision stub's ``patches [B, P,
+  vision_dim]`` to a prefix of the token embeddings; positions run over
+  prefix and tokens, and the prefix is stripped before the unembedding.
+
+``remat`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``), which keeps the values and frees the
+activations inside the blocks.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.regtopk_score import const_div
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import layers as L
+from repro_torch.nn import moe as M
 
 Params = Dict[str, Any]
 
 
+def _norm(cfg: ModelConfig):
+    """``(init, apply)`` of the config's norm."""
+    if cfg.norm == "rmsnorm":
+        return L.rmsnorm_init, lambda p, x: L.rmsnorm(p, x, eps=cfg.norm_eps)
+    if cfg.norm == "layernorm":
+        return L.layernorm_init, lambda p, x: L.layernorm(p, x, eps=cfg.norm_eps)
+    raise ValueError(f"unknown norm {cfg.norm!r}; available: rmsnorm, layernorm")
+
+
+def _layer_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    ninit, _ = _norm(cfg)
+    dt = cfg.torch_dtype
+    attn = L.attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                       device, qkv_bias=cfg.qkv_bias, dtype=dt,
+                       pad_to=cfg.pad_heads)
+    if cfg.is_moe:
+        mlp = M.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, device,
+                         n_shared=cfg.n_shared_experts,
+                         shared_d_ff=cfg.moe_shared_d_ff, dtype=dt)
+    else:
+        mlp = L.mlp_init(gen, cfg.d_model, cfg.d_ff, device, act=cfg.act,
+                         dtype=dt)
+    return {"attn": attn, "mlp": mlp, "norm1": ninit(cfg.d_model, device, dt),
+            "norm2": ninit(cfg.d_model, device, dt)}
+
+
+def _stack_layers(per_layer, device):
+    """Per-layer trees → one tree with every leaf stacked on axis 0 and
+    moved to ``device``."""
+    first = per_layer[0]
+    if isinstance(first, dict):
+        return {key: _stack_layers([lp[key] for lp in per_layer], device)
+                for key in first}
+    return torch.stack(per_layer).to(device)
+
+
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     """Random weights drawn from ``torch.Generator().manual_seed(seed)``,
-    with the JAX package's shapes and scales."""
+    with the JAX package's shapes and scales: the embedding, then layer by
+    layer its attention and MLP (or MoE) weights, then ``vision_proj``.
+    The layers are drawn and stacked on the host and moved to ``device``
+    leaf by leaf, so the card never holds a layer twice."""
     gen = torch.Generator().manual_seed(seed)
-    emb = L.embed_init(gen, cfg.padded_vocab, cfg.d_model, device)
-    per_layer = [
-        {
-            "attn": L.attn_init(
-                gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                device,
-            ),
-            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, device),
-            "norm1": L.rmsnorm_init(cfg.d_model, device),
-            "norm2": L.rmsnorm_init(cfg.d_model, device),
-        }
-        for _ in range(cfg.n_layers)
-    ]
-    layers = {
-        group: {
-            name: torch.stack([lp[group][name] for lp in per_layer])
-            for name in per_layer[0][group]
-        }
-        for group in per_layer[0]
+    dt = cfg.torch_dtype
+    host = "meta" if torch.device(device).type == "meta" else "cpu"
+    ninit, _ = _norm(cfg)
+    params = {
+        "embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model, device,
+                              dtype=dt),
+        "layers": _stack_layers(
+            [_layer_init(gen, cfg, host) for _ in range(cfg.n_layers)], device),
+        "final_norm": ninit(cfg.d_model, device, dt),
     }
-    return {
-        "embed": emb,
-        "layers": layers,
-        "final_norm": L.rmsnorm_init(cfg.d_model, device),
-    }
+    if cfg.family == "vlm":
+        params["vision_proj"] = L.linear_init(
+            gen, cfg.vision_dim, cfg.d_model, device, bias=True, dtype=dt)
+    return params
 
 
-def _layer(params_layers: Params, i: int) -> Params:
-    return {
-        group: {name: leaf[i] for name, leaf in sub.items()}
-        for group, sub in params_layers.items()
-    }
+def _unstack(params_layers: Params, n: int):
+    """The ``n`` layers of the stacked tree, as views: one ``unbind`` a
+    leaf, whose backward stacks the layers' gradients once (indexing each
+    layer would add every layer's gradient into a zero tensor of the
+    whole stack)."""
+    if isinstance(params_layers, dict):
+        subs = {key: _unstack(sub, n) for key, sub in params_layers.items()}
+        return [{key: sub[i] for key, sub in subs.items()} for i in range(n)]
+    return list(params_layers.unbind(0))
 
 
 def _block(
     lp: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
-) -> torch.Tensor:
-    h = L.rmsnorm(lp["norm1"], x, eps=cfg.norm_eps)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder block: ``(x, aux)``, aux 0 outside the MoE family."""
+    _, norm = _norm(cfg)
+    h = norm(lp["norm1"], x)
     q, k, v = L.attn_qkv(lp["attn"], h)
     q = L.rope(q, positions, base=cfg.rope_base, fraction=cfg.rope_fraction)
     k = L.rope(k, positions, base=cfg.rope_base, fraction=cfg.rope_fraction)
     ctx = L.attention_dense(q, k, v, causal=True, window=cfg.sliding_window)
     x = x + L.attn_out(lp["attn"], ctx)
-    h = L.rmsnorm(lp["norm2"], x, eps=cfg.norm_eps)
-    return x + L.mlp(lp["mlp"], h)
+    h = norm(lp["norm2"], x)
+    if cfg.is_moe:
+        y, aux = M.moe_apply(
+            lp["mlp"], h, top_k=cfg.moe_top_k,
+            capacity_factor=cfg.capacity_factor,
+            group_size=cfg.moe_group_size, dispatch=cfg.moe_dispatch,
+        )
+    else:
+        y = L.mlp(lp["mlp"], h, act=cfg.act)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
-def forward(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
-    """Logits ``[B, S, padded_vocab]`` over the token positions."""
-    x = L.embed(params["embed"], batch["tokens"])
-    positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.n_layers):
-        x = _block(_layer(params["layers"], i), x, cfg, positions)
-    x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
-    return L.unembed(params["embed"], x)
+def _stack(params_layers: Params, x: torch.Tensor, cfg: ModelConfig,
+           positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The blocks in layer order; the aux losses summed in layer order
+    and divided by the layer count as the jitted scan does
+    (``const_div``)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in _unstack(params_layers, cfg.n_layers):
+        if cfg.remat:
+            x, a = checkpoint(_block, lp, x, cfg, positions, use_reentrant=False)
+        else:
+            x, a = _block(lp, x, cfg, positions)
+        aux = aux + a
+    return x, const_div(aux, float(cfg.n_layers))
+
+
+def _embed_inputs(params: Params, cfg: ModelConfig, batch
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(x [B, S', E], positions [S'])``: the token embeddings, behind
+    the projected patch prefix for the VLM family."""
+    x = L.embed(params["embed"], batch["tokens"], cfg.torch_dtype)
+    if cfg.family == "vlm":
+        vis = L.linear(params["vision_proj"],
+                       batch["patches"].to(cfg.torch_dtype))
+        x = torch.cat([vis, x], dim=1)
+    return x, torch.arange(x.shape[1], device=x.device)
+
+
+def forward(params: Params, cfg: ModelConfig, batch
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(logits [B, S, padded_vocab], aux)`` over the token positions
+    (the VLM prefix stripped)."""
+    x, positions = _embed_inputs(params, cfg, batch)
+    x, aux = _stack(params["layers"], x, cfg, positions)
+    _, norm = _norm(cfg)
+    x = norm(params["final_norm"], x)
+    if cfg.family == "vlm":
+        x = x[:, -batch["tokens"].shape[1]:]
+    return L.unembed(params["embed"], x), aux
 
 
 def mask_pad_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -90,10 +179,20 @@ def mask_pad_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
-    """Mean next-token cross-entropy. The dense family has no auxiliary
-    loss, so the loss is the NLL itself."""
-    logits = mask_pad_logits(forward(params, cfg, batch).float(), cfg)
+    """Mean next-token cross-entropy plus ``aux_loss_coef`` times the
+    layers' mean aux loss (0 outside the MoE family); metrics ``{"nll",
+    "aux"}``."""
+    logits, aux = forward(params, cfg, batch)
+    logits = mask_pad_logits(logits.float(), cfg)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]
     nll = (logz - gold).mean()
-    return nll, {"nll": nll}
+    return total_loss(nll, aux, cfg.aux_loss_coef), {"nll": nll, "aux": aux}
+
+
+def total_loss(nll: torch.Tensor, aux: torch.Tensor, coef: float) -> torch.Tensor:
+    """``nll + coef * aux`` rounded once: XLA:CPU contracts the JAX loss
+    into a fused multiply-add under ``jit``, and ``torch.addcmul`` rounds
+    once on the CPU and on the card."""
+    return torch.addcmul(nll, torch.full((), coef, dtype=aux.dtype,
+                                         device=aux.device), aux)

@@ -1,0 +1,69 @@
+"""Family dispatch, input specs and synthetic batches (counterpart of
+``repro.models.registry``).
+
+Every family module the port has exposes ``init(cfg, *, seed, device)``
+and ``loss_fn(params, cfg, batch) -> (loss, metrics)``. The ``dense``,
+``moe`` and ``vlm`` families are ``models.lm``; ``encdec``, ``ssm`` and
+``hybrid`` are not ported yet and raise.
+"""
+from __future__ import annotations
+
+from types import ModuleType
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models import lm
+from repro_torch.models.config import ModelConfig
+
+_FAMILIES: Dict[str, ModuleType] = {"dense": lm, "moe": lm, "vlm": lm}
+_NOT_PORTED = ("encdec", "ssm", "hybrid")
+
+
+def get_family(cfg: ModelConfig) -> ModuleType:
+    """The module that trains ``cfg``'s family."""
+    try:
+        return _FAMILIES[cfg.family]
+    except KeyError:
+        if cfg.family in _NOT_PORTED:
+            raise ValueError(
+                f"family {cfg.family!r} is not ported yet; the port trains "
+                f"{sorted(_FAMILIES)}"
+            ) from None
+        raise ValueError(
+            f"unknown family {cfg.family!r}; available: "
+            f"{sorted(_FAMILIES) + sorted(_NOT_PORTED)}"
+        ) from None
+
+
+def input_specs(cfg: ModelConfig, batch: int, seq: int, *, kind: str = "train"
+                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """``{input name: (shape, dtype)}`` of every model input (nothing
+    allocated). ``kind`` is "train" (tokens, labels and the frontend
+    stubs) or "decode" (one token)."""
+    if kind == "decode":
+        return {"tokens": ((batch, 1), torch.int64)}
+    specs = {"tokens": ((batch, seq), torch.int64),
+             "labels": ((batch, seq), torch.int64)}
+    if cfg.family == "encdec":
+        specs["frames"] = ((batch, cfg.enc_seq, cfg.d_model), cfg.torch_dtype)
+    if cfg.family == "vlm":
+        specs["patches"] = ((batch, cfg.n_patches, cfg.vision_dim),
+                            cfg.torch_dtype)
+    return specs
+
+
+def make_batch(cfg: ModelConfig, batch: int, seq: int,
+               gen: Optional[torch.Generator] = None, device="cuda") -> Dict:
+    """A synthetic batch matching :func:`input_specs`, drawn on the host
+    from ``gen`` (``torch.Generator().manual_seed(0)`` when None) and
+    moved to ``device``."""
+    gen = gen if gen is not None else torch.Generator().manual_seed(0)
+    out = {}
+    for name, (shape, dtype) in input_specs(cfg, batch, seq).items():
+        if dtype == torch.int64:
+            x = torch.randint(0, cfg.vocab, shape, generator=gen)
+        else:
+            x = torch.randn(shape, generator=gen).to(dtype)
+        out[name] = x.to(device)
+    return out

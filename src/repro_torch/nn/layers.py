@@ -1,4 +1,4 @@
-"""Core layers of the dense block (counterpart of ``repro.nn.layers``).
+"""Core layers of the decoder block (counterpart of ``repro.nn.layers``).
 
 Parameters are plain dicts of tensors with the JAX package's names and
 layouts, so a weight tree moves between the two stacks name for name
@@ -26,21 +26,63 @@ def set_fp32_matmul() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _normal(gen: torch.Generator, shape, scale: float, device) -> torch.Tensor:
-    return (scale * torch.randn(shape, generator=gen)).to(device)
+def _normal(gen: torch.Generator, shape, scale: float, device,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``scale * N(0, 1)`` drawn on the host from ``gen`` and moved to
+    ``device``; on the ``meta`` device only the shape (nothing drawn)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return (scale * torch.randn(shape, generator=gen)).to(device, dtype)
 
 
 # ---------------------------------------------------------------------------
-# RMSNorm
+# linear
 # ---------------------------------------------------------------------------
-def rmsnorm_init(dim: int, device) -> Params:
-    return {"scale": torch.ones(dim, device=device)}
+def linear_init(
+    gen: torch.Generator, in_dim: int, out_dim: int, device, *,
+    bias: bool = False, dtype: torch.dtype = torch.float32,
+    scale: Optional[float] = None,
+) -> Params:
+    scale = (in_dim**-0.5) if scale is None else scale
+    p = {"w": _normal(gen, (in_dim, out_dim), scale, device, dtype)}
+    if bias:
+        p["b"] = torch.zeros(out_dim, dtype=dtype, device=device)
+    return p
+
+
+def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+def rmsnorm_init(dim: int, device, dtype: torch.dtype = torch.float32) -> Params:
+    return {"scale": torch.ones(dim, dtype=dtype, device=device)}
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = x.float().square().mean(dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps).to(x.dtype)
     return y * p["scale"].to(x.dtype)
+
+
+def layernorm_init(dim: int, device, dtype: torch.dtype = torch.float32) -> Params:
+    return {"scale": torch.ones(dim, dtype=dtype, device=device),
+            "bias": torch.zeros(dim, dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """The variance is the population variance over the last axis
+    (``unbiased=False``), as ``jnp.var`` takes it."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -126,21 +168,42 @@ def attention_dense(
 # ---------------------------------------------------------------------------
 def attn_init(
     gen: torch.Generator, d_model: int, n_heads: int, n_kv_heads: int,
-    head_dim: int, device,
+    head_dim: int, device, *, qkv_bias: bool = False,
+    dtype: torch.dtype = torch.float32, pad_to: Optional[int] = None,
 ) -> Params:
+    """``pad_to`` creates ``pad_to`` q-heads (and the proportional kv
+    count) whose extra ``wq`` columns and ``wo`` rows are zero, so the
+    function is the unpadded one at init."""
+    n_real = n_heads
+    if pad_to and pad_to > n_heads:
+        ratio = max(1, n_heads // max(1, n_kv_heads))
+        n_heads = pad_to
+        n_kv_heads = max(1, pad_to // ratio)
     s = d_model**-0.5
-    return {
-        "wq": _normal(gen, (d_model, n_heads, head_dim), s, device),
-        "wk": _normal(gen, (d_model, n_kv_heads, head_dim), s, device),
-        "wv": _normal(gen, (d_model, n_kv_heads, head_dim), s, device),
-        "wo": _normal(gen, (n_heads, head_dim, d_model), s, device),
+    p = {
+        "wq": _normal(gen, (d_model, n_heads, head_dim), s, device, dtype),
+        "wk": _normal(gen, (d_model, n_kv_heads, head_dim), s, device, dtype),
+        "wv": _normal(gen, (d_model, n_kv_heads, head_dim), s, device, dtype),
+        "wo": _normal(gen, (n_heads, head_dim, d_model), s, device, dtype),
     }
+    if n_heads > n_real:
+        p["wq"][:, n_real:, :] = 0.0
+        p["wo"][n_real:, :, :] = 0.0
+    if qkv_bias:
+        p["bq"] = torch.zeros((n_heads, head_dim), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((n_kv_heads, head_dim), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((n_kv_heads, head_dim), dtype=dtype, device=device)
+    return p
 
 
 def attn_qkv(p: Params, x: torch.Tensor):
     q = torch.einsum("bse,ehd->bshd", x, p["wq"].to(x.dtype))
     k = torch.einsum("bse,ehd->bshd", x, p["wk"].to(x.dtype))
     v = torch.einsum("bse,ehd->bshd", x, p["wv"].to(x.dtype))
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
     return q, k, v
 
 
@@ -149,22 +212,34 @@ def attn_out(p: Params, ctx: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# SwiGLU MLP
+# MLP (SwiGLU or GeLU)
 # ---------------------------------------------------------------------------
-def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, device) -> Params:
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, device, *,
+             act: str = "swiglu", dtype: torch.dtype = torch.float32) -> Params:
     s = d_model**-0.5
     so = d_ff**-0.5
+    if act == "swiglu":
+        return {
+            "wg": _normal(gen, (d_model, d_ff), s, device, dtype),
+            "wu": _normal(gen, (d_model, d_ff), s, device, dtype),
+            "wd": _normal(gen, (d_ff, d_model), so, device, dtype),
+        }
     return {
-        "wg": _normal(gen, (d_model, d_ff), s, device),
-        "wu": _normal(gen, (d_model, d_ff), s, device),
-        "wd": _normal(gen, (d_ff, d_model), so, device),
+        "wu": _normal(gen, (d_model, d_ff), s, device, dtype),
+        "wd": _normal(gen, (d_ff, d_model), so, device, dtype),
     }
 
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    h = torch.nn.functional.silu(x @ p["wg"].to(x.dtype)) * (
-        x @ p["wu"].to(x.dtype)
-    )
+def mlp(p: Params, x: torch.Tensor, *, act: str = "swiglu") -> torch.Tensor:
+    """``act="gelu"`` is the tanh approximation, ``jax.nn.gelu``'s default
+    (``torch.nn.functional.gelu`` defaults to the erf form)."""
+    if act == "swiglu":
+        h = torch.nn.functional.silu(x @ p["wg"].to(x.dtype)) * (
+            x @ p["wu"].to(x.dtype)
+        )
+    else:
+        h = torch.nn.functional.gelu(x @ p["wu"].to(x.dtype),
+                                     approximate="tanh")
     return h @ p["wd"].to(x.dtype)
 
 
@@ -173,13 +248,16 @@ def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def embed_init(
     gen: torch.Generator, vocab: int, d_model: int, device,
-    scale: float = 0.02,
+    scale: float = 0.02, dtype: torch.dtype = torch.float32,
 ) -> Params:
-    return {"embedding": _normal(gen, (vocab, d_model), scale, device)}
+    return {"embedding": _normal(gen, (vocab, d_model), scale, device, dtype)}
 
 
-def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embedding"][tokens]
+def embed(p: Params, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
+    e = p["embedding"]
+    if dtype is not None:
+        e = e.to(dtype)
+    return e[tokens]
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:

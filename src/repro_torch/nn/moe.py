@@ -1,0 +1,172 @@
+"""Mixture-of-Experts layer (counterpart of ``repro.nn.moe``): GShard-style
+capacity routing with a one-hot (``"einsum"``) or a row (``"gather"``)
+dispatch, shared experts, and the Switch load-balance loss.
+
+The routing follows the JAX package step for step:
+
+* the tokens are cut into groups of ``group_size``; the last group is
+  padded with zero rows, and those rows route too (their logits are 0, so
+  their probabilities tie and they take experts ``0 .. top_k-1``, slots
+  and a share of ``f_e``), as the JAX layer routes them;
+* the top-k of each token's probabilities is ``lax.top_k``'s, ties to the
+  lowest expert (``core.selectors.topk_stable``; ``torch.topk`` documents
+  no tie order);
+* a (token, choice) takes the next slot of its expert's buffer in token
+  order, and is dropped at ``capacity = max(1, int(g * top_k *
+  capacity_factor / E))`` (``g`` with ``no_drop``), the capacity taken in
+  Python floats;
+* the constant divisions (``f_e``'s ``/ (g * top_k)``, the means over the
+  group's tokens and over the groups) are products with the float32
+  reciprocal, as XLA computes them under ``jit``
+  (``kernels.regtopk_score.const_div``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.selectors import topk_stable
+from repro_torch.kernels.regtopk_score import const_div, ordered_mean
+from repro_torch.nn.layers import _normal
+
+Params = Dict[str, torch.Tensor]
+
+MOE_DISPATCHES = ("einsum", "gather")
+
+
+def moe_init(
+    gen: torch.Generator, d_model: int, d_ff: int, n_experts: int, device, *,
+    n_shared: int = 0, shared_d_ff: Optional[int] = None,
+    dtype: torch.dtype = torch.float32,
+) -> Params:
+    """``router [D, E]``, the experts' ``wg``/``wu [E, D, F]`` and ``wd [E,
+    F, D]``, and, with ``n_shared``, one SwiGLU ``shared`` block of width
+    ``shared_d_ff`` (default ``n_shared * d_ff``)."""
+    s = d_model**-0.5
+    so = d_ff**-0.5
+    p = {
+        "router": _normal(gen, (d_model, n_experts), s, device, dtype),
+        "wg": _normal(gen, (n_experts, d_model, d_ff), s, device, dtype),
+        "wu": _normal(gen, (n_experts, d_model, d_ff), s, device, dtype),
+        "wd": _normal(gen, (n_experts, d_ff, d_model), so, device, dtype),
+    }
+    if n_shared:
+        sf = shared_d_ff or (n_shared * d_ff)
+        p["shared"] = {
+            "wg": _normal(gen, (d_model, sf), s, device, dtype),
+            "wu": _normal(gen, (d_model, sf), s, device, dtype),
+            "wd": _normal(gen, (sf, d_model), sf**-0.5, device, dtype),
+        }
+    return p
+
+
+def _expert_ffn(p: Params, xe: torch.Tensor) -> torch.Tensor:
+    """``xe [E, C, D] -> [E, C, D]``, SwiGLU per expert."""
+    h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["wg"].to(xe.dtype)))
+    h = h * torch.einsum("ecd,edf->ecf", xe, p["wu"].to(xe.dtype))
+    return torch.einsum("ecf,efd->ecd", h, p["wd"].to(xe.dtype))
+
+
+def capacity(g: int, top_k: int, capacity_factor: float, n_experts: int,
+             no_drop: bool = False) -> int:
+    """Slots per expert in a group of ``g`` tokens.
+
+    >>> capacity(1024, 6, 1.25, 64)
+    120
+    >>> capacity(3, 1, 0.5, 4), capacity(3, 1, 0.5, 4, no_drop=True)
+    (1, 3)
+    """
+    if no_drop:
+        return g
+    return max(1, int(g * top_k * capacity_factor / n_experts))
+
+
+def route(probs: torch.Tensor, top_k: int, cap: int):
+    """Routing of one group: ``(gate_vals [g, k], gate_idx [g, k], pos [g,
+    k], keep [g, k])``: the renormalized top-k gates, their experts (ties
+    to the lowest expert), each choice's slot in its expert's buffer in
+    (token, choice) order, and whether that slot is below ``cap``."""
+    g, E = probs.shape
+    gate_vals, gate_idx = topk_stable(probs, top_k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    flatoh = F.one_hot(gate_idx, E).reshape(g * top_k, E)
+    pos = torch.cumsum(flatoh, dim=0) - flatoh
+    pos = (pos * flatoh).sum(-1).reshape(g, top_k)
+    return gate_vals, gate_idx, pos, pos < cap
+
+
+def _group(p: Params, xs: torch.Tensor, top_k: int, cap: int, dispatch: str):
+    """One group's ``(out [g, D], aux)``."""
+    g, D = xs.shape
+    E = p["router"].shape[-1]
+    logits = xs.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx, pos, keep = route(probs, top_k, cap)
+    if dispatch == "gather":
+        # each kept (token, choice) row written to its unique slot, the
+        # dropped ones parked in one extra row that is cut off
+        slot = torch.where(keep, gate_idx * cap + pos, E * cap).reshape(-1)
+        tok = torch.arange(g, device=xs.device).repeat_interleave(top_k)
+        xe_flat = torch.zeros((E * cap + 1, D), dtype=xs.dtype,
+                              device=xs.device).index_put((slot,), xs[tok])
+        ye = _expert_ffn(p, xe_flat[: E * cap].reshape(E, cap, D))
+        ye_flat = torch.cat([ye.reshape(E * cap, D),
+                             torch.zeros((1, D), dtype=ye.dtype, device=ye.device)])
+        picked = ye_flat[slot].reshape(g, top_k, D)
+        out = torch.einsum("gk,gkd->gd", (gate_vals * keep).to(xs.dtype), picked)
+    elif dispatch == "einsum":
+        # the GShard one-hot [g, E, cap] dispatch and combine tensors; a
+        # slot at or past cap has no one-hot column, as jax.nn.one_hot
+        # gives it none
+        experts = torch.arange(E, device=xs.device)
+        slots = torch.arange(cap, device=xs.device)
+        disp = torch.zeros((g, E, cap), dtype=xs.dtype, device=xs.device)
+        comb = torch.zeros_like(disp)
+        for c in range(top_k):
+            oh = ((gate_idx[:, c, None] == experts).to(xs.dtype)[:, :, None]
+                  * (pos[:, c, None] == slots).to(xs.dtype)[:, None, :])
+            oh = oh * keep[:, c, None, None].to(xs.dtype)
+            disp = disp + oh
+            comb = comb + oh * gate_vals[:, c, None, None].to(xs.dtype)
+        xe = torch.einsum("tec,td->ecd", disp, xs)
+        out = torch.einsum("tec,ecd->td", comb, _expert_ffn(p, xe))
+    else:
+        raise ValueError(
+            f"unknown moe dispatch {dispatch!r}; available: {MOE_DISPATCHES}"
+        )
+    # Switch aux loss: E * sum_e f_e * p_e
+    counts = torch.bincount(gate_idx.reshape(-1), minlength=E)
+    f_e = const_div(counts.float(), float(g * top_k))
+    p_e = const_div(probs.sum(0), float(g))
+    aux = E * torch.sum(f_e * p_e)
+    return out, aux
+
+
+def moe_apply(
+    p: Params, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
+    group_size: int = 4096, no_drop: bool = False, dispatch: str = "einsum",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x [B, S, D]`` → ``(y [B, S, D], aux)``, the Switch load-balance
+    loss averaged over the groups. ``no_drop`` sets the capacity to the
+    group size (serving never drops a token)."""
+    B, S, D = x.shape
+    E = p["router"].shape[-1]
+    xt = x.reshape(B * S, D)
+    T = xt.shape[0]
+    g = min(group_size, T)
+    n_groups = -(-T // g)
+    pad = n_groups * g - T
+    if pad:
+        xt = F.pad(xt, (0, 0, 0, pad))
+    cap = capacity(g, top_k, capacity_factor, E, no_drop)
+    outs, auxs = zip(*(_group(p, xt[i * g:(i + 1) * g], top_k, cap, dispatch)
+                       for i in range(n_groups)), strict=True)
+    y = torch.cat(outs)[:T].reshape(B, S, D)
+    if "shared" in p:
+        sp = p["shared"]
+        h = F.silu(x @ sp["wg"].to(x.dtype)) * (x @ sp["wu"].to(x.dtype))
+        y = y + h @ sp["wd"].to(x.dtype)
+    return y, ordered_mean(torch.stack(auxs))

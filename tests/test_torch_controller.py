@@ -61,7 +61,7 @@ def test_bounds_and_init_match_jax(kw):
         if isinstance(outcome(jc_), tuple):
             lo, hi = jc_.bounds(length)
             for k0 in (0, lo, hi, hi + 5):
-                got, want = tc_.init(k0, lo, hi), jc_.init(k0, lo, hi)
+                got, want = tc_.init(k0, lo, hi, device="cpu"), jc_.init(k0, lo, hi)
                 assert got.k.dtype == torch.int32 and got.err_ratio.dtype == torch.float32
                 assert (int(got.k), int(got.t), float(got.err_ratio)) == (
                     int(want.k), int(want.t), float(want.err_ratio))
@@ -113,7 +113,7 @@ def test_observe_trajectory_matches_jax(kw):
     eps = rng.uniform(0.0, 2.0, 60).astype(np.float32) * jc_.budget
     gn = rng.uniform(0.5, 1.5, 60).astype(np.float32)
     gn[7] = 0.0  # the tiny floor
-    tst, jst = tc_.init(10, lo, hi), jc_.init(10, lo, hi)
+    tst, jst = tc_.init(10, lo, hi, device="cpu"), jc_.init(10, lo, hi)
     jobs = jax.jit(lambda s, e, g: jc_.observe(s, e, g, k_min=lo, k_max=hi))
     ks = []
     for e, g in zip(eps, gn, strict=True):

@@ -215,3 +215,54 @@ def test_zero_score_candidates_never_certify():
         vals[0].numpy().view(np.uint32), np.asarray(jvals).view(np.uint32))
     assert idx[0, 3:].tolist() == [0, 1, 2]
     assert (vals[0].view(torch.int32)[3:] == 0).all()
+
+
+@pytest.mark.parametrize("length,fusable", [
+    (2**31 - 8192, True), (2**31 - 1, True), (2**31, False),
+    (40 * 5120 * 17920, False),  # phi3-medium-14b's stacked layers.mlp.wg
+])
+def test_shape_fusable_refuses_leaves_beyond_int32(length, fusable):
+    """Kernel 1 writes int32 flat indices, so a leaf of 2**31 elements or
+    more stays unfused, with a reason (lengths only: no tensor is made);
+    ``leaf_fused`` and ``build_plan`` (over shapes on the meta device)
+    follow, and a plan that marks such a leaf fused is refused."""
+    from repro_torch.comm import fastpath as fp
+    from repro_torch.core import distributed as td
+    from repro_torch.core.sparsify import SparsifierConfig
+
+    k = max(1, length // 1000)
+    ok, why = fp.shape_fusable(length, k)
+    assert ok == fusable
+    if not fusable:
+        assert why == f"a {length}-element leaf has flat indices beyond int32"
+    assert fp.leaf_fused("on", "coo_fp32", "sparse_allgather", length, k) == fusable
+    dist = td.DistConfig(sparsifier=SparsifierConfig(kind="regtopk",
+                                                     sparsity=0.001),
+                         fastpath="on")
+    plan = td.build_plan({"w": torch.empty(length, device="meta")}, 0.001, dist)
+    assert plan["w"].fused == fusable
+    if not fusable:
+        with pytest.raises(ValueError, match="beyond int32"):
+            td.make_sparsify_aggregate(
+                {"w": plan["w"]._replace(fused=True)}, dist, 2)
+
+
+def test_phi3_plan_keeps_its_largest_leaves_unfused():
+    """At full depth phi3-medium-14b's stacked MLP leaves hold 3.67e9
+    elements each: ``--fastpath on`` plans them unfused and fuses the
+    rest."""
+    from repro_torch import configs
+    from repro_torch.core import distributed as td
+    from repro_torch.core.sparsify import SparsifierConfig
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_items
+
+    params = lm.init(configs.get_config("phi3-medium-14b"), device="meta")
+    dist = td.DistConfig(sparsifier=SparsifierConfig(kind="regtopk",
+                                                     sparsity=0.001),
+                         fastpath="on")
+    plan = dict(tree_items(td.build_plan(params, 0.001, dist)))
+    unfused = sorted(path for path, p in plan.items() if not p.fused)
+    assert unfused == ["layers.mlp.wd", "layers.mlp.wg", "layers.mlp.wu"]
+    assert all(p.local_len >= 2**31 for path, p in plan.items()
+               if path in unfused)

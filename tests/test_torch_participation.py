@@ -64,7 +64,7 @@ def test_straggler_masks_match_jax_exactly(n):
     for kind, kw in _straggler_schedules(n):
         tpart, jpart = _pair(kind, **kw)
         for r in ROUNDS:
-            got = tpart.round_mask(r, n)
+            got = tpart.round_mask(r, n, device="cpu")
             assert got.dtype == torch.float32 and got.shape == (n,)
             np.testing.assert_array_equal(
                 _bits(got), _bits(jpart.round_mask(r, n)), err_msg=f"{kind} {kw} r={r}")
@@ -94,7 +94,7 @@ def test_far_round_wraps_as_jax_does():
     tpart, jpart = _pair("round_robin", n_stragglers=3)
     for r in (2**31 // 3 - 1, 2**31 // 3 + 5, 2**31 - 1):
         np.testing.assert_array_equal(
-            tpart.round_mask(r, 7).numpy(), np.asarray(jpart.round_mask(r, 7)))
+            tpart.round_mask(r, 7, device="cpu").numpy(), np.asarray(jpart.round_mask(r, 7)))
 
 
 SCHEDULES = [
@@ -173,15 +173,16 @@ def test_bernoulli_draws_keep_the_jax_invariants():
     p = tp.Participation("bernoulli", drop_rate=0.5, seed=7)
     n, drops = 8, []
     for r in range(400):
-        m = p.round_mask(r, n)
+        m = p.round_mask(r, n, device="cpu")
         assert set(m.unique().tolist()) <= {0.0, 1.0}
         assert m[r % n] == 1.0  # the rotating liveness worker
-        assert torch.equal(m, p.round_mask(r, n))  # common knowledge
+        assert torch.equal(m, p.round_mask(r, n, device="cpu"))  # common knowledge
         drops.append(float((1 - m).sum()))
     # (N - 1) * drop_rate workers drop on average
     assert np.mean(drops) == pytest.approx(7 * 0.5, abs=0.3)
     other = tp.Participation("bernoulli", drop_rate=0.5, seed=8)
-    assert any(not torch.equal(p.round_mask(r, n), other.round_mask(r, n))
+    assert any(not torch.equal(p.round_mask(r, n, device="cpu"),
+                               other.round_mask(r, n, device="cpu"))
                for r in range(10))
     assert p.round_mask(3, n, device="cpu").device.type == "cpu"
 
@@ -191,11 +192,11 @@ def test_sampled_cohort_keeps_the_jax_invariants(n, s):
     p = tp.Participation("sampled", n_sampled=s, seed=1)
     seen = set()
     for r in range(30):
-        c = p.round_participants(r, n)
+        c = p.round_participants(r, n, device="cpu")
         assert c.shape == (s,) and c.dtype == torch.int64
         assert bool((c[1:] > c[:-1]).all()) and 0 <= int(c[0]) and int(c[-1]) < n
-        assert torch.equal(c, p.round_participants(r, n))
-        mask = p.round_mask(r, n)
+        assert torch.equal(c, p.round_participants(r, n, device="cpu"))
+        mask = p.round_mask(r, n, device="cpu")
         assert torch.equal(torch.nonzero(mask)[:, 0], c)
         seen.update(c.tolist())
     if s < n:
@@ -233,7 +234,8 @@ def test_reference_forms_with_participation_match_jax(coll, codec, n, r,
     reference forms, against JAX's on the same payloads."""
     vals, idx = _payload_inputs(n, 10 * n + r)
     masks = [
-        tp.Participation("round_robin", n_stragglers=2).round_mask(r, n).numpy(),
+        tp.Participation("round_robin", n_stragglers=2).round_mask(
+            r, n, device="cpu").numpy(),
         (np.arange(n) % 2 == 0).astype(np.float32),
     ]
     tcd, jcd = get_codec(codec), jax_codec(codec)
@@ -275,7 +277,7 @@ def test_full_schedule_is_the_full_round_bit_for_bit(coll):
     pay = cd.encode(torch.from_numpy(vals), torch.from_numpy(idx).long(), L)
     c = tcoll.get_collective(coll)
     full = c.reference(cd, pay, 1.0 / n, L)
-    ones = tp.Participation("full").round_mask(5, n)
+    ones = tp.Participation("full").round_mask(5, n, device="cpu")
     assert torch.equal(ones, torch.ones(n))
     assert torch.equal(
         c.reference(cd, pay, torch.full((n,), 1.0 / n), L, participation=ones), full)

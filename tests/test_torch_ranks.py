@@ -270,7 +270,7 @@ def _jax_rounds(n, name):
              for leaf, s in SHAPES.items()}
     if part and part.kind == "bernoulli":
         table = jnp.asarray(np.stack([
-            tpart.parse_participation(pspec).round_mask(r, n).numpy()
+            tpart.parse_participation(pspec).round_mask(r, n, device="cpu").numpy()
             for r in range(ROUNDS)]))
         round_mask = lambda r: table[r]  # noqa: E731
     elif part:

@@ -357,13 +357,13 @@ def _share_masks(monkeypatch, part, n, rounds):
     round_robin and stale masks need no sharing (they are exact)."""
     from repro.comm.participation import Participation as JaxParticipation
 
-    masks = jnp.asarray(np.stack([part.round_mask(r, n).numpy()
+    masks = jnp.asarray(np.stack([part.round_mask(r, n, device="cpu").numpy()
                                   for r in range(rounds)]))
     monkeypatch.setattr(JaxParticipation, "round_mask",
                         lambda self, r, n_workers: masks[r])
     if part.kind == "sampled":
         cohorts = jnp.asarray(np.stack([
-            part.round_participants(r, n).numpy().astype(np.int32)
+            part.round_participants(r, n, device="cpu").numpy().astype(np.int32)
             for r in range(rounds)]))
         monkeypatch.setattr(JaxParticipation, "round_participants",
                             lambda self, r, n_workers: cohorts[r])
@@ -518,7 +518,8 @@ def test_sampled_idle_clients_are_untouched(linreg):
     st = sim.init(torch.zeros(64))
     for r in range(6):
         new, _ = sim.step_fn(st)
-        idle = [w for w in range(4) if w not in part.round_participants(r, 4).tolist()]
+        cohort = part.round_participants(r, 4, device="cpu").tolist()
+        idle = [w for w in range(4) if w not in cohort]
         for x, y in zip(st.worker_states, new.worker_states, strict=True):
             assert torch.equal(x[idle], y[idle])
         st = new
