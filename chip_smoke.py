@@ -151,27 +151,34 @@ Phases, each raising on failure (the script then exits non-zero):
               Adam (weight decay, clip, warmup, bf16 moments), fastpath on
               against off; (e) --aggregation dense_allreduce against
               --collective dense_allreduce.
-13. families — the dense, MoE and VLM decoders at published widths,
-              RegTop-k at S = 0.01 with the fastpath on, 3 steps each:
-              internvl2-1b (all 24 layers, through train.run's flags; W =
-              4, batch 8 x 512 behind a 256-patch prefix), qwen2.5-3b (6 of
-              36 layers; W = 2, batch 4 x 512) and deepseek-moe-16b (1 of
-              28 layers; W = 2, batch 4 x 512), the depth cut where the
-              card's 80 GB forces it, the cut configs driven through
-              build_plan and make_train_step: finite losses, kernel 1's
-              launches = steps x fused leaves, the certificate hit rate,
-              the peak device memory beside the reckoned one, one more step
-              from the trained state with the fastpath on == off (payload
-              indices and values bit-equal), the step time on and off
-              (host clock, median of 3) and one profiled step; then the
-              smoke variants of qwen2.5-3b, deepseek-moe-16b, internvl2-1b
-              and mixtral-8x7b (W = 2, 3 steps) on the card against the
-              same runs on the CPU, losses within 1e-4 relative.
+13. families — the model families at published widths, RegTop-k at
+              S = 0.01 with the fastpath on, 3 steps each: internvl2-1b
+              (all 24 layers, through train.run's flags; W = 4, batch 8 x
+              512 behind a 256-patch prefix), qwen2.5-3b (6 of 36 layers;
+              W = 2, batch 4 x 512), deepseek-moe-16b (1 of 28 layers;
+              W = 2, batch 4 x 512), whisper-tiny (all 4 + 4 layers,
+              through train.run's flags; W = 8, batch 16 x 448 decoder
+              tokens over 1500 encoder frames), mamba2-780m (all 48
+              layers, through train.run's flags; W = 2, batch 4 x 512) and
+              zamba2-7b (8 of 81 layers: one group of five mamba blocks and
+              the shared attention block, then two trailing blocks; W = 2,
+              batch 4 x 512), the depth cut where the card's 80 GB forces
+              it, the cut configs driven through build_plan and
+              make_train_step: finite losses, kernel 1's launches = steps
+              x fused leaves, the certificate hit rate, the peak device
+              memory beside the reckoned one, one more step from the
+              trained state with the fastpath on == off (payload indices
+              and values bit-equal), the step time on and off (host clock,
+              median of 3) and one profiled step; then the smoke variants
+              of qwen2.5-3b, deepseek-moe-16b, internvl2-1b, mixtral-8x7b,
+              whisper-tiny, mamba2-780m and zamba2-7b (W = 2, 3 steps) on
+              the card against the same runs on the CPU, losses within
+              1e-4 relative.
 
 Each kernel's launch count is set to 0 just before the path that runs it
 (select: ``count_above``, ``global_max``, ``block_topk_candidates``;
 trainer, each fused wire run, each run of every rank, each of phase
-10's, 11's and 12's trainer runs and phase 13's three training runs:
+10's, 11's and 12's trainer runs and phase 13's six training runs:
 ``fused_candidates``; sim, the wire
 simulator's fastpath-on run and phase 10's and phase 11's simulator runs:
 ``regtopk_score``) and read just after; the
@@ -855,9 +862,10 @@ def turn_times(runs: dict, label: str, reps: int = 5):
 def profile_step(run, step_ms: float) -> dict:
     """One training step under torch.profiler: the device time of its
     kernels, their share of the unprofiled step time ``step_ms``, and the
-    heaviest kernels."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    heaviest kernels. Only the device activity is traced: the host's
+    operator events added 16–18 s to each profiled step of phase 13's
+    larger runs and are not read here."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         run()
@@ -2631,20 +2639,28 @@ def phase_options(smi: str, ckpt_dir=None) -> dict:
     return out
 
 
-# phase 13: the decoder families at published widths. Each run: (the
-# config, the layers it runs (None: all), W, global batch, sequence, and
-# whether it goes through train.run's flags). The depth is cut only where
-# the card's 80 GB forces it.
+# phase 13: the model families at published widths. Each run: the layers
+# it runs (None: all, through train.run's flags; else build_plan and
+# make_train_step on the depth-cut config), W, the global batch and the
+# sequence (FAMILY_SEQ unless given). The depth is cut only where the
+# card's 80 GB forces it.
 FAMILY_STEPS = 3
 FAMILY_SEQ = 512
 FAMILY_RUNS = {
     "internvl2-1b": dict(layers=None, workers=4, batch=8),
     "qwen2.5-3b": dict(layers=6, workers=2, batch=4),
     "deepseek-moe-16b": dict(layers=1, workers=2, batch=4),
+    # Whisper's text context: 448 decoder tokens over 1500 encoder frames
+    "whisper-tiny": dict(layers=None, workers=8, batch=16, seq=448),
+    "mamba2-780m": dict(layers=None, workers=2, batch=4),
+    # one group (five mamba blocks and the shared attention block), then
+    # two trailing blocks
+    "zamba2-7b": dict(layers=8, workers=2, batch=4),
 }
 # the smoke variants held on the card against the CPU: one config per
 # family, and mixtral-8x7b (sliding windows, MoE without shared experts)
-FAMILY_SMOKE = ("qwen2.5-3b", "deepseek-moe-16b", "internvl2-1b", "mixtral-8x7b")
+FAMILY_SMOKE = ("qwen2.5-3b", "deepseek-moe-16b", "internvl2-1b", "mixtral-8x7b",
+                "whisper-tiny", "mamba2-780m", "zamba2-7b")
 FAMILY_SPARSITY = 0.01
 FAMILY_LR = 1e-3
 
@@ -2680,7 +2696,7 @@ def _family_train(arch: str, run: dict):
     from repro_torch.models import get_family
     from repro_torch.optim import OptConfig, make_optimizer
 
-    W, B = run["workers"], run["batch"]
+    W, B, S = run["workers"], run["batch"], run.get("seq", FAMILY_SEQ)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fe.fused_candidates.launches = 0
@@ -2689,7 +2705,7 @@ def _family_train(arch: str, run: dict):
     if run["layers"] is None:
         args = train.parse_args([
             "--arch", arch, "--workers", str(W), "--global-batch", str(B),
-            "--seq", str(FAMILY_SEQ), "--steps", str(FAMILY_STEPS),
+            "--seq", str(S), "--steps", str(FAMILY_STEPS),
             "--sparsifier", "regtopk", "--sparsity", str(FAMILY_SPARSITY),
             "--lr", str(FAMILY_LR), "--fastpath", "on", "--log-every", "1",
             "--device", DEVICE])
@@ -2709,7 +2725,7 @@ def _family_train(arch: str, run: dict):
         step = td.make_train_step(cfg, dist, plan, W, counts)
         opt_state = make_optimizer(dist.optimizer).init(params)
         sp = td.init_sparsifier_state(plan, W, DEVICE)
-        pipe = TokenPipeline(cfg, B, FAMILY_SEQ, 0, DEVICE)
+        pipe = TokenPipeline(cfg, B, S, 0, DEVICE)
         losses = []
         for t in range(FAMILY_STEPS):
             params, opt_state, sp, m = step(params, opt_state, sp, pipe.batch_at(t))
@@ -2721,7 +2737,8 @@ def _family_train(arch: str, run: dict):
             fe.fused_candidates.launches, seconds, torch.cuda.max_memory_allocated())
 
 
-def _family_on_off(cfg, params, opt_state, sp, W: int, B: int, smi: str):
+def _family_on_off(cfg, params, opt_state, sp, W: int, B: int, S: int,
+                   smi: str):
     """One more step from the trained state with the fastpath on and off:
     the payload indices and values of every leaf in bits (each step's
     outputs dropped but the payloads, so the card holds one step's state
@@ -2733,7 +2750,8 @@ def _family_on_off(cfg, params, opt_state, sp, W: int, B: int, smi: str):
     from repro_torch.optim import OptConfig
     from repro_torch.tree import tree_items
 
-    batch = TokenPipeline(cfg, B, FAMILY_SEQ, 1, DEVICE).batch_at(0)
+    batch = TokenPipeline(cfg, B, S, 1, DEVICE).batch_at(0)
+    stage_s, t_stage = {}, time.perf_counter()
     steps, sent = {}, {}
     for mode in ("on", "off"):
         dist = td.DistConfig(
@@ -2752,10 +2770,12 @@ def _family_on_off(cfg, params, opt_state, sp, W: int, B: int, smi: str):
             raise AssertionError(f"families {cfg.name}: {path}: fastpath on/off "
                                  "payloads differ")
     del sent
+    stage_s["check"] = time.perf_counter() - t_stage
 
     def run(mode):
         steps[mode](params, opt_state, sp, batch)
 
+    t_stage = time.perf_counter()
     times = {"on": [], "off": []}
     for _ in range(3):
         for mode in ("on", "off"):
@@ -2765,11 +2785,16 @@ def _family_on_off(cfg, params, opt_state, sp, W: int, B: int, smi: str):
             torch.cuda.synchronize()
             times[mode].append(1e3 * (time.perf_counter() - t0))
     step_ms = {mode: statistics.median(ts) for mode, ts in times.items()}
+    stage_s["timing"] = time.perf_counter() - t_stage
+    t_stage = time.perf_counter()
     prof = profile_step(lambda: run("on"), step_ms["on"])
+    stage_s["profile"] = time.perf_counter() - t_stage
     log(f"families {cfg.name}: one step from the trained state, fastpath on == "
         f"off (payload indices and values bit-equal); step {step_ms['on']:.1f} ms "
-        f"on, {step_ms['off']:.1f} ms off (host clock, median of 3; {smi})")
-    return {"step_ms": step_ms, "samples_ms": times, "profile": prof}
+        f"on, {step_ms['off']:.1f} ms off (host clock, median of 3; {smi}); "
+        f"stages {json.dumps({k: round(v, 1) for k, v in stage_s.items()})} s")
+    return {"step_ms": step_ms, "samples_ms": times, "profile": prof,
+            "stage_seconds": stage_s}
 
 
 def families_smoke() -> dict:
@@ -2795,14 +2820,13 @@ def families_smoke() -> dict:
 
 
 def phase_families(smi: str) -> dict:
-    """Phase 13: the dense, MoE and VLM decoders at published widths (see
-    the module docstring), kernel 1's launches counted over the three
-    training runs."""
+    """Phase 13: the model families at published widths (see the module
+    docstring), kernel 1's launches counted over the training runs."""
     from repro_torch.tree import tree_leaves
 
     out, launches, t_phase = {}, 0, time.perf_counter()
     for arch, run in FAMILY_RUNS.items():
-        W, B = run["workers"], run["batch"]
+        W, B, S = run["workers"], run["batch"], run.get("seq", FAMILY_SEQ)
         (cfg, params, opt_state, sp, plan, losses, counts, n, seconds,
          peak) = _family_train(arch, run)
         if len(losses) != FAMILY_STEPS or not all(math.isfinite(x) for x in losses):
@@ -2817,8 +2841,10 @@ def phase_families(smi: str) -> dict:
         reckoned = _reckoned_bytes(params, W)
         depth = ("all" if run["layers"] is None else
                  f"{run['layers']} of {_full_layers(arch)}")
-        log(f"families {arch}: {depth} layers, W = {W}, batch {B} x {FAMILY_SEQ}"
-            f"{' (+' + str(cfg.n_patches) + ' patches)' if cfg.n_patches else ''}; "
+        extra = (f" (+{cfg.n_patches} patches)" if cfg.family == "vlm" else
+                 f" (over {cfg.enc_seq} encoder frames)"
+                 if cfg.family == "encdec" else "")
+        log(f"families {arch}: {depth} layers, W = {W}, batch {B} x {S}{extra}; "
             f"{n_params:,} parameters, largest leaf {largest:,}; {FAMILY_STEPS} "
             f"steps in {seconds:.2f} s, losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
             f"{n} kernel 1 launches ({n_fused}/{len(tree_leaves(plan))} leaves "
@@ -2826,7 +2852,7 @@ def phase_families(smi: str) -> dict:
             f"({counts.rounds - counts.fallbacks}/{counts.rounds}); peak "
             f"{peak / 1e9:.2f} GB allocated (reckoned {reckoned / 1e9:.2f} GB)")
         row = {"layers": cfg.n_layers, "full_layers": _full_layers(arch),
-               "workers": W, "batch": B, "seq": FAMILY_SEQ, "losses": losses,
+               "workers": W, "batch": B, "seq": S, "losses": losses,
                "launches": n, "fused_leaves": n_fused,
                "leaves": len(tree_leaves(plan)), "hit_rate": counts.hit_rate,
                "rounds": counts.rounds, "fallbacks": counts.fallbacks,
@@ -2834,7 +2860,7 @@ def phase_families(smi: str) -> dict:
                "peak_bytes": peak, "reckoned_bytes": reckoned}
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        row.update(_family_on_off(cfg, params, opt_state, sp, W, B, smi))
+        row.update(_family_on_off(cfg, params, opt_state, sp, W, B, S, smi))
         row["check_peak_bytes"] = torch.cuda.max_memory_allocated()
         out[arch] = row
         del params, opt_state, sp, plan
@@ -2926,6 +2952,7 @@ def main(argv=None) -> int:
         print(json.dumps(ab_times()), flush=True)
         return 0
 
+    t_script = time.perf_counter()
     device_name, smi = phase_device()
     builds = phase_build()
     kernels = phase_kernels()
@@ -2993,10 +3020,13 @@ def main(argv=None) -> int:
             "bound_by": "bytes",
             "library_ms": wide[kernel]["library_ms"],
         })
+    seconds = time.perf_counter() - t_script
+    log(f"chip_smoke: every phase passed in {seconds:.1f} s")
     if args.details is not None:
         args.details.parent.mkdir(parents=True, exist_ok=True)
         args.details.write_text(json.dumps(
-            {"device": device_name, "nvidia_smi": smi, "build_seconds": builds,
+            {"device": device_name, "nvidia_smi": smi, "seconds": seconds,
+             "build_seconds": builds,
              "kernels": kernels, "score": score, "select": select,
              "trainer": trainer, "sim": sim, "wire": wire, "ranks": ranks,
              "stragglers": stragglers, "planners": planners,

@@ -3,9 +3,7 @@ and sources (counterpart of ``repro.configs``), and the input shapes.
 
 Select with ``--arch <id>``: ``ARCHS[id]()`` returns the full
 ``ModelConfig``, ``ARCHS[id]().smoke_variant()`` the reduced CPU-test
-variant. ``ARCHS`` keeps the JAX package's order; the ``encdec``, ``ssm``
-and ``hybrid`` configs (``whisper-tiny``, ``mamba2-780m``, ``zamba2-7b``)
-are not ported yet.
+variant. ``ARCHS`` holds the JAX package's configs in its order.
 """
 from __future__ import annotations
 
@@ -15,9 +13,12 @@ from typing import Callable, Dict, Tuple
 from repro_torch.models.config import ModelConfig
 
 _ARCH_MODULES = [
+    "whisper_tiny",
     "qwen2_5_3b",
     "internvl2_1b",
+    "mamba2_780m",
     "chatglm3_6b",
+    "zamba2_7b",
     "mixtral_8x7b",
     "deepseek_moe_16b",
     "granite_3_8b",

@@ -4,8 +4,9 @@ stream of the trainer and the paper's distributed linear regression
 
 Same structure as the JAX pipeline: Zipf-ish token marginals from a
 squared uniform, and labels that repeat the token three back with
-probability 0.5 (else the next token); a ``vlm`` config's batch also
-holds the vision stub's ``patches``. Each batch is a pure function of
+probability 0.5 (else the next token); an ``encdec`` config's batch
+also holds the audio stub's ``frames``, a ``vlm`` config's the vision
+stub's ``patches``. Each batch is a pure function of
 ``(seed, step)``: it is drawn on the CPU from a ``torch.Generator`` seeded
 from that pair and then moved to ``device``, so every device sees the same
 batches. torch cannot reproduce ``jax.random`` streams, so the numbers
@@ -39,6 +40,11 @@ class TokenPipeline:
         recent = torch.roll(tokens, 3, dims=1)
         labels = torch.where(flip, recent, torch.roll(tokens, -1, dims=1))
         out = {"tokens": tokens, "labels": labels}
+        if self.cfg.family == "encdec":
+            # the audio stub's frame embeddings, the encoder's input
+            out["frames"] = 0.1 * torch.randn(
+                (B, self.cfg.enc_seq, self.cfg.d_model), generator=gen
+            ).to(self.cfg.torch_dtype)
         if self.cfg.family == "vlm":
             # the vision stub's patch embeddings, a prefix of the sequence
             out["patches"] = 0.1 * torch.randn(

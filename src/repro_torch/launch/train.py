@@ -4,10 +4,12 @@
         --workers 8 --steps 10 --sparsifier regtopk --fastpath on
 
 ``--arch`` takes every config of ``repro_torch.configs.ARCHS``: the
-paper's proxy and the dense, MoE and VLM decoders (``qwen2.5-3b``,
+paper's proxy, the dense, MoE and VLM decoders (``qwen2.5-3b``,
 ``chatglm3-6b``, ``granite-3-8b``, ``granite-3-8b-swa``,
 ``phi3-medium-14b``, ``mixtral-8x7b``, ``deepseek-moe-16b``,
-``internvl2-1b``); ``--smoke`` takes its ``smoke_variant()``.
+``internvl2-1b``), the encoder-decoder ``whisper-tiny``, the state-space
+``mamba2-780m`` and the hybrid ``zamba2-7b``; ``--smoke`` takes its
+``smoke_variant()``.
 
 ``--workers W`` is the counterpart of the JAX trainer's host-mesh device
 count: W logical data-parallel workers on one card, one dp mesh axis

@@ -1,7 +1,6 @@
 """Unified model configuration (counterpart of ``repro.models.config``):
-every field of the JAX package's ``ModelConfig``, those of the families
-the port does not run yet included, so a config moves between the two
-packages field for field."""
+every field of the JAX package's ``ModelConfig``, so a config moves
+between the two packages field for field."""
 from __future__ import annotations
 
 import dataclasses

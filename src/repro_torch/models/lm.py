@@ -130,6 +130,14 @@ def _block(
     return x + y, aux
 
 
+def run_block(block, *args, remat: bool):
+    """``block(*args)``; under ``remat`` recomputed in the backward pass
+    (``torch.utils.checkpoint``), so only its inputs are kept."""
+    if remat:
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
+
+
 def _stack(params_layers: Params, x: torch.Tensor, cfg: ModelConfig,
            positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The blocks in layer order; the aux losses summed in layer order
@@ -137,10 +145,7 @@ def _stack(params_layers: Params, x: torch.Tensor, cfg: ModelConfig,
     (``const_div``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unstack(params_layers, cfg.n_layers):
-        if cfg.remat:
-            x, a = checkpoint(_block, lp, x, cfg, positions, use_reentrant=False)
-        else:
-            x, a = _block(lp, x, cfg, positions)
+        x, a = run_block(_block, lp, x, cfg, positions, remat=cfg.remat)
         aux = aux + a
     return x, const_div(aux, float(cfg.n_layers))
 
@@ -183,11 +188,18 @@ def loss_fn(params: Params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict
     layers' mean aux loss (0 outside the MoE family); metrics ``{"nll",
     "aux"}``."""
     logits, aux = forward(params, cfg, batch)
+    nll = token_nll(logits, cfg, batch["labels"])
+    return total_loss(nll, aux, cfg.aux_loss_coef), {"nll": nll, "aux": aux}
+
+
+def token_nll(logits: torch.Tensor, cfg: ModelConfig, labels: torch.Tensor
+              ) -> torch.Tensor:
+    """Mean cross-entropy of ``labels`` under ``logits``, in float32 and
+    over the real vocabulary (the padding rows masked)."""
     logits = mask_pad_logits(logits.float(), cfg)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]
-    nll = (logz - gold).mean()
-    return total_loss(nll, aux, cfg.aux_loss_coef), {"nll": nll, "aux": aux}
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return (logz - gold).mean()
 
 
 def total_loss(nll: torch.Tensor, aux: torch.Tensor, coef: float) -> torch.Tensor:

@@ -3,8 +3,8 @@
 
 Every family module the port has exposes ``init(cfg, *, seed, device)``
 and ``loss_fn(params, cfg, batch) -> (loss, metrics)``. The ``dense``,
-``moe`` and ``vlm`` families are ``models.lm``; ``encdec``, ``ssm`` and
-``hybrid`` are not ported yet and raise.
+``moe`` and ``vlm`` families are ``models.lm``, ``encdec`` is
+``models.encdec``, ``ssm`` and ``hybrid`` are ``models.ssm``.
 """
 from __future__ import annotations
 
@@ -13,11 +13,17 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm, ssm
 from repro_torch.models.config import ModelConfig
 
-_FAMILIES: Dict[str, ModuleType] = {"dense": lm, "moe": lm, "vlm": lm}
-_NOT_PORTED = ("encdec", "ssm", "hybrid")
+_FAMILIES: Dict[str, ModuleType] = {
+    "dense": lm,
+    "moe": lm,
+    "vlm": lm,
+    "encdec": encdec,
+    "ssm": ssm,
+    "hybrid": ssm,
+}
 
 
 def get_family(cfg: ModelConfig) -> ModuleType:
@@ -25,14 +31,8 @@ def get_family(cfg: ModelConfig) -> ModuleType:
     try:
         return _FAMILIES[cfg.family]
     except KeyError:
-        if cfg.family in _NOT_PORTED:
-            raise ValueError(
-                f"family {cfg.family!r} is not ported yet; the port trains "
-                f"{sorted(_FAMILIES)}"
-            ) from None
         raise ValueError(
-            f"unknown family {cfg.family!r}; available: "
-            f"{sorted(_FAMILIES) + sorted(_NOT_PORTED)}"
+            f"unknown family {cfg.family!r}; available: {sorted(_FAMILIES)}"
         ) from None
 
 

@@ -196,10 +196,13 @@ def attn_init(
     return p
 
 
-def attn_qkv(p: Params, x: torch.Tensor):
+def attn_qkv(p: Params, x: torch.Tensor, xkv: Optional[torch.Tensor] = None):
+    """Project to q, k, v. ``xkv`` (if given) is the cross-attention
+    source of k and v."""
+    src = x if xkv is None else xkv
     q = torch.einsum("bse,ehd->bshd", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bse,ehd->bshd", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bse,ehd->bshd", x, p["wv"].to(x.dtype))
+    k = torch.einsum("bse,ehd->bshd", src, p["wk"].to(x.dtype))
+    v = torch.einsum("bse,ehd->bshd", src, p["wv"].to(x.dtype))
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)

@@ -1,0 +1,223 @@
+"""Mamba2 / SSD (state-space duality) block (counterpart of
+``repro.nn.ssd``; arXiv:2405.21060).
+
+The chunked SSD algorithm: inside a chunk of ``chunk`` steps the scan is
+dense Q x Q matrix products, and across chunks a short recurrence carries
+the ``[B, H, P, N]`` state (a loop over chunks here, ``lax.scan`` in the
+JAX package). It stays plain PyTorch, as the JAX package's is plain
+``jnp``: no Pallas kernel of the JAX package sits on this path.
+
+Shapes: x ``[B, S, E]``; inner: heads H = d_inner / headdim P; state N.
+Every three-operand ``einsum`` of the JAX module is written as two
+explicit two-operand steps, so the contraction order is the same on every
+machine (``torch.einsum`` picks it through ``opt_einsum`` where that is
+installed).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.regtopk_score import const_div
+from repro_torch.nn.layers import _normal
+
+Params = Dict[str, torch.Tensor]
+
+CONV_K = 4  # depthwise causal conv kernel width (mamba2 default)
+
+
+def ssd_init(
+    gen: torch.Generator, d_model: int, device, *, d_inner: int,
+    headdim: int = 64, d_state: int = 128, dtype: torch.dtype = torch.float32,
+) -> Params:
+    """The mixer's weights with the JAX package's shapes and scales:
+    ``A_log = log(linspace(1, 16, H))``, ``D`` and ``norm`` ones,
+    ``dt_bias`` and ``conv_b`` zeros."""
+    H = d_inner // headdim
+    conv_dim = d_inner + 2 * d_state  # x, B, C share the conv (ngroups=1)
+    return {
+        "in_proj": _normal(gen, (d_model, 2 * d_inner + 2 * d_state + H),
+                           d_model**-0.5, device, dtype),
+        "conv_w": _normal(gen, (CONV_K, conv_dim), 0.1, device, dtype),
+        "conv_b": torch.zeros(conv_dim, dtype=dtype, device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H)).to(device, dtype),
+        "D": torch.ones(H, dtype=dtype, device=device),
+        "dt_bias": torch.zeros(H, dtype=dtype, device=device),
+        "norm": torch.ones(d_inner, dtype=dtype, device=device),
+        "out_proj": _normal(gen, (d_inner, d_model), d_inner**-0.5, device,
+                            dtype),
+    }
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` (``F.softplus`` computes
+    ``log1p(exp(x))`` below its threshold)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """Depthwise causal conv: xbc [B,S,C], w [K,C] -> [B,S,C]. A left pad
+    of K-1 and a correlation, as ``lax.conv_general_dilated`` computes."""
+    K, C = w.shape
+    lhs = F.pad(xbc.transpose(1, 2), (K - 1, 0))  # [B, C, S+K-1]
+    rhs = w.transpose(0, 1)[:, None, :].to(lhs.dtype)  # [C, 1, K]
+    out = F.conv1d(lhs, rhs, groups=C)
+    return out.transpose(1, 2) + b.to(xbc.dtype)
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x [..., Q] -> cumulative-segment-sum matrix [..., Q, Q] (i >= j)."""
+    Q = x.shape[-1]
+    cs = torch.cumsum(x, -1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def ssd_scan_chunked(
+    x: torch.Tensor,  # [B, S, H, P]
+    dt: torch.Tensor,  # [B, S, H]  (post-softplus)
+    A: torch.Tensor,  # [H] negative
+    Bm: torch.Tensor,  # [B, S, N]
+    Cm: torch.Tensor,  # [B, S, N]
+    *,
+    chunk: int = 256,
+    h0: Optional[torch.Tensor] = None,  # [B, H, P, N]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD. Returns (y [B,S,H,P], h_final [B,H,P,N])."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    xc = x.reshape(Bsz, nc, chunk, H, P)
+    dtc = dt.reshape(Bsz, nc, chunk, H)
+    Bc = Bm.reshape(Bsz, nc, chunk, N)
+    Cc = Cm.reshape(Bsz, nc, chunk, N)
+    dt_hq = dtc.permute(0, 1, 3, 2)  # [B,c,H,Q]
+
+    dA = (dtc * A.to(dtc.dtype)).permute(0, 1, 3, 2)  # [B,c,H,Q]
+    dA_cs = torch.cumsum(dA, -1)  # [B,c,H,Q]
+
+    # --- intra-chunk (dense) ------------------------------------------------
+    L = torch.exp(_segsum(dA.float()))  # [B,c,H,Q,Q]
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)  # [B,c,Q,Q]
+    scores = (scores[:, :, None] * L.to(scores.dtype)
+              * dt_hq[:, :, :, None, :])  # [B,c,H,Q,Q]
+    y_diag = torch.einsum("bchij,bcjhp->bcihp", scores, xc)
+
+    # --- chunk states: "bcjn,bchj,bcjhp->bchpn" as two steps ----------------
+    decay_states = torch.exp(
+        (dA_cs[..., -1:] - dA_cs).float()).to(x.dtype)  # [B,c,H,Q]
+    xw = xc * (decay_states * dt_hq).permute(0, 1, 3, 2)[..., None]
+    states = torch.einsum("bcjn,bcjhp->bchpn", Bc, xw)  # [B,c,H,P,N]
+
+    # --- inter-chunk recurrence ---------------------------------------------
+    chunk_decay = torch.exp(dA_cs[..., -1].float()).to(x.dtype)  # [B,c,H]
+    h = (torch.zeros((Bsz, H, P, N), dtype=x.dtype, device=x.device)
+         if h0 is None else h0)
+    h_befores = []
+    for c in range(nc):
+        h_befores.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_before = torch.stack(h_befores, 1)  # [B,c,H,P,N]
+
+    # --- off-diagonal output: "bcin,bchpn,bchi->bcihp" as two steps ---------
+    state_decay = torch.exp(dA_cs.float()).to(x.dtype)  # [B,c,H,Q]
+    y_off = (torch.einsum("bcin,bchpn->bcihp", Cc, h_before)
+             * state_decay.permute(0, 1, 3, 2)[..., None])
+    y = (y_diag + y_off).reshape(Bsz, nc * chunk, H, P)[:, :S]
+    return y, h
+
+
+def ssd_decode_step(
+    x: torch.Tensor,  # [B, H, P]
+    dt: torch.Tensor,  # [B, H]
+    A: torch.Tensor,  # [H]
+    Bm: torch.Tensor,  # [B, N]
+    Cm: torch.Tensor,  # [B, N]
+    h: torch.Tensor,  # [B, H, P, N]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step of the recurrence: (y [B,H,P], h_new [B,H,P,N])."""
+    dA = torch.exp(dt * A.to(dt.dtype))  # [B,H]
+    # "bhp,bn,bh->bhpn" as two steps
+    h_new = (h * dA[:, :, None, None]
+             + (x * dt[:, :, None])[..., None] * Bm[:, None, None, :])
+    y = torch.einsum("bhpn,bn->bhp", h_new, Cm)
+    return y, h_new
+
+
+def ssd_block_apply(
+    p: Params,
+    x: torch.Tensor,  # [B, S, E]
+    *,
+    d_inner: int,
+    headdim: int,
+    d_state: int,
+    chunk: int = 256,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    norm_eps: float = 1e-6,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Full mamba2 mixer. If ``cache`` is given, runs one decode step
+    (S must be 1) and returns the updated cache."""
+    H = d_inner // headdim
+    zxbcdt = x @ p["in_proj"].to(x.dtype)
+    z, xbc, dt = torch.split(
+        zxbcdt, [d_inner, d_inner + 2 * d_state, H], dim=-1)
+    A = -torch.exp(p["A_log"].float())
+
+    if cache is None:
+        xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+        xs, Bm, Cm = torch.split(xbc, [d_inner, d_state, d_state], dim=-1)
+        Bsz, S, _ = x.shape
+        xh = xs.reshape(Bsz, S, H, headdim)
+        dtp = _softplus(dt.float() + p["dt_bias"].float()).to(x.dtype)
+        y, _ = ssd_scan_chunked(xh, dtp, A.to(x.dtype), Bm, Cm, chunk=chunk)
+        y = y + p["D"].to(x.dtype)[None, None, :, None] * xh
+        y = y.reshape(Bsz, S, d_inner)
+        new_cache = None
+    else:
+        # decode: S == 1
+        Bsz = x.shape[0]
+        win = torch.cat([cache["conv"], xbc], dim=1)  # [B, K, conv_dim]
+        conv_out = (torch.einsum("bkc,kc->bc", win, p["conv_w"].to(x.dtype))
+                    + p["conv_b"].to(x.dtype))[:, None, :]
+        xbc = F.silu(conv_out)
+        xs, Bm, Cm = torch.split(xbc, [d_inner, d_state, d_state], dim=-1)
+        xh = xs.reshape(Bsz, H, headdim)
+        dtp = _softplus(dt[:, 0].float() + p["dt_bias"].float()).to(x.dtype)
+        y, h_new = ssd_decode_step(xh, dtp, A.to(x.dtype), Bm[:, 0], Cm[:, 0],
+                                   cache["ssm"])
+        y = y + p["D"].to(x.dtype)[None, :, None] * xh
+        y = y.reshape(Bsz, 1, d_inner)
+        new_cache = {"conv": win[:, 1:], "ssm": h_new}
+
+    # gated RMSNorm (the mean as the jitted reference takes it: the sum
+    # times fl(1/d_inner)), then the out-projection
+    y = y * F.silu(z)
+    var = const_div(y.float().square().sum(-1, keepdim=True), float(d_inner))
+    y = (y * torch.rsqrt(var + norm_eps).to(y.dtype)) * p["norm"].to(y.dtype)
+    out = y @ p["out_proj"].to(x.dtype)
+    return out, new_cache
+
+
+def ssd_init_cache(batch: int, d_inner: int, headdim: int, d_state: int,
+                   device, dtype: torch.dtype = torch.float32
+                   ) -> Dict[str, torch.Tensor]:
+    """Zero decode state: the conv window ``[B, K-1, conv_dim]`` and the
+    SSM state ``[B, H, P, N]``."""
+    H = d_inner // headdim
+    conv_dim = d_inner + 2 * d_state
+    return {
+        "conv": torch.zeros((batch, CONV_K - 1, conv_dim), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, H, headdim, d_state), dtype=dtype,
+                           device=device),
+    }

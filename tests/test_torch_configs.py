@@ -2,11 +2,11 @@
 
 Every config the port trains, and its ``smoke_variant()``, must equal the
 JAX config field for field (exactly: they are Python values), with the
-same derived properties; ``ARCHS`` keeps the JAX order for the configs
-the port has, and the input shapes and the long-context set are the JAX
-package's. ``get_family`` maps the dense, MoE and VLM families to
-``models.lm`` and refuses the families that are not ported yet by name;
-``input_specs`` gives the JAX shapes and dtype kinds.
+same derived properties; ``ARCHS`` is the JAX package's list in its
+order, and the input shapes and the long-context set are the JAX
+package's. ``get_family`` maps every family to the module the JAX
+registry maps it to (``lm``, ``encdec``, ``ssm``) and refuses an unknown
+one; ``input_specs`` gives the JAX shapes and dtype kinds.
 """
 import dataclasses
 
@@ -18,7 +18,7 @@ import torch
 from repro import configs as jconfigs
 from repro.models import registry as jregistry
 from repro_torch import configs as tconfigs
-from repro_torch.models import get_family, input_specs, lm, make_batch
+from repro_torch.models import encdec, get_family, input_specs, lm, make_batch, ssm
 
 ARCHS = list(tconfigs.ARCHS)
 PROPERTIES = ("hd", "d_inner", "padded_vocab", "is_moe", "eff_heads",
@@ -49,8 +49,8 @@ def test_smoke_variant_equals_jax_field_for_field(arch):
 
 
 def test_smoke_variant_branches_match_jax():
-    """The branches no ported config reaches (SSM, enc-dec, hybrid, no
-    d_ff, heads that do not divide) on configs built from fields."""
+    """The branches on configs built from fields (SSM, enc-dec, hybrid, no
+    d_ff, heads that do not divide), beside the configs' own."""
     from repro.models.config import ModelConfig as J
     from repro_torch.models.config import ModelConfig as T
 
@@ -65,35 +65,38 @@ def test_smoke_variant_branches_match_jax():
 
 def test_archs_order_and_shapes_match_jax():
     assert ARCHS == [a for a in jconfigs.ARCHS if a in tconfigs.ARCHS]
-    assert set(jconfigs.ARCHS) - set(ARCHS) == {
-        "whisper-tiny", "mamba2-780m", "zamba2-7b"}
+    assert set(jconfigs.ARCHS) - set(ARCHS) == set()
+    assert ARCHS == list(jconfigs.ARCHS)
     assert tconfigs.INPUT_SHAPES == jconfigs.INPUT_SHAPES
     assert tconfigs.LONG_CONTEXT_OK == jconfigs.LONG_CONTEXT_OK
     for arch in jconfigs.ARCHS:
         for shape in jconfigs.INPUT_SHAPES:
             assert (tconfigs.shape_applicable(arch, shape)
                     == jconfigs.shape_applicable(arch, shape))
+    assert tconfigs.get_config("whisper-tiny").family == "encdec"
     with pytest.raises(ValueError, match="unknown arch"):
-        tconfigs.get_config("whisper-tiny")
+        tconfigs.get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("family", ["dense", "moe", "vlm", "encdec", "ssm",
                                     "hybrid", "rnn"])
 def test_get_family(family):
     cfg = tconfigs.get_config("paper-resnet-proxy").replace(family=family)
-    if family in ("dense", "moe", "vlm"):
-        assert get_family(cfg) is lm
-        assert jregistry.get_family(cfg).__name__ == "repro.models.lm"
-    elif family == "rnn":
+    if family == "rnn":
         with pytest.raises(ValueError, match="unknown family"):
             get_family(cfg)
-    else:
-        with pytest.raises(ValueError, match="not ported yet"):
-            get_family(cfg)
+        with pytest.raises(ValueError, match="unknown family"):
+            jregistry.get_family(cfg)
+        return
+    want = {"dense": lm, "moe": lm, "vlm": lm, "encdec": encdec, "ssm": ssm,
+            "hybrid": ssm}[family]
+    assert get_family(cfg) is want
+    assert (jregistry.get_family(cfg).__name__
+            == want.__name__.replace("repro_torch.", "repro."))
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "internvl2-1b",
-                                  "deepseek-moe-16b"])
+                                  "deepseek-moe-16b", "whisper-tiny"])
 @pytest.mark.parametrize("kind", ["train", "decode"])
 def test_input_specs_match_jax(arch, kind):
     cfg = tconfigs.get_config(arch)

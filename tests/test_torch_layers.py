@@ -14,6 +14,8 @@
   padded model is the unpadded function at init (port of
   ``tests/test_archs.py::test_pad_heads_identical_function_at_init``);
   ``attn_init``'s QKV biases and the padded shapes equal JAX's.
+* cross-attention: ``attn_qkv(xkv=...)`` and ``attention_dense`` over
+  Sq != Sk, to the model's tolerance.
 """
 import jax
 import jax.numpy as jnp
@@ -127,3 +129,33 @@ def test_embed_takes_a_dtype():
     np.testing.assert_array_equal(
         tL.embed(p, tok).numpy(),
         np.asarray(jL.embed({"embedding": p["embedding"].numpy()}, tok.numpy())))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_cross_attention_matches_jax(causal):
+    """``attn_qkv(xkv=...)`` projects k and v from the encoder output, and
+    ``attention_dense`` takes Sq != Sk (12 decoder queries over 20 encoder
+    keys, as whisper's decoder has 448 over 1500): q, k, v and the context
+    to the file's tolerance, and k, v independent of ``x``. ``causal``
+    covers the mask's ``q_pos >= k_pos`` over a rectangle."""
+    jp, _ = jL.attn_init(jax.random.PRNGKey(0), 32, 4, 2, 8, qkv_bias=True)
+    rng = np.random.default_rng(1)
+    jp = {k: (np.asarray(v) + 0.1 * rng.standard_normal(v.shape)).astype(
+        np.float32) for k, v in jp.items()}
+    x = rng.standard_normal((2, 12, 32)).astype(np.float32)
+    enc = rng.standard_normal((2, 20, 32)).astype(np.float32)
+
+    def jcross(p, x, enc):
+        q, k, v = jL.attn_qkv(p, x, xkv=enc)
+        return q, k, v, jL.attention_dense(q, k, v, causal=causal)
+
+    want = jax.jit(jcross)(jp, x, enc)
+    tp = _t(jp)
+    q, k, v = tL.attn_qkv(tp, torch.from_numpy(x), xkv=torch.from_numpy(enc))
+    ctx = tL.attention_dense(q, k, v, causal=causal)
+    assert tuple(ctx.shape) == (2, 12, 4, 8) and tuple(k.shape) == (2, 20, 2, 8)
+    for got, w in zip((q, k, v, ctx), want, strict=True):
+        _close(got.numpy(), np.asarray(w))
+    _, k2, v2 = tL.attn_qkv(tp, torch.zeros_like(torch.from_numpy(x)),
+                            xkv=torch.from_numpy(enc))
+    assert torch.equal(k, k2) and torch.equal(v, v2)
