@@ -174,6 +174,37 @@ Phases, each raising on failure (the script then exits non-zero):
               whisper-tiny, mamba2-780m and zamba2-7b (W = 2, 3 steps) on
               the card against the same runs on the CPU, losses within
               1e-4 relative.
+14. serving — launch/serve.py and each family's prefill, init_cache and
+              decode_step, whole models at published widths in float32
+              (TF32 off), weights from the port's seeded init: qwen2.5-3b
+              (36 layers, batch 8, max_len 2048), zamba2-7b (81, batch 8,
+              2048), mamba2-780m (48, batch 8), whisper-tiny (4 + 4, batch
+              8, max_len 448 over 1500 frames) and deepseek-moe-16b (4 of
+              its 28 layers, batch 4, 1024: the whole model's host init
+              takes ~160 s). Each: prefill (chunked attention, blocks of
+              1024) over 2 x 1536 tokens (448 for whisper-tiny) against
+              forward(mode="dense"); 32 teacher-forced decode steps against
+              forward over the same tokens (the MoE forward dropless), both
+              to rtol = atol = 2e-3 (an MoE row is held up to its first
+              routing flip, which fails unless the reference router's
+              top-k gap there is within 1e-5, and at least half the
+              positions are held); serve.run's greedy loop, 8 untimed
+              steps then 64 timed (CUDA events per step): tokens per
+              second, the median step beside its byte bound (the
+              decoder's weights less the experts no token of the step
+              routes to, the self-attention caches' filled slots averaged
+              over the timed steps, the cross cache read, the recurrent
+              state read and written) and beside what the einsum dispatch
+              and the masked attention read (every expert, every slot),
+              weights and cache bytes, peak memory, host init seconds and
+              the device's busy share of a profiled step; no kernel of the
+              five launches.
+              Then the smoke variants of phase 13's seven configs through
+              serve.run on the card and on the CPU (the same seeded weights
+              and first tokens): the logits of the card run's token
+              sequence, teacher-forced on both, within 1e-4 relative, and
+              the two greedy runs equal up to a step whose CPU top-2 margin
+              is within that.
 
 Each kernel's launch count is set to 0 just before the path that runs it
 (select: ``count_above``, ``global_max``, ``block_topk_candidates``;
@@ -879,11 +910,12 @@ def profile_step(run, step_ms: float) -> dict:
         reverse=True,
     )
     device_ms = sum(r[0] for r in rows)
-    log(f"profile: device busy {device_ms:.2f} ms of a {step_ms:.2f} ms step "
+    launches = sum(r[1] for r in rows)
+    log(f"profile: {launches} kernels; device busy {device_ms:.2f} ms of a {step_ms:.2f} ms step "
         f"({device_ms / step_ms:.1%}); top: "
         + "; ".join(f"{k[:40]} {ms:.2f} ms x{n}" for ms, n, k in rows[:6]))
     return {"device_ms": device_ms, "busy_share": device_ms / step_ms,
-            "top": [{"kernel": k, "ms": ms, "count": n} for ms, n, k in rows[:25]]}
+            "launches": launches, "top": [{"kernel": k, "ms": ms, "count": n} for ms, n, k in rows[:25]]}
 
 
 def _unaligned(t: torch.Tensor) -> torch.Tensor:
@@ -2873,6 +2905,461 @@ def phase_families(smi: str) -> dict:
     return out
 
 
+# phase 14: serving whole models at published widths. Each run: the serve
+# loop's batch and max_len.
+SERVE_RUNS = {
+    "qwen2.5-3b": dict(batch=8, max_len=2048),
+    "zamba2-7b": dict(batch=8, max_len=2048),
+    "mamba2-780m": dict(batch=8, max_len=2048),
+    # Whisper's text context over its 1500 encoder frames
+    "whisper-tiny": dict(batch=8, max_len=448),
+    # 4 of 28 layers: the whole model's host init (16.7 billion draws from
+    # one generator, ~160 s) takes longer than the rest of the phase
+    "deepseek-moe-16b": dict(batch=4, max_len=1024, layers=4),
+}
+SERVE_PREFILL = (2, 1536)  # two KV blocks of 1024, the last one padded
+SERVE_FORCED = 32  # teacher-forced decode steps held against forward
+SERVE_PROMPT, SERVE_NEW = 8, 64
+SERVE_TOL = 2e-3  # tests/test_archs.py's decode-vs-forward tolerance
+SERVE_SMOKE_TOL = 1e-4
+# The largest gap between the reference router's k-th and (k+1)-th
+# probabilities at which two computations may choose other experts
+ROUTE_TIE = 1e-5
+
+
+def _all_launches() -> dict:
+    from repro_torch.kernels import block_topk, fused_encode, regtopk_score
+    from repro_torch.kernels import threshold_topk
+
+    return {fn.__name__: fn.launches for fn in (
+        fused_encode.fused_candidates, regtopk_score.regtopk_score,
+        threshold_topk.count_above, threshold_topk.global_max,
+        block_topk.block_topk_candidates)}
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def _decoder_bytes(params, cfg) -> int:
+    """The weights a decode step reads: all but the encoder's."""
+    from repro_torch.tree import tree_items
+
+    return sum(x.numel() * x.element_size() for path, x in tree_items(params)
+               if not (cfg.family == "encdec" and path.startswith("enc_")))
+
+
+def _leaves_with_axes(tree: dict, axes: dict):
+    """``(leaf, its cache_axes entry)`` of a cache tree."""
+    for name, x in tree.items():
+        if isinstance(x, dict):
+            yield from _leaves_with_axes(x, axes[name])
+        else:
+            yield x, axes[name]
+
+
+def _cache_bytes_needed(mod, cfg, batch: int, max_len: int, positions) -> float:
+    """The cache bytes a decode step moves, the mean over steps at
+    ``positions``: a self-attention cache's filled slots (``kv_seq``; the
+    new key among them, written), a cross cache (``enc_seq``) read, and a
+    recurrent state (the SSM's conv window and state, ``pos``) read and
+    written."""
+    cache = mod.init_cache(cfg, batch, max_len, device="meta")
+    total = 0.0
+    for x, ax in _leaves_with_axes(cache, mod.cache_axes(cfg)):
+        nbytes = x.numel() * x.element_size()
+        if "kv_seq" in ax:
+            slots = x.shape[ax.index("kv_seq")]
+            total += nbytes / slots * statistics.mean(min(p + 1, slots)
+                                                      for p in positions)
+        elif "enc_seq" in ax:
+            total += nbytes
+        else:
+            total += 2 * nbytes
+    return total
+
+
+def _unrouted_bytes(mod, cfg, params, res, batch: int, max_len: int) -> tuple:
+    """The routed experts' weights that ``serve.run``'s timed steps
+    (``res``) do not need: the mean over those steps of the experts that
+    no token routes to, a layer's each, times an expert's bytes (its
+    ``wg``, ``wu`` and ``wd``); and the mean experts routed to, a layer a
+    step. The routing is the served sequence's, teacher-forced again."""
+    seq = torch.cat([res.first, res.prompt, res.tokens], 1)
+    n, L = SERVE_PROMPT + SERVE_NEW, cfg.n_layers
+    with torch.inference_mode():
+        cache = _serve_cache(mod, cfg, params, batch, max_len, None, DEVICE)
+        with _Routes() as rr:
+            _forced(mod, cfg, params, cache, seq[:, :n].to(DEVICE))
+        del cache
+    chosen = (_per_layer(rr.maps, n * L, batch).reshape(n, L, batch, -1) > 0
+              ).any(2)[SERVE_PROMPT:]  # [timed steps, layers, experts]
+    mlp = params["layers"]["mlp"]
+    expert = sum(mlp[w][0, 0].numel() * mlp[w].element_size()
+                 for w in ("wg", "wu", "wd"))
+    return (expert * (~chosen).sum((1, 2)).double().mean().item(),
+            chosen.sum(-1).double().mean().item())
+
+
+def _serve_cache(mod, cfg, params, batch: int, max_len: int, frames, device):
+    """``init_cache``, with ``build_cross_cache`` of ``frames`` for encdec."""
+    cache = mod.init_cache(cfg, batch, max_len, device=device)
+    if cfg.family == "encdec":
+        cache["ck"], cache["cv"] = mod.build_cross_cache(params, cfg, frames)
+    return cache
+
+
+def _forced(mod, cfg, params, cache, tokens: torch.Tensor) -> torch.Tensor:
+    """The logits ``[B, T, V]`` of T decode steps fed ``tokens [B, T]``."""
+    out = []
+    for t in range(tokens.shape[1]):
+        logits, cache = mod.decode_step(params, cfg, cache, tokens[:, t:t + 1])
+        out.append(logits[:, 0])
+    return torch.stack(out, 1)
+
+
+def _close_to(got: torch.Tensor, want: torch.Tensor, tol: float, label: str) -> float:
+    """rtol = atol = ``tol``; returns the largest absolute difference."""
+    diff = (got - want).abs()
+    if not bool((diff <= tol + tol * want.abs()).all()):
+        raise AssertionError(f"{label}: beyond rtol = atol = {tol} "
+                             f"(max abs diff {diff.max().item():.3e})")
+    return diff.max().item()
+
+
+class _Routes:
+    """While active, each MoE routing (``nn.moe.route``) recorded as a
+    ``[tokens, experts]`` map: 0 not chosen, 1 chosen and dropped, 2
+    chosen and kept; and the router's probabilities it chose from."""
+
+    def __init__(self):
+        self.maps, self.probs = [], []
+
+    def __enter__(self):
+        from repro_torch.nn import moe
+
+        self._moe, self._route = moe, moe.route
+
+        def route(probs, top_k, cap):
+            out = self._route(probs, top_k, cap)
+            _, idx, _, keep = out
+            self.maps.append(torch.zeros(probs.shape, dtype=torch.int8,
+                                         device=probs.device).scatter_(
+                1, idx, 1 + keep.to(torch.int8)))
+            self.probs.append(probs.float())
+            return out
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
+def _per_layer(maps: list, layers: int, tokens: int) -> torch.Tensor:
+    """One run's routing maps (or probabilities) as ``[layers, tokens,
+    experts]``: a layer's groups come one after another, the last one
+    padded."""
+    cat = torch.cat(maps)
+    return cat.reshape(layers, -1, cat.shape[-1])[:, :tokens]
+
+
+def _route_flips(a: torch.Tensor, b: torch.Tensor, probs: torch.Tensor,
+                 top_k: int, label: str) -> tuple:
+    """Per row, the first position whose routing differs in any layer
+    between two runs' maps ``[layers, rows, positions, experts]`` (the
+    position count where none does), and the top-k gaps there. A flip
+    is excused only as a near-tie: at the lowest layer that differs, the
+    two runs choose different experts and the reference run's k-th and
+    (k+1)-th probabilities (``probs``, laid out as ``b``) are within
+    ``ROUTE_TIE``. Any other difference is a fault, and raises."""
+    a, b, probs = a.cpu(), b.cpu(), probs.cpu()
+    bad = (a != b).any(-1)  # [layers, rows, positions]
+    n_pos = bad.shape[2]
+    flips, gaps = [], []
+    for r in range(bad.shape[1]):
+        hit = bad[:, r].any(0).nonzero()
+        if not len(hit):
+            flips.append(n_pos)
+            continue
+        n = int(hit[0, 0])
+        layer = int(bad[:, r, n].nonzero()[0, 0])
+        top = probs[layer, r, n].topk(top_k + 1).values
+        gap = float(top[top_k - 1] - top[top_k])
+        where = f"{label}: row {r}, position {n}, layer {layer}"
+        if torch.equal(a[layer, r, n] > 0, b[layer, r, n] > 0):
+            raise AssertionError(f"{where}: the same experts chosen, kept "
+                                 "or dropped differently")
+        if gap > ROUTE_TIE:
+            raise AssertionError(f"{where}: other experts chosen at a top-"
+                                 f"{top_k} probability gap of {gap:.3e} "
+                                 f"(a near-tie is within {ROUTE_TIE})")
+        flips.append(n)
+        gaps.append(gap)
+    return torch.tensor(flips), gaps
+
+
+def _held_before(got, want, flips, tol: float, label: str) -> dict:
+    """``got`` and ``want`` ``[rows, positions, vocab]`` within rtol =
+    atol = ``tol`` at every row's positions before its first routing
+    flip (a near-tie, ``_route_flips``; after it the two computations
+    route a token differently); every position when there is none. Fewer
+    than half the positions held is a failure."""
+    err, checked = 0.0, 0
+    for r in range(got.shape[0]):
+        n = int(flips[r])
+        if n:
+            err = max(err, _close_to(got[r, :n], want[r, :n], tol, f"{label}, row {r}"))
+        checked += n
+    positions = got.shape[0] * got.shape[1]
+    if 2 * checked < positions:
+        raise AssertionError(f"{label}: {checked} of {positions} positions "
+                             "held before a routing near-tie")
+    return {"max_abs_err": err, "positions_checked": checked,
+            "positions": positions, "first_flips": [int(f) for f in flips]}
+
+
+def _serve_checks(mod, cfg, params, gen: torch.Generator, max_len: int) -> dict:
+    """Prefill (chunked) against ``forward(mode="dense")`` over
+    ``SERVE_PREFILL`` tokens, and ``SERVE_FORCED`` teacher-forced decode
+    steps against ``forward`` over the same tokens (the MoE forward
+    dropless, as the step is), on the real vocabulary, rtol = atol =
+    ``SERVE_TOL``. An MoE's prefill runs a row at a time, since the
+    capacity counts run over the flattened batch. An MoE's positions from
+    a row's first routing flip on are not held, and a flip fails unless
+    it is a near-tie (``_route_flips``, ``_held_before``)."""
+    Bp, Sp = SERVE_PREFILL
+    if cfg.family == "encdec":
+        Sp = max_len  # the text context
+    tokens = torch.randint(0, cfg.vocab, (Bp, Sp), generator=gen).to(DEVICE)
+    frames = None
+    if cfg.family == "encdec":
+        frames = (0.1 * torch.randn((Bp, cfg.enc_seq, cfg.d_model), generator=gen)
+                  ).to(DEVICE, cfg.torch_dtype)
+
+    def batch_of(rows, n):
+        b = {"tokens": tokens[rows, :n]}
+        if frames is not None:
+            b["frames"] = frames[rows]
+        return b
+
+    V, out, held = cfg.vocab, {}, []
+    for rows in ([slice(r, r + 1) for r in range(Bp)] if cfg.is_moe
+                 else [slice(0, Bp)]):
+        with _Routes() as ra:
+            pre = mod.prefill(params, cfg, batch_of(rows, Sp))[..., :V]
+        with _Routes() as rb:
+            dense = mod.forward(params, cfg, batch_of(rows, Sp), mode="dense")[0][..., :V]
+        label = f"serve {cfg.name}: prefill vs dense"
+        flips, gaps = torch.full((pre.shape[0],), Sp), []
+        if cfg.is_moe:
+            flips, gaps = _route_flips(
+                *(_per_layer(x, cfg.n_layers, Sp)[:, None]
+                  for x in (ra.maps, rb.maps, rb.probs)), cfg.moe_top_k, label)
+        held.append({**_held_before(pre, dense, flips, SERVE_TOL, label),
+                     "tie_gaps": gaps})
+        del pre, dense
+    out["prefill"] = {
+        "max_abs_err": max(h["max_abs_err"] for h in held),
+        "positions_checked": sum(h["positions_checked"] for h in held),
+        "positions": sum(h["positions"] for h in held),
+        "first_flips": sum((h["first_flips"] for h in held), []),
+        "tie_gaps": sum((h["tie_gaps"] for h in held), [])}
+    # dropless: no expert takes more than the group's tokens
+    fcfg = (cfg.replace(capacity_factor=float(math.ceil(cfg.n_experts / cfg.moe_top_k)))
+            if cfg.is_moe else cfg)
+    T = SERVE_FORCED
+    cache = _serve_cache(mod, cfg, params, Bp, max_len, frames, DEVICE)
+    with _Routes() as ra:
+        steps = _forced(mod, cfg, params, cache, tokens[:, :T])[..., :V]
+    del cache
+    with _Routes() as rb:
+        full = mod.forward(params, fcfg, batch_of(slice(0, Bp), T))[0][..., :V]
+    label = f"serve {cfg.name}: decode vs forward"
+    flips, gaps = torch.full((Bp,), T), []
+    if cfg.is_moe:
+        L = cfg.n_layers  # a step routes its Bp tokens in one group a layer
+        dec = _per_layer(ra.maps, T * L, Bp).reshape(T, L, Bp, -1)
+        fwd, probs = (_per_layer(x, L, Bp * T).reshape(L, Bp, T, -1)
+                      for x in (rb.maps, rb.probs))
+        flips, gaps = _route_flips(dec.permute(1, 2, 0, 3), fwd, probs,
+                                   cfg.moe_top_k, label)
+    out["forced"] = {**_held_before(steps, full, flips, SERVE_TOL, label),
+                     "tie_gaps": gaps}
+    return out
+
+
+def _serve_published(arch: str, run: dict, smi: str) -> dict:
+    """One model at its published widths (module docstring, phase 14):
+    all its layers unless ``run`` cuts them."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import get_family
+    from repro_torch.tree import tree_leaves
+
+    cfg = configs.get_config(arch)
+    full_layers = cfg.n_layers
+    if run.get("layers"):
+        cfg = cfg.replace(n_layers=run["layers"])
+    mod = get_family(cfg)
+    B, M = run["batch"], run["max_len"]
+    out = {"layers": cfg.n_layers, "full_layers": full_layers, "batch": B,
+           "max_len": M}
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = mod.init(cfg, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    out["init_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out.update(_serve_checks(mod, cfg, params, torch.Generator().manual_seed(14), M))
+    torch.cuda.synchronize()
+    out["check_seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = _all_launches()
+    res = serve.run(serve.parse_args([
+        "--arch", arch, "--batch", str(B), "--prompt-len", str(SERVE_PROMPT),
+        "--new-tokens", str(SERVE_NEW), "--max-len", str(M), "--device", DEVICE]),
+        params=params, cfg=cfg)
+    if _all_launches() != before:
+        raise AssertionError(f"serve {arch}: a kernel of the five launched")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if res.tokens.shape != (B, SERVE_NEW) or not bool(
+            ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()):
+        raise AssertionError(f"serve {arch}: tokens {res.tokens.shape}")
+    step_ms = statistics.median(res.step_ms)
+    with torch.inference_mode():
+        zeros = (torch.zeros((B, cfg.enc_seq, cfg.d_model), dtype=cfg.torch_dtype,
+                             device=DEVICE) if cfg.family == "encdec" else None)
+        cache = _serve_cache(mod, cfg, params, B, M, zeros, DEVICE)
+        toks = res.tokens[:, :4].to(DEVICE)
+        torch.cuda.set_sync_debug_mode("error")  # a step reads nothing on the host
+        try:
+            _forced(mod, cfg, params, cache, toks[:, :2])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        prof = profile_step(lambda: _forced(mod, cfg, params, cache, toks), 4 * step_ms)
+        del cache
+    # the byte bound: what the timed steps need; beside it, what the
+    # einsum dispatch (every expert) and the masked attention (every
+    # slot) read
+    wb = _decoder_bytes(params, cfg)
+    cb = _tree_bytes(mod.init_cache(cfg, B, M, device="meta"))
+    unrouted, routed = (_unrouted_bytes(mod, cfg, params, res, B, M)
+                        if cfg.is_moe else (0.0, None))
+    need_w = wb - unrouted
+    need_c = _cache_bytes_needed(mod, cfg, B, M,
+                                 range(SERVE_PROMPT, SERVE_PROMPT + SERVE_NEW))
+    bound_ms = 1e3 * (need_w + need_c) / HBM_BYTES_PER_S
+    reads_ms = 1e3 * (wb + cb) / HBM_BYTES_PER_S
+    out.update(tokens_per_s=res.tokens_per_s, seconds=res.seconds,
+               step_ms=step_ms, step_samples_ms=res.step_ms,
+               weights_bytes=wb, cache_bytes=cb,
+               needed_weights_bytes=need_w, needed_cache_bytes=need_c,
+               experts_routed_per_layer=routed,
+               params=sum(x.numel() for x in tree_leaves(params)),
+               bound_ms=bound_ms, bound_share=bound_ms / step_ms,
+               dispatch_reads_ms=reads_ms,
+               busy_share=prof["busy_share"],
+               launches_per_step=prof["launches"] / 4, profile=prof)
+    depth = ("all" if cfg.n_layers == full_layers else
+             f"{cfg.n_layers} of {full_layers}")
+    extra = f" over {cfg.enc_seq} frames" if cfg.family == "encdec" else ""
+    pre, forced = out["prefill"], out["forced"]
+    flips = (f"; first routing flips {pre['first_flips']} and "
+             f"{forced['first_flips']} (near-tie gaps {pre['tie_gaps']} and "
+             f"{forced['tie_gaps']})" if cfg.is_moe else "")
+    moe = (f" ({routed:.2f} of {cfg.n_experts} experts routed a layer)"
+           if cfg.is_moe else "")
+    log(f"serve {arch}: {depth} layers, {out['params']:,} parameters; host init "
+        f"{out['init_seconds']:.1f} s; prefill == dense at {pre['positions_checked']} "
+        f"of {pre['positions']} positions (max abs diff {pre['max_abs_err']:.2e}), "
+        f"{SERVE_FORCED} teacher-forced steps == forward at "
+        f"{forced['positions_checked']} of {forced['positions']} "
+        f"({forced['max_abs_err']:.2e}){flips}; serving batch "
+        f"{B}, max_len {M}{extra}: {res.tokens_per_s:.1f} tok/s, {step_ms:.3f} ms "
+        f"a step (median of {SERVE_NEW}) against a byte bound of {bound_ms:.3f} ms "
+        f"({bound_ms / step_ms:.1%}: weights {need_w / 1e9:.3f} GB{moe} + "
+        f"cache {need_c / 1e9:.3f} GB, its filled slots over the timed steps, "
+        f"at {HBM_BYTES_PER_S:.3g} B/s; every weight and the whole cache "
+        f"read once, as the einsum dispatch and the masked attention do: "
+        f"{wb / 1e9:.3f} GB + {cb / 1e9:.3f} GB, {reads_ms:.3f} ms); peak "
+        f"{out['peak_bytes'] / 1e9:.2f} GB; device busy {prof['busy_share']:.1%}, "
+        f"{prof['launches'] / 4:.0f} kernels a step ({smi})")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_smoke() -> dict:
+    """Phase 13's seven smoke variants through ``serve.run`` on the card
+    and on the CPU (the same seeded weights and first tokens); the card
+    run's token sequence teacher-forced on both: logits within 1e-4 of the
+    largest magnitude; the CPU's greedy tokens equal the card's up to a
+    step whose CPU top-2 margin is within that."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import get_family
+
+    out = {}
+    for arch in FAMILY_SMOKE:
+        small = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", "4",
+                 "--new-tokens", "12", "--max-len", "16"]
+        card = serve.run(serve.parse_args([*small, "--device", DEVICE]))
+        cpu = serve.run(serve.parse_args([*small, "--device", "cpu"]))
+        if not torch.equal(card.first, cpu.first):
+            raise AssertionError(f"serve {arch} smoke: first tokens differ")
+        seq = torch.cat([card.first, card.prompt, card.tokens], 1)
+        cfg = configs.get_config(arch).smoke_variant()
+        mod = get_family(cfg)
+        logits = {}
+        with torch.inference_mode():
+            for dev in (DEVICE, "cpu"):
+                params = mod.init(cfg, seed=0, device=dev)
+                frames = torch.zeros((2, cfg.enc_seq, cfg.d_model), device=dev)
+                cache = _serve_cache(mod, cfg, params, 2, 16, frames, dev)
+                logits[dev] = _forced(mod, cfg, params, cache,
+                                      seq[:, :-1].to(dev)).cpu()
+        want = logits["cpu"]
+        tol = SERVE_SMOKE_TOL * want.abs().max().item()
+        err = (logits[DEVICE] - want).abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"serve {arch} smoke: card logits {err:.3e} from "
+                                 f"the CPU's (allowed {tol:.3e})")
+        top2 = want.topk(2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        got = torch.cat([card.prompt, card.tokens], 1)
+        ref = torch.cat([cpu.prompt, cpu.tokens], 1)
+        for row in range(2):
+            differ = (got[row] != ref[row]).nonzero()
+            if len(differ) and margin[row, differ[0, 0]] > 2 * tol:
+                raise AssertionError(f"serve {arch} smoke: row {row} parts at step "
+                                     f"{int(differ[0, 0])} with a clear margin")
+        log(f"serve {arch} smoke: the card's logits within {err:.2e} of the CPU's "
+            f"(allowed {tol:.2e}); greedy tokens {'equal' if torch.equal(got, ref) else 'part at a near-tie'}")
+        out[arch] = {"max_abs_err": err, "tol": tol,
+                     "tokens_equal": bool(torch.equal(got, ref))}
+    return out
+
+
+def phase_serving(smi: str) -> dict:
+    """Phase 14: serving (see the module docstring)."""
+    from repro_torch.nn import layers
+
+    layers.set_fp32_matmul()
+    out, t_phase = {}, time.perf_counter()
+    for arch, run in SERVE_RUNS.items():
+        out[arch] = _serve_published(arch, run, smi)
+    out["smoke"] = serve_smoke()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"serving: phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
 def _full_layers(arch: str) -> int:
     from repro_torch import configs
 
@@ -2968,6 +3455,7 @@ def main(argv=None) -> int:
         planners = phase_planners(smi)
         options = phase_options(smi, f"{ckpt_dir}/ranks")
     families = phase_families(smi)
+    serving = phase_serving(smi)
     ab = phase_ab(args.parent) if args.parent is not None else None
     per_step = kernels["per_step"]
     per_round = score["per_round"]
@@ -3030,7 +3518,8 @@ def main(argv=None) -> int:
              "kernels": kernels, "score": score, "select": select,
              "trainer": trainer, "sim": sim, "wire": wire, "ranks": ranks,
              "stragglers": stragglers, "planners": planners,
-             "options": options, "families": families, "ab": ab,
+             "options": options, "families": families, "serving": serving,
+             "ab": ab,
              "kernels_line": line},
             indent=1,
         ))

@@ -1,5 +1,5 @@
 """Encoder-decoder transformer: the whisper-tiny backbone (counterpart of
-``repro.models.encdec``, training only).
+``repro.models.encdec``).
 
 As in the JAX package, the audio frontend (mel + conv) is a stub: the
 batch holds precomputed frame embeddings ``frames [B, enc_seq, d_model]``.
@@ -12,16 +12,23 @@ The tree is the JAX package's: ``enc_layers.*`` stacked on
 ``norm1..3``) on ``[n_layers, ...]``, then ``enc_norm`` and
 ``final_norm``. ``remat`` recomputes each encoder and each decoder block
 in the backward pass (``torch.utils.checkpoint``).
+
+Serving: ``build_cross_cache`` runs the encoder once and projects every
+decoder layer's cross-attention keys and values; the decode cache holds
+those (``ck``, ``cv`` over ``enc_seq``) beside the self-attention KV
+cache (``k``, ``v`` over ``max_len``), which ``decode_step`` writes in
+place.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import (
-    _norm, _stack_layers, _unstack, run_block, token_nll)
+    _norm, _stack_layers, _unstack, attend, mask_pad_logits, run_block,
+    token_nll, write_kv)
 from repro_torch.nn import layers as L
 
 Params = Dict[str, Any]
@@ -57,8 +64,9 @@ def _dec_layer_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     """Random weights drawn from ``torch.Generator().manual_seed(seed)``,
     with the JAX package's shapes and scales: the embedding, the encoder
-    layers, the decoder layers, the two final norms. Layers are drawn and
-    stacked on the host and moved to ``device`` leaf by leaf."""
+    layers, the decoder layers, the two final norms. Layers are drawn on
+    the host one at a time and copied into the stacked tensors on
+    ``device``."""
     gen = torch.Generator().manual_seed(seed)
     dt = cfg.torch_dtype
     host = "meta" if torch.device(device).type == "meta" else "cpu"
@@ -66,12 +74,10 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     return {
         "embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model, device,
                               dtype=dt),
-        "enc_layers": _stack_layers(
-            [_enc_layer_init(gen, cfg, host) for _ in range(cfg.n_enc_layers)],
-            device),
-        "dec_layers": _stack_layers(
-            [_dec_layer_init(gen, cfg, host) for _ in range(cfg.n_layers)],
-            device),
+        "enc_layers": _stack_layers(lambda: _enc_layer_init(gen, cfg, host),
+                                    cfg.n_enc_layers, device),
+        "dec_layers": _stack_layers(lambda: _dec_layer_init(gen, cfg, host),
+                                    cfg.n_layers, device),
         "enc_norm": ninit(cfg.d_model, device, dt),
         "final_norm": ninit(cfg.d_model, device, dt),
     }
@@ -102,13 +108,14 @@ def _encode(params: Params, cfg: ModelConfig, frames: torch.Tensor
 
 
 def _dec_block(lp: Params, x: torch.Tensor, cfg: ModelConfig,
-               positions: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor, enc_out: torch.Tensor,
+               mode: str = "dense") -> torch.Tensor:
     _, norm = _norm(cfg)
     h = norm(lp["norm1"], x)
     q, k, v = L.attn_qkv(lp["self"], h)
     q = L.rope(q, positions, base=cfg.rope_base)
     k = L.rope(k, positions, base=cfg.rope_base)
-    ctx = L.attention_dense(q, k, v, causal=True)
+    ctx = attend(q, k, v, cfg, mode, causal=True)
     x = x + L.attn_out(lp["self"], ctx)
     h = norm(lp["norm2"], x)
     q, ck, cv = L.attn_qkv(lp["cross"], h, xkv=enc_out)
@@ -118,14 +125,16 @@ def _dec_block(lp: Params, x: torch.Tensor, cfg: ModelConfig,
     return x + L.mlp(lp["mlp"], h, act=cfg.act)
 
 
-def forward(params: Params, cfg: ModelConfig, batch
+def forward(params: Params, cfg: ModelConfig, batch, *, mode: str = "dense"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(logits [B, S, padded_vocab], aux)``, aux 0 (no aux loss)."""
+    """``(logits [B, S, padded_vocab], aux)``, aux 0 (no aux loss);
+    ``mode`` is the decoder's self-attention, "dense" or "chunked" (the
+    encoder and the cross-attention stay dense, as in the JAX package)."""
     enc_out = _encode(params, cfg, batch["frames"])
     x = L.embed(params["embed"], batch["tokens"], cfg.torch_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in _unstack(params["dec_layers"], cfg.n_layers):
-        x = run_block(_dec_block, lp, x, cfg, positions, enc_out,
+        x = run_block(_dec_block, lp, x, cfg, positions, enc_out, mode,
                       remat=cfg.remat)
     _, norm = _norm(cfg)
     x = norm(params["final_norm"], x)
@@ -139,3 +148,81 @@ def loss_fn(params: Params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict
     logits, aux = forward(params, cfg, batch)
     nll = token_nll(logits, cfg, batch["labels"])
     return nll, {"nll": nll, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# serving: self-attention KV cache beside the precomputed cross-attention KV
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def prefill(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
+    return forward(params, cfg, batch, mode="chunked")[0]
+
+
+@torch.no_grad()
+def build_cross_cache(params: Params, cfg: ModelConfig, frames: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(ck, cv)`` ``[n_layers, B, enc_seq, kv_heads, head_dim]``: the
+    encoder once over ``frames``, then each decoder layer's
+    cross-attention ``wk`` and ``wv`` (no bias, as the JAX package)."""
+    enc_out = _encode(params, cfg, frames)
+    cross = params["dec_layers"]["cross"]
+    ck = torch.einsum("bse,lehd->lbshd", enc_out, cross["wk"].to(enc_out.dtype))
+    cv = torch.einsum("bse,lehd->lbshd", enc_out, cross["wv"].to(enc_out.dtype))
+    return ck, cv
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"
+               ) -> Dict:
+    """Zero ``k``, ``v`` ``[n_layers, B, max_len, kv_heads, head_dim]``,
+    ``ck``, ``cv`` ``[n_layers, B, enc_seq, kv_heads, head_dim]`` (filled
+    from ``build_cross_cache``) and ``pos``."""
+    kv = (cfg.n_layers, batch, max_len, cfg.eff_kv_heads, cfg.hd)
+    ckv = (cfg.n_layers, batch, cfg.enc_seq, cfg.eff_kv_heads, cfg.hd)
+    dt = cfg.torch_dtype
+    return {"k": torch.zeros(kv, dtype=dt, device=device),
+            "v": torch.zeros(kv, dtype=dt, device=device),
+            "ck": torch.zeros(ckv, dtype=dt, device=device),
+            "cv": torch.zeros(ckv, dtype=dt, device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def ringless_kv(cfg: ModelConfig) -> List[str]:
+    """The KV caches that have no ring, so hold ``max_len`` steps at most:
+    the self-attention's (the cross cache holds ``enc_seq`` keys)."""
+    return ["k", "v"]
+
+
+def cache_axes(cfg: ModelConfig) -> Dict:
+    ax = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    cax = ("layers", "batch", "enc_seq", "kv_heads", "head_dim")
+    return {"k": ax, "v": ax, "ck": cax, "cv": cax, "pos": ()}
+
+
+@torch.no_grad()
+def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """``tokens [B, 1]`` → ``(logits [B, 1, padded_vocab], cache)``: each
+    decoder layer writes slot ``pos`` of its self-attention cache in place
+    and attends to it, then its query (no RoPE, no bias) attends to all
+    ``enc_seq`` cross-attention keys."""
+    x = L.embed(params["embed"], tokens, cfg.torch_dtype)
+    pos = cache["pos"]
+    positions = pos.reshape(1, 1)
+    _, norm = _norm(cfg)
+    for i, lp in enumerate(_unstack(params["dec_layers"], cfg.n_layers)):
+        h = norm(lp["norm1"], x)
+        q, k, v = L.attn_qkv(lp["self"], h)
+        q = L.rope(q, positions, base=cfg.rope_base)
+        k = L.rope(k, positions, base=cfg.rope_base)
+        kc, vc = cache["k"][i], cache["v"][i]
+        write_kv(kc, vc, k, v, pos)
+        x = x + L.attn_out(lp["self"], L.attention_decode(q, kc, vc, pos + 1))
+        h = norm(lp["norm2"], x)
+        q = torch.einsum("bse,ehd->bshd", h, lp["cross"]["wq"].to(h.dtype))
+        ctx = L.attention_decode(q, cache["ck"][i], cache["cv"][i], cfg.enc_seq)
+        x = x + L.attn_out(lp["cross"], ctx)
+        h = norm(lp["norm3"], x)
+        x = x + L.mlp(lp["mlp"], h, act=cfg.act)
+    x = norm(params["final_norm"], x)
+    logits = mask_pad_logits(L.unembed(params["embed"], x), cfg)
+    return logits, {**cache, "pos": pos + 1}

@@ -1,5 +1,5 @@
 """Decoder-only transformer LM: the dense, MoE and VLM families
-(counterpart of ``repro.models.lm``, training only).
+(counterpart of ``repro.models.lm``).
 
 The parameter tree is the JAX package's: a dict with the same names, and
 every per-layer leaf stacked on a leading ``n_layers`` axis
@@ -20,10 +20,18 @@ lets the port be held against the JAX package leaf for leaf.
 ``remat`` recomputes each block in the backward pass
 (``torch.utils.checkpoint``), which keeps the values and frees the
 activations inside the blocks.
+
+Serving: ``forward(mode="chunked")`` (``prefill``) runs the online-softmax
+attention over KV blocks of ``attn_block`` keys; ``init_cache`` and
+``decode_step`` run one token at a time against a KV cache
+``[n_layers, B, slots, kv_heads, head_dim]``, a ring of ``sliding_window``
+slots when the config has a window. ``decode_step`` writes the new keys
+and values into the cache tensors in place (a functional update would
+copy the whole cache every token) and returns the cache with ``pos + 1``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -62,22 +70,38 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
             "norm2": ninit(cfg.d_model, device, dt)}
 
 
-def _stack_layers(per_layer, device):
-    """Per-layer trees → one tree with every leaf stacked on axis 0 and
-    moved to ``device``."""
-    first = per_layer[0]
-    if isinstance(first, dict):
-        return {key: _stack_layers([lp[key] for lp in per_layer], device)
-                for key in first}
-    return torch.stack(per_layer).to(device)
+def _stack_layers(draw, n: int, device) -> Params:
+    """``n`` layers, each drawn by ``draw()`` on the host in turn and
+    copied into its slot of one tree whose leaves are stacked on axis 0 on
+    ``device``: the host holds one layer at a time (deepseek-moe-16b's 28
+    layers are 66.7 GB)."""
+    first = draw()
+
+    def empty(x):
+        if isinstance(x, dict):
+            return {key: empty(sub) for key, sub in x.items()}
+        return torch.empty((n, *x.shape), dtype=x.dtype, device=device)
+
+    def fill(dst, src, i):
+        if isinstance(dst, dict):
+            for key in dst:
+                fill(dst[key], src[key], i)
+        else:
+            dst[i].copy_(src)
+
+    out = empty(first)
+    if torch.device(device).type != "meta":
+        for i in range(n):
+            fill(out, first if i == 0 else draw(), i)
+    return out
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     """Random weights drawn from ``torch.Generator().manual_seed(seed)``,
     with the JAX package's shapes and scales: the embedding, then layer by
     layer its attention and MLP (or MoE) weights, then ``vision_proj``.
-    The layers are drawn and stacked on the host and moved to ``device``
-    leaf by leaf, so the card never holds a layer twice."""
+    The layers are drawn on the host one at a time and copied into the
+    stacked tensors on ``device``."""
     gen = torch.Generator().manual_seed(seed)
     dt = cfg.torch_dtype
     host = "meta" if torch.device(device).type == "meta" else "cpu"
@@ -85,8 +109,8 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     params = {
         "embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model, device,
                               dtype=dt),
-        "layers": _stack_layers(
-            [_layer_init(gen, cfg, host) for _ in range(cfg.n_layers)], device),
+        "layers": _stack_layers(lambda: _layer_init(gen, cfg, host),
+                                cfg.n_layers, device),
         "final_norm": ninit(cfg.d_model, device, dt),
     }
     if cfg.family == "vlm":
@@ -107,15 +131,17 @@ def _unstack(params_layers: Params, n: int):
 
 
 def _block(
-    lp: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
+    lp: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+    mode: str = "dense",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One decoder block: ``(x, aux)``, aux 0 outside the MoE family."""
+    """One decoder block: ``(x, aux)``, aux 0 outside the MoE family.
+    ``mode`` is the attention: "dense" or "chunked"."""
     _, norm = _norm(cfg)
     h = norm(lp["norm1"], x)
     q, k, v = L.attn_qkv(lp["attn"], h)
     q = L.rope(q, positions, base=cfg.rope_base, fraction=cfg.rope_fraction)
     k = L.rope(k, positions, base=cfg.rope_base, fraction=cfg.rope_fraction)
-    ctx = L.attention_dense(q, k, v, causal=True, window=cfg.sliding_window)
+    ctx = attend(q, k, v, cfg, mode, causal=True, window=cfg.sliding_window)
     x = x + L.attn_out(lp["attn"], ctx)
     h = norm(lp["norm2"], x)
     if cfg.is_moe:
@@ -130,6 +156,18 @@ def _block(
     return x + y, aux
 
 
+def attend(q, k, v, cfg: ModelConfig, mode: str, *, causal: bool,
+           window=None) -> torch.Tensor:
+    """``attention_dense``, or ``attention_chunked`` over KV blocks of
+    ``cfg.attn_block`` keys."""
+    if mode == "chunked":
+        return L.attention_chunked(q, k, v, causal=causal, window=window,
+                                   block=cfg.attn_block)
+    if mode == "dense":
+        return L.attention_dense(q, k, v, causal=causal, window=window)
+    raise ValueError(f"unknown attention mode {mode!r}; available: dense, chunked")
+
+
 def run_block(block, *args, remat: bool):
     """``block(*args)``; under ``remat`` recomputed in the backward pass
     (``torch.utils.checkpoint``), so only its inputs are kept."""
@@ -139,13 +177,14 @@ def run_block(block, *args, remat: bool):
 
 
 def _stack(params_layers: Params, x: torch.Tensor, cfg: ModelConfig,
-           positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+           positions: torch.Tensor, mode: str = "dense"
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The blocks in layer order; the aux losses summed in layer order
     and divided by the layer count as the jitted scan does
     (``const_div``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unstack(params_layers, cfg.n_layers):
-        x, a = run_block(_block, lp, x, cfg, positions, remat=cfg.remat)
+        x, a = run_block(_block, lp, x, cfg, positions, mode, remat=cfg.remat)
         aux = aux + a
     return x, const_div(aux, float(cfg.n_layers))
 
@@ -162,12 +201,13 @@ def _embed_inputs(params: Params, cfg: ModelConfig, batch
     return x, torch.arange(x.shape[1], device=x.device)
 
 
-def forward(params: Params, cfg: ModelConfig, batch
+def forward(params: Params, cfg: ModelConfig, batch, *, mode: str = "dense"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(logits [B, S, padded_vocab], aux)`` over the token positions
-    (the VLM prefix stripped)."""
+    (the VLM prefix stripped); ``mode`` is the attention, "dense" or
+    "chunked"."""
     x, positions = _embed_inputs(params, cfg, batch)
-    x, aux = _stack(params["layers"], x, cfg, positions)
+    x, aux = _stack(params["layers"], x, cfg, positions, mode)
     _, norm = _norm(cfg)
     x = norm(params["final_norm"], x)
     if cfg.family == "vlm":
@@ -208,3 +248,95 @@ def total_loss(nll: torch.Tensor, aux: torch.Tensor, coef: float) -> torch.Tenso
     once on the CPU and on the card."""
     return torch.addcmul(nll, torch.full((), coef, dtype=aux.dtype,
                                          device=aux.device), aux)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill and one-token decode against a KV cache
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def prefill(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Logits of the prompt through the chunked attention (the cache is
+    built by ``init_cache``, not here, as in the JAX package)."""
+    return forward(params, cfg, batch, mode="chunked")[0]
+
+
+def ringless_kv(cfg: ModelConfig) -> List[str]:
+    """The KV caches that have no ring, so hold ``max_len`` steps at most:
+    a sliding-window config keeps a ring of ``window`` slots."""
+    return [] if cfg.sliding_window else ["k", "v"]
+
+
+def cache_slots(cfg: ModelConfig, max_len: int) -> int:
+    return max_len if ringless_kv(cfg) else min(max_len, cfg.sliding_window)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"
+               ) -> Dict:
+    """Zero KV cache ``k``, ``v`` ``[n_layers, B, slots, kv_heads,
+    head_dim]`` and ``pos``, a 0-d int32 tensor on ``device`` (the JAX
+    tree; ``k`` and ``v`` are two tensors, since the step writes them in
+    place)."""
+    shape = (cfg.n_layers, batch, cache_slots(cfg, max_len), cfg.eff_kv_heads,
+             cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def cache_axes(cfg: ModelConfig) -> Dict:
+    ax = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    return {"k": ax, "v": ax, "pos": ()}
+
+
+def write_kv(cache_k: torch.Tensor, cache_v: torch.Tensor, k: torch.Tensor,
+             v: torch.Tensor, at: torch.Tensor) -> None:
+    """Write one token's ``k``, ``v`` ``[B, 1, kv_heads, head_dim]`` into
+    slot ``at`` (a 0-d device tensor) of one layer's cache ``[B, slots,
+    kv_heads, head_dim]``, in place. The slot must exist: the JAX
+    package's ``dynamic_update_slice`` clamps a start past the end into
+    the last slot, and an index past the end is an error here (on the
+    card a device-side assert), so callers keep ``at < slots``
+    (``launch.serve.run`` refuses a request that would not)."""
+    idx = at.reshape(1).long()
+    cache_k.index_copy_(1, idx, k)
+    cache_v.index_copy_(1, idx, v)
+
+
+@torch.no_grad()
+def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """``tokens [B, 1]`` → ``(logits [B, 1, padded_vocab], cache)``, the
+    vocabulary padding masked. Writes slot ``pos % slots`` with a window
+    (a ring: every filled slot attends, and the keys keep their absolute
+    RoPE) and slot ``pos`` without one, in place, and reads nothing on the
+    host. The MoE runs with ``no_drop=True`` and the default dispatch, as
+    the JAX step calls it."""
+    x = L.embed(params["embed"], tokens, cfg.torch_dtype)
+    pos = cache["pos"]
+    slots = cache["k"].shape[2]
+    write_at = pos if ringless_kv(cfg) else pos % slots
+    filled = torch.clamp(pos + 1, max=slots)
+    positions = pos.reshape(1, 1)
+    _, norm = _norm(cfg)
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        h = norm(lp["norm1"], x)
+        q, k, v = L.attn_qkv(lp["attn"], h)
+        q = L.rope(q, positions, base=cfg.rope_base, fraction=cfg.rope_fraction)
+        k = L.rope(k, positions, base=cfg.rope_base, fraction=cfg.rope_fraction)
+        kc, vc = cache["k"][i], cache["v"][i]
+        write_kv(kc, vc, k, v, write_at)
+        ctx = L.attention_decode(q, kc, vc, filled, window=None)
+        x = x + L.attn_out(lp["attn"], ctx)
+        h = norm(lp["norm2"], x)
+        if cfg.is_moe:
+            y, _ = M.moe_apply(
+                lp["mlp"], h, top_k=cfg.moe_top_k,
+                capacity_factor=cfg.capacity_factor,
+                group_size=cfg.moe_group_size, no_drop=True,
+            )
+        else:
+            y = L.mlp(lp["mlp"], h, act=cfg.act)
+        x = x + y
+    x = norm(params["final_norm"], x)
+    logits = mask_pad_logits(L.unembed(params["embed"], x), cfg)
+    return logits, {**cache, "pos": pos + 1}

@@ -1,10 +1,13 @@
 """Family dispatch, input specs and synthetic batches (counterpart of
 ``repro.models.registry``).
 
-Every family module the port has exposes ``init(cfg, *, seed, device)``
-and ``loss_fn(params, cfg, batch) -> (loss, metrics)``. The ``dense``,
-``moe`` and ``vlm`` families are ``models.lm``, ``encdec`` is
-``models.encdec``, ``ssm`` and ``hybrid`` are ``models.ssm``.
+Every family module exposes ``init(cfg, *, seed, device)``,
+``loss_fn(params, cfg, batch) -> (loss, metrics)``, ``prefill(params,
+cfg, batch) -> logits``, ``init_cache(cfg, batch, max_len, *, device)``,
+``cache_axes(cfg)`` and ``decode_step(params, cfg, cache, tokens) ->
+(logits, cache)``. The ``dense``, ``moe`` and ``vlm`` families are
+``models.lm``, ``encdec`` is ``models.encdec``, ``ssm`` and ``hybrid``
+are ``models.ssm``.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """SSM and hybrid models: mamba2-780m (pure SSD) and zamba2-7b (hybrid)
-(counterpart of ``repro.models.ssm``, training only).
+(counterpart of ``repro.models.ssm``).
 
 zamba2 structure (arXiv:2411.15242, as the JAX package adapts it):
 ``n_layers`` blocks in all; one *shared* attention+MLP block (one
@@ -13,15 +13,23 @@ The tree is the JAX package's: ``trailing.*`` stacked on ``[n_trailing,
 applications. ``remat`` recomputes each mamba block and, separately, each
 application of the shared block in the backward pass
 (``torch.utils.checkpoint``).
+
+Serving: the decode cache holds each mamba block's conv window and SSM
+state (``grouped.*`` on ``[n_groups, per_group, ...]``, ``trailing.*`` on
+``[n_trailing, ...]``) and one KV cache per application of the shared
+block (``attn_k``, ``attn_v`` on ``[n_groups, ...]``); ``decode_step``
+writes all of them in place.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import _stack_layers, _unstack, run_block, token_nll
+from repro_torch.models.lm import (
+    _stack_layers, _unstack, attend, mask_pad_logits, run_block, token_nll,
+    write_kv)
 from repro_torch.nn import layers as L
 from repro_torch.nn import ssd
 
@@ -60,11 +68,21 @@ def _attn_block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     }
 
 
+def _regroup(tree: Params, n_groups: int, per_group: int) -> Params:
+    """Each leaf's stacked axis ``[n_groups * per_group]`` as ``[n_groups,
+    per_group]`` (a view)."""
+    if isinstance(tree, dict):
+        return {key: _regroup(sub, n_groups, per_group)
+                for key, sub in tree.items()}
+    return tree.view(n_groups, per_group, *tree.shape[1:])
+
+
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     """Random weights drawn from ``torch.Generator().manual_seed(seed)``,
     with the JAX package's shapes and scales: the embedding, the grouped
     mamba blocks, the shared block, the trailing blocks. Blocks are drawn
-    and stacked on the host and moved to ``device`` leaf by leaf."""
+    on the host one at a time and copied into the stacked tensors on
+    ``device``."""
     gen = torch.Generator().manual_seed(seed)
     dt = cfg.torch_dtype
     host = "meta" if torch.device(device).type == "meta" else "cpu"
@@ -72,41 +90,48 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     params: Params = {"embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
                                             device, dtype=dt)}
     if n_groups * per_group:
-        groups = [_stack_layers([_mamba_init(gen, cfg, host)
-                                 for _ in range(per_group)], host)
-                  for _ in range(n_groups)]
-        params["grouped"] = _stack_layers(groups, device)
+        flat = _stack_layers(lambda: _mamba_init(gen, cfg, host),
+                             n_groups * per_group, device)
+        params["grouped"] = _regroup(flat, n_groups, per_group)
         params["shared_attn"] = _attn_block_init(gen, cfg, device)
     if trailing:
-        params["trailing"] = _stack_layers(
-            [_mamba_init(gen, cfg, host) for _ in range(trailing)], device)
+        params["trailing"] = _stack_layers(lambda: _mamba_init(gen, cfg, host),
+                                           trailing, device)
     params["final_norm"] = L.rmsnorm_init(cfg.d_model, device, dt)
     return params
 
 
-def _mamba_block(lp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mamba_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, cache=None):
+    """``(x, new_cache)``: the chunked scan without a cache (new_cache
+    None), one decode step with one."""
     h = L.rmsnorm(lp["norm"], x, eps=cfg.norm_eps)
-    y, _ = ssd.ssd_block_apply(
+    y, new_cache = ssd.ssd_block_apply(
         lp["mixer"], h, d_inner=cfg.d_inner, headdim=cfg.ssm_headdim,
-        d_state=cfg.ssm_state, chunk=cfg.ssm_chunk, norm_eps=cfg.norm_eps)
-    return x + y
+        d_state=cfg.ssm_state, chunk=cfg.ssm_chunk, cache=cache,
+        norm_eps=cfg.norm_eps)
+    return x + y, new_cache
+
+
+def _mamba_x(lp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return _mamba_block(lp, x, cfg)[0]
 
 
 def _attn_block(lp: Params, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor) -> torch.Tensor:
+                positions: torch.Tensor, mode: str = "dense") -> torch.Tensor:
     h = L.rmsnorm(lp["norm1"], x, eps=cfg.norm_eps)
     q, k, v = L.attn_qkv(lp["attn"], h)
     q = L.rope(q, positions, base=cfg.rope_base)
     k = L.rope(k, positions, base=cfg.rope_base)
-    ctx = L.attention_dense(q, k, v, causal=True)
+    ctx = attend(q, k, v, cfg, mode, causal=True)
     x = x + L.attn_out(lp["attn"], ctx)
     h = L.rmsnorm(lp["norm2"], x, eps=cfg.norm_eps)
     return x + L.mlp(lp["mlp"], h, act=cfg.act)
 
 
-def forward(params: Params, cfg: ModelConfig, batch
+def forward(params: Params, cfg: ModelConfig, batch, *, mode: str = "dense"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(logits [B, S, padded_vocab], aux)``, aux 0 (no aux loss)."""
+    """``(logits [B, S, padded_vocab], aux)``, aux 0 (no aux loss);
+    ``mode`` is the shared block's attention, "dense" or "chunked"."""
     x = L.embed(params["embed"], batch["tokens"], cfg.torch_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     n_groups, per_group, trailing = _plan(cfg)
@@ -114,11 +139,12 @@ def forward(params: Params, cfg: ModelConfig, batch
         shared = params["shared_attn"]
         for group in _unstack(params["grouped"], n_groups):
             for lp in _unstack(group, per_group):
-                x = run_block(_mamba_block, lp, x, cfg, remat=cfg.remat)
-            x = run_block(_attn_block, shared, x, cfg, positions, remat=cfg.remat)
+                x = run_block(_mamba_x, lp, x, cfg, remat=cfg.remat)
+            x = run_block(_attn_block, shared, x, cfg, positions, mode,
+                          remat=cfg.remat)
     if trailing:
         for lp in _unstack(params["trailing"], trailing):
-            x = run_block(_mamba_block, lp, x, cfg, remat=cfg.remat)
+            x = run_block(_mamba_x, lp, x, cfg, remat=cfg.remat)
     x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.unembed(params["embed"], x), aux
@@ -130,3 +156,107 @@ def loss_fn(params: Params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict
     logits, aux = forward(params, cfg, batch)
     nll = token_nll(logits, cfg, batch["labels"])
     return nll, {"nll": nll, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def prefill(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
+    return forward(params, cfg, batch, mode="chunked")[0]
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"
+               ) -> Dict:
+    """Zero decode state in the JAX tree: ``pos``; ``grouped.{conv,ssm}``
+    on ``[n_groups, per_group, ...]`` and ``attn_k``, ``attn_v``
+    ``[n_groups, B, max_len, kv_heads, head_dim]`` for the hybrid;
+    ``trailing.{conv,ssm}`` on ``[n_trailing, ...]``."""
+    n_groups, per_group, trailing = _plan(cfg)
+    dt = cfg.torch_dtype
+
+    def ssm_cache(*lead):
+        one = ssd.ssd_init_cache(batch, cfg.d_inner, cfg.ssm_headdim,
+                                 cfg.ssm_state, "meta", dt)
+        return {name: torch.zeros((*lead, *x.shape), dtype=dt, device=device)
+                for name, x in one.items()}
+
+    cache: Dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32,
+                                                device=device)}
+    if n_groups:
+        cache["grouped"] = ssm_cache(n_groups, per_group)
+        kv = (n_groups, batch, max_len, cfg.eff_kv_heads, cfg.hd)
+        cache["attn_k"] = torch.zeros(kv, dtype=dt, device=device)
+        cache["attn_v"] = torch.zeros(kv, dtype=dt, device=device)
+    if trailing:
+        cache["trailing"] = ssm_cache(trailing)
+    return cache
+
+
+def ringless_kv(cfg: ModelConfig) -> List[str]:
+    """The KV caches that have no ring, so hold ``max_len`` steps at most:
+    the shared attention block's, where the config has one."""
+    return ["attn_k", "attn_v"] if _plan(cfg)[0] else []
+
+
+def cache_axes(cfg: ModelConfig) -> Dict:
+    n_groups, per_group, trailing = _plan(cfg)
+    sax = {
+        "conv": ("batch", "conv", "d_inner"),
+        "ssm": ("batch", "ssm_heads", None, "ssm_state"),
+    }
+    ax: Dict[str, Any] = {"pos": ()}
+    if n_groups:
+        ax["grouped"] = {name: ("layers", "blocks") + a for name, a in sax.items()}
+        ax["attn_k"] = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+        ax["attn_v"] = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    if trailing:
+        ax["trailing"] = {name: ("layers",) + a for name, a in sax.items()}
+    return ax
+
+
+def _mamba_step(lp: Params, x: torch.Tensor, cfg: ModelConfig, conv, ssm_state
+                ) -> torch.Tensor:
+    """One mamba block's decode step; its conv window and SSM state
+    written in place."""
+    x, new = _mamba_block(lp, x, cfg, cache={"conv": conv, "ssm": ssm_state})
+    conv.copy_(new["conv"])
+    ssm_state.copy_(new["ssm"])
+    return x
+
+
+@torch.no_grad()
+def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """``tokens [B, 1]`` → ``(logits [B, 1, padded_vocab], cache)``: the
+    blocks in the forward's order, each mamba block one step of its
+    recurrence, each application of the shared block writing slot ``pos``
+    of its KV cache; every cache tensor written in place, and the cache
+    returned with ``pos + 1``."""
+    x = L.embed(params["embed"], tokens, cfg.torch_dtype)
+    pos = cache["pos"]
+    positions = pos.reshape(1, 1)
+    n_groups, per_group, trailing = _plan(cfg)
+    if n_groups:
+        shared = params["shared_attn"]
+        gc = cache["grouped"]
+        for g, group in enumerate(_unstack(params["grouped"], n_groups)):
+            for j, lp in enumerate(_unstack(group, per_group)):
+                x = _mamba_step(lp, x, cfg, gc["conv"][g, j], gc["ssm"][g, j])
+            h = L.rmsnorm(shared["norm1"], x, eps=cfg.norm_eps)
+            q, k, v = L.attn_qkv(shared["attn"], h)
+            q = L.rope(q, positions, base=cfg.rope_base)
+            k = L.rope(k, positions, base=cfg.rope_base)
+            kc, vc = cache["attn_k"][g], cache["attn_v"][g]
+            write_kv(kc, vc, k, v, pos)
+            ctx = L.attention_decode(q, kc, vc, pos + 1)
+            x = x + L.attn_out(shared["attn"], ctx)
+            h = L.rmsnorm(shared["norm2"], x, eps=cfg.norm_eps)
+            x = x + L.mlp(shared["mlp"], h, act=cfg.act)
+    if trailing:
+        tc = cache["trailing"]
+        for i, lp in enumerate(_unstack(params["trailing"], trailing)):
+            x = _mamba_step(lp, x, cfg, tc["conv"][i], tc["ssm"][i])
+    x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
+    logits = mask_pad_logits(L.unembed(params["embed"], x), cfg)
+    return logits, {**cache, "pos": pos + 1}

@@ -9,9 +9,12 @@ the same weights on any device.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.regtopk_score import const_div
 
 Params = Dict[str, torch.Tensor]
 
@@ -115,8 +118,16 @@ def rope(
 
 
 # ---------------------------------------------------------------------------
-# dense attention: matmul + masked softmax
+# attention cores: dense, chunked online softmax (prefill), cached (decode)
 # ---------------------------------------------------------------------------
+def attn_scale(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """``x / sqrt(head_dim)`` as the jitted reference computes it: a
+    product with the float32 reciprocal of the float32 constant
+    (:func:`const_div`), which differs from the IEEE quotient in the last
+    bit of about 41% of float32 values at ``head_dim = 32``."""
+    return const_div(x, head_dim**0.5)
+
+
 def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     """GQA: repeat kv heads to match query heads. k: [B, S, Kh, Dh]."""
     kh = k.shape[-2]
@@ -152,7 +163,7 @@ def attention_dense(
     H, Dh = q.shape[-2], q.shape[-1]
     k = _expand_kv(k, H)
     v = _expand_kv(v, H)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / (Dh**0.5)
+    scores = attn_scale(torch.einsum("bqhd,bkhd->bhqk", q, k), Dh)
     q_pos = torch.arange(q.shape[1], device=q.device)
     k_pos = torch.arange(k.shape[1], device=q.device)
     if causal or window is not None:
@@ -161,6 +172,86 @@ def attention_dense(
         )
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attention_chunked(
+    q: torch.Tensor,  # [B, Sq, H, Dh]
+    k: torch.Tensor,  # [B, Sk, Kh, Dh]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    block: int = 1024,
+) -> torch.Tensor:
+    """Online softmax over KV blocks of ``block`` keys, so the live scores
+    are ``[B, H, Sq, block]`` (prefill). As the JAX package: the last
+    block is zero-padded and its keys at or past ``Sk`` masked; ``q`` is
+    scaled, not the scores; the running max, sum and accumulator are
+    float32; a block whose keys are all masked for a row adds weight 1
+    per key while the row's max is still ``NEG_INF``, which the first
+    unmasked block's correction ``exp(NEG_INF - m)`` zeroes."""
+    B, Sq, H, Dh = q.shape
+    Sk = k.shape[1]
+    k = _expand_kv(k, H)
+    v = _expand_kv(v, H)
+    nblk = -(-Sk // block)
+    pad = nblk * block - Sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    q_pos = torch.arange(Sq, device=q.device)
+    qs = attn_scale(q, Dh)
+    m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Sq, Dh), dtype=torch.float32, device=q.device)
+    for i in range(nblk):
+        kblk = k[:, i * block:(i + 1) * block]
+        vblk = v[:, i * block:(i + 1) * block]
+        k_pos = i * block + torch.arange(block, device=q.device)
+        s = torch.einsum("bqhd,bkhd->bhqk", qs, kblk)
+        ok = k_pos[None, :] < Sk
+        if causal:
+            ok = ok & (q_pos[:, None] >= k_pos[None, :])
+        if window is not None:
+            ok = ok & (q_pos[:, None] - k_pos[None, :] < window)
+        s = torch.where(ok, s.float(), NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(q.dtype), vblk).float()
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)  # [B, Sq, H, Dh]
+
+
+def attention_decode(
+    q: torch.Tensor,  # [B, 1, H, Dh]
+    k_cache: torch.Tensor,  # [B, S, Kh, Dh]
+    v_cache: torch.Tensor,
+    cache_len: Union[torch.Tensor, int],  # filled length, the new token's key included
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """One query token over the cache's first ``cache_len`` slots (a 0-d
+    device tensor, so the step reads no value on the host), the last
+    ``window`` of them when given. Each group of ``H / Kh`` query heads
+    attends to its KV head of the cache in place (the JAX package repeats
+    the KV heads; a repeated cache would be ``H / Kh`` times the cache's
+    bytes each layer and step)."""
+    B, Sq, H, Dh = q.shape
+    Kh = k_cache.shape[-2]
+    qg = q.reshape(B, Sq, Kh, H // Kh, Dh)
+    s = attn_scale(torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache), Dh)
+    k_pos = torch.arange(k_cache.shape[1], device=q.device)
+    ok = k_pos < cache_len
+    if window is not None:
+        ok = ok & (k_pos >= cache_len - window)
+    s = torch.where(ok, s.float(), NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    ctx = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache)
+    return ctx.reshape(B, Sq, H, Dh)
 
 
 # ---------------------------------------------------------------------------

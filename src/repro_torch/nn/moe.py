@@ -138,7 +138,11 @@ def _group(p: Params, xs: torch.Tensor, top_k: int, cap: int, dispatch: str):
             f"unknown moe dispatch {dispatch!r}; available: {MOE_DISPATCHES}"
         )
     # Switch aux loss: E * sum_e f_e * p_e
-    counts = torch.bincount(gate_idx.reshape(-1), minlength=E)
+    # the experts' counts without bincount, which reads the largest index
+    # on the host (a sync each layer of a decode step on the card)
+    flat = gate_idx.reshape(-1)
+    counts = torch.zeros(E, dtype=flat.dtype, device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
     f_e = const_div(counts.float(), float(g * top_k))
     p_e = const_div(probs.sum(0), float(g))
     aux = E * torch.sum(f_e * p_e)

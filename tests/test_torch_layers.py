@@ -16,6 +16,12 @@
   ``attn_init``'s QKV biases and the padded shapes equal JAX's.
 * cross-attention: ``attn_qkv(xkv=...)`` and ``attention_dense`` over
   Sq != Sk, to the model's tolerance.
+* the serving cores: ``attention_chunked`` (online softmax over KV
+  blocks, the last one padded) and ``attention_decode`` (a partly filled
+  cache, a window) to rtol 1e-6, with an absolute floor of 1e-6 of the
+  largest magnitude (the einsums sum in another order); the scale
+  ``/ sqrt(head_dim)`` of every core in f32 bits against the jitted
+  reference, which multiplies by ``fl(1/fl(sqrt(head_dim)))``.
 """
 import jax
 import jax.numpy as jnp
@@ -159,3 +165,105 @@ def test_cross_attention_matches_jax(causal):
     _, k2, v2 = tL.attn_qkv(tp, torch.zeros_like(torch.from_numpy(x)),
                             xkv=torch.from_numpy(enc))
     assert torch.equal(k, k2) and torch.equal(v, v2)
+
+
+CORE_RTOL = 1e-6
+
+
+def _qkv(B=2, S=100, H=4, Kh=2, D=16, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((B, S, H, D), (B, S, Kh, D), (B, S, Kh, D)))
+
+
+@pytest.mark.parametrize("window", [None, 17])
+def test_attention_chunked_matches_jax(window):
+    """B, S, H, Kh, D = 2, 100, 4, 2, 16 in blocks of 32: four blocks, the
+    last padded with 28 masked keys; causal, with and without a window
+    (rows whose first blocks are all masked)."""
+    q, k, v = _qkv()
+    want = jax.jit(lambda q, k, v: jL.attention_chunked(
+        q, k, v, causal=True, window=window, block=32))(q, k, v)
+    got = tL.attention_chunked(*map(torch.from_numpy, (q, k, v)), causal=True,
+                               window=window, block=32)
+    assert got.shape == (2, 100, 4, 16)
+    _close(got.numpy(), np.asarray(want), rtol=CORE_RTOL)
+    dense = tL.attention_dense(*map(torch.from_numpy, (q, k, v)), causal=True,
+                               window=window)
+    _close(got.numpy(), dense.numpy(), rtol=CORE_RTOL)
+
+
+@pytest.mark.parametrize("cache_len,window", [(37, None), (100, 17), (37, 17)])
+def test_attention_decode_matches_jax(cache_len, window):
+    """One query over a cache of 100 slots of which ``cache_len`` are
+    filled (a 0-d tensor), GQA 4 query heads over 2 KV heads."""
+    q, k, v = _qkv(seed=1)
+    q = q[:, :1]
+    want = jax.jit(lambda q, k, v, n: jL.attention_decode(
+        q, k, v, n, window=window))(q, k, v, jnp.int32(cache_len))
+    got = tL.attention_decode(*map(torch.from_numpy, (q, k, v)),
+                              torch.tensor(cache_len, dtype=torch.int32),
+                              window=window)
+    assert got.shape == (2, 1, 4, 16)
+    _close(got.numpy(), np.asarray(want), rtol=CORE_RTOL)
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("head_dim", [32, 80, 128])
+def test_attn_scale_is_the_jitted_division_in_bits(head_dim):
+    """100,000 values divided by ``sqrt(head_dim)``: equal to jitted JAX in
+    f32 bits, where the IEEE quotient differs in thousands (3,245 at
+    head_dim 80, tens of thousands at 32 and 128)."""
+    x = (10 * np.random.default_rng(2).standard_normal(100_000)).astype(np.float32)
+    want = _bits(jax.jit(lambda x: x / (head_dim**0.5))(x))
+    got = tL.attn_scale(torch.from_numpy(x), head_dim).numpy()
+    np.testing.assert_array_equal(_bits(got), want)
+    ieee = (torch.from_numpy(x) / head_dim**0.5).numpy()
+    assert (_bits(ieee) != want).sum() > 1_000
+
+
+@pytest.mark.parametrize("core", ["dense", "decode", "chunked"])
+def test_attention_cores_scale_as_jitted_jax_bits(core, monkeypatch):
+    """At head_dim 32 each core's scaled scores (dense, decode: the
+    softmax's input) or scaled ``q`` (chunked: the scores' operand) equal
+    jitted JAX's in f32 bits. ``q`` is one-hot along head_dim for the
+    scores, so ``q . k`` is an entry of ``k`` exactly in both stacks and
+    only the scale can differ (as an IEEE division, in 41% of values)."""
+    B, S, H, Kh, D = 2, 64, 4, 2, 32
+    q, k, v = _qkv(B, S, H, Kh, D, seed=3)
+    if core != "chunked":
+        hot = np.random.default_rng(4).integers(0, D, (B, S, H))
+        q = np.eye(D, dtype=np.float32)[hot]
+    seen = []
+    if core == "chunked":
+        einsum = torch.einsum
+
+        def spy(eq, *ops):
+            if eq == "bqhd,bkhd->bhqk":
+                seen.append(ops[0])
+            return einsum(eq, *ops)
+
+        monkeypatch.setattr(torch, "einsum", spy)
+        tL.attention_chunked(*map(torch.from_numpy, (q, k, v)), block=32)
+        want = jax.jit(lambda q: q / (D**0.5))(q)
+    else:
+        softmax = torch.softmax
+
+        def spy(x, dim):
+            seen.append(x)
+            return softmax(x, dim=dim)
+
+        monkeypatch.setattr(torch, "softmax", spy)
+        if core == "dense":
+            tL.attention_dense(*map(torch.from_numpy, (q, k, v)), causal=False)
+        else:
+            q = q[:, :1]
+            tL.attention_decode(*map(torch.from_numpy, (q, k, v)),
+                                torch.tensor(S, dtype=torch.int32))
+        want = jax.jit(lambda q, k: jnp.einsum(
+            "bqhd,bkhd->bhqk", q, jL._expand_kv(k, H)) / (D**0.5))(q, k)
+    got = seen[0].reshape(np.asarray(want).shape)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
