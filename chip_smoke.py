@@ -205,12 +205,33 @@ Phases, each raising on failure (the script then exits non-zero):
               sequence, teacher-forced on both, within 1e-4 relative, and
               the two greedy runs equal up to a step whose CPU top-2 margin
               is within that.
+15. model parallel — the model axis (one RegTop-k round per (worker,
+              model shard), each shard's block of a leaf flattened on its
+              own with its own k; the forward, the params and Adam whole):
+              (a) qwen2.5-3b at 6 of 36 layers (W = 2 per layout's data
+              axis, batch 4 x 512, RegTop-k at S = 0.01, Adam, 3 steps) on
+              the host meshes of --workers 4 with --model-parallel 2
+              ((data, model) = (2, 2)) and 4 ((1, 4), where 7 of 14
+              leaves stay whole), fastpath on against off: params and
+              every sparsifier-state field in bits, each leaf's block and
+              k, kernel 1 once per fused leaf per step (the W x M rows of a
+              leaf in one launch), the peak beside the reckoned one; (b)
+              4 gloo ranks sharing the card at (2, 2) on
+              paper-resnet-proxy at full width (phase 9's flags), 10
+              steps each of sparse_allgather and dense_allreduce, held in
+              f32 bits (params, losses and the state of every (worker,
+              shard)) against the one-card --workers 4 --model-parallel 2
+              run; --checkpoint at step 5 and --resume to step 10 against
+              the unbroken run in bits; each rank's state bytes; (c)
+              --mesh production at a world size of 4 exits non-zero with
+              its message.
 
 Each kernel's launch count is set to 0 just before the path that runs it
 (select: ``count_above``, ``global_max``, ``block_topk_candidates``;
 trainer, each fused wire run, each run of every rank, each of phase
-10's, 11's and 12's trainer runs and phase 13's six training runs:
-``fused_candidates``; sim, the wire
+10's, 11's and 12's trainer runs, phase 13's six training runs and each
+of phase 15's runs, every rank's counted: ``fused_candidates``; sim, the
+wire
 simulator's fastpath-on run and phase 10's and phase 11's simulator runs:
 ``regtopk_score``) and read just after; the
 ``kernels`` line sums each kernel's main-path launches. The line before the last is the card's nvidia-smi line; before it,
@@ -1744,7 +1765,7 @@ def _rank_body(rank: int, world: int, store: str, out_dir: str,
             if name == "sparse_allgather" and ckpt_dir is not None:
                 extra = [*extra, "--checkpoint", ckpt_dir]
             args = _rank_args(base, extra, device, world)
-            groups = mesh.make_production_groups(multi_pod=args.multi_pod)
+            groups = mesh.make_host_groups(multi_pod=args.multi_pod)
             # auto: rank 0 measures its table (outside the counted run);
             # the other ranks hold one that would fuse no leaf, so equal
             # plans show that rank 0's table reached every rank
@@ -3360,6 +3381,314 @@ def phase_serving(smi: str) -> dict:
     return out
 
 
+# phase 15: the model axis. (a) qwen2.5-3b at phase 13's depth and batch on
+# the host meshes of --workers 4 with a model axis of 2 and of 4; (b) four
+# gloo ranks at (data, model) = (2, 2) on paper-resnet-proxy.
+MP_ARCH, MP_LAYERS, MP_BATCH, MP_DEVICES = "qwen2.5-3b", 6, 4, 4
+MP_MODELS = (2, 4)
+MP_RANK_STEPS, MP_RANK_CKPT = 10, 5
+MP_RANK_RUNS = {"sparse_allgather": [],
+                "dense_allreduce": ["--collective", "dense_allreduce"]}
+
+
+def _mp_train(cfg, params0, W: int, M: int, fastpath: str):
+    """``FAMILY_STEPS`` steps of ``cfg`` on the host mesh ``(data, model) =
+    (W, M)`` of one card, from a copy of ``params0``, RegTop-k at
+    ``FAMILY_SPARSITY``: one round per (worker, model shard). Returns
+    (params, sparsifier state, plan, losses, kernel 1 launches, seconds,
+    peak bytes)."""
+    from repro_torch.comm.fastpath import FastpathCounts
+    from repro_torch.core import distributed as td
+    from repro_torch.core.sparsify import SparsifierConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import fused_encode as fe
+    from repro_torch.models import param_axes
+    from repro_torch.optim import OptConfig, make_optimizer
+    from repro_torch.tree import tree_map
+
+    dist = td.DistConfig(
+        sparsifier=SparsifierConfig(kind="regtopk", sparsity=FAMILY_SPARSITY),
+        optimizer=OptConfig(kind="adam", learning_rate=FAMILY_LR),
+        fastpath=fastpath)
+    params = tree_map(torch.clone, params0)
+    plan = td.build_plan(params, FAMILY_SPARSITY, dist, axes=param_axes(cfg),
+                         mesh={"data": W, "model": M})
+    step = td.make_train_step(cfg, dist, plan, W, FastpathCounts())
+    opt_state = make_optimizer(dist.optimizer).init(params)
+    sp = td.init_sparsifier_state(plan, W, DEVICE)
+    pipe = TokenPipeline(cfg, MP_BATCH, FAMILY_SEQ, 0, DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fe.fused_candidates.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for t in range(FAMILY_STEPS):
+        params, opt_state, sp, m = step(params, opt_state, sp, pipe.batch_at(t))
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    return (params, sp, plan, losses, fe.fused_candidates.launches,
+            time.perf_counter() - t0, torch.cuda.max_memory_allocated())
+
+
+def _to_host(params, sp):
+    """A run's params and sparsifier state copied to the host, so the card
+    holds one run at a time."""
+    from repro_torch.core.compact import CompactState
+    from repro_torch.tree import tree_map
+
+    return (tree_map(lambda x: x.cpu(), params),
+            tree_map(lambda st: CompactState(*(x.cpu() for x in st)), sp))
+
+
+def model_parallel_card(smi: str) -> dict:
+    """Phase 15 (a): qwen2.5-3b at 6 of 36 layers, batch 4 x 512, on the
+    host meshes of 4 devices with a model axis of 2 (W = 2) and of 4 (W
+    = 1), fastpath on against off: params and every sparsifier-state
+    field in bits, kernel 1 once per fused leaf per step (the W x M rows
+    of a leaf in one launch), each leaf's block and k, the peak beside
+    ``_reckoned_bytes``."""
+    from repro_torch import configs
+    from repro_torch.core import distributed as td
+    from repro_torch.models import get_family
+    from repro_torch.tree import tree_items, tree_leaves
+
+    cfg = configs.get_config(MP_ARCH).replace(n_layers=MP_LAYERS)
+    params0 = get_family(cfg).init(cfg, seed=0, device=DEVICE)
+    out, launches = {}, 0
+    for M in MP_MODELS:
+        W = MP_DEVICES // M
+        name = f"{W}x{M}"
+        params, sp, plan, losses, n, seconds, peak = _mp_train(
+            cfg, params0, W, M, "on")
+        on = _to_host(params, sp)
+        del params, sp
+        off = _mp_train(cfg, params0, W, M, "off")
+        leaves = dict(tree_items(plan))
+        n_fused = sum(p.fused for p in leaves.values())
+        if not all(math.isfinite(x) for x in losses) or off[3] != losses:
+            raise AssertionError(f"model parallel {name}: losses on {losses}, "
+                                 f"off {off[3]}")
+        if n != FAMILY_STEPS * n_fused or n == 0 or off[4] != 0:
+            raise AssertionError(
+                f"model parallel {name}: {n} kernel 1 launches on ({off[4]} off), "
+                f"expected {FAMILY_STEPS} steps x {n_fused} fused leaves")
+        off_host = _to_host(off[0], off[1])
+        bad = _mismatches(on[0], off_host[0])
+        same_state = all(_bits_equal(x, y) for a, b in zip(
+            tree_leaves(off_host[1]), tree_leaves(on[1]), strict=True)
+            for x, y in zip(a, b, strict=True))
+        if bad or not same_state:
+            raise AssertionError(f"model parallel {name}: fastpath on vs off: "
+                                 f"{bad} param bit mismatches, states equal "
+                                 f"{same_state}")
+        whole = [path for path, p in leaves.items() if td.split_dim(p) is None]
+        reckoned = _reckoned_bytes(params0, W)
+        for path, p in leaves.items():
+            log(f"model parallel {name}: {path} {p.global_shape} -> "
+                f"{p.local_shape} x {p.shards} (k = {p.k}"
+                f"{', whole' if path in whole else ''})")
+        log(f"model parallel {name}: W = {W}, {M} shards, batch {MP_BATCH} x "
+            f"{FAMILY_SEQ}, {FAMILY_STEPS} steps in {seconds:.2f} s (fastpath "
+            f"on), losses {losses[0]:.4f} -> {losses[-1]:.4f}; fastpath on == "
+            f"off in bits (params and state); {n} kernel 1 launches "
+            f"({n_fused}/{len(leaves)} leaves fused, predicted {FAMILY_STEPS} x "
+            f"{n_fused}); {len(whole)} leaves whole; peak {peak / 1e9:.2f} GB "
+            f"allocated (reckoned {reckoned / 1e9:.2f} GB; {smi})")
+        launches += n
+        out[name] = {"workers": W, "shards": M, "losses": losses, "launches": n,
+                     "fused_leaves": n_fused, "leaves": len(leaves),
+                     "whole": whole, "seconds": seconds, "peak_bytes": peak,
+                     "off_peak_bytes": off[6], "reckoned_bytes": reckoned,
+                     "blocks": {path: [list(p.local_shape), p.k]
+                                for path, p in leaves.items()}}
+        del on, off, off_host
+        torch.cuda.empty_cache()
+    del params0
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def _mp_rank_body(rank: int, world: int, store: str, out_dir: str,
+                  device: str) -> None:
+    """One of phase 15 (b)'s 4 gloo ranks on ``device``, ``(data, model) =
+    (2, 2)``: each run of ``MP_RANK_RUNS`` for ``MP_RANK_STEPS`` steps, then
+    ``MP_RANK_CKPT`` steps with ``--checkpoint`` and the rest with
+    ``--resume``; kernel 1's launches counted around each. Every rank
+    saves its numbers; rank 0 also the params and the state of every
+    (worker, shard), gathered, in the JAX layout."""
+    import torch.distributed as dist
+
+    from repro_torch import convert
+    from repro_torch.kernels import fused_encode as fe
+    from repro_torch.launch import mesh, train
+
+    torch.cuda.set_device(device)
+    mesh.init_file_store(store, rank, world, "gloo")
+    try:
+        out = {}
+        runs = {name: (extra, ["--steps", str(MP_RANK_STEPS)])
+                for name, extra in MP_RANK_RUNS.items()}
+        runs["checkpoint"] = ([], ["--steps", str(MP_RANK_CKPT), "--checkpoint",
+                                   f"{out_dir}/ckpt"])
+        runs["resume"] = ([], ["--steps", str(MP_RANK_STEPS - MP_RANK_CKPT),
+                               "--resume", f"{out_dir}/ckpt"])
+        for name, (extra, steps) in runs.items():
+            args = _rank_args(TRAIN_ARGS, [*extra, "--model-parallel", "2",
+                                           *steps], device, world)
+            groups = mesh.make_host_groups(model=2)
+            fe.fused_candidates.launches = 0
+            _sync(device)
+            res = train.run(args, mesh=groups)
+            _sync(device)
+            full = convert.trainer_state_to_jax(
+                train._all_workers(res.sp_state, groups), res.plan)
+            out[name] = {"launches": fe.fused_candidates.launches,
+                         "losses": res.losses, "digest": _params_digest(res.params),
+                         "state_bytes": _state_bytes(res.sp_state),
+                         "eps_bytes": sum(st.eps.numel() * st.eps.element_size()
+                                          for st in _flat(res.sp_state).values()),
+                         "fused_leaves": sum(p.fused for p in
+                                             _flat(res.plan).values()),
+                         "worker": groups.rank, "shard": groups.shard}
+            if rank == 0:
+                torch.save({"params": {k: v.cpu() for k, v in
+                                       _flat(res.params).items()},
+                            "state": {k: [x.cpu() for x in st] for k, st in
+                                      _flat(full).items()}},
+                           f"{out_dir}/{name}.pt")
+        Path(f"{out_dir}/rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _same_bits(a: dict, b: dict) -> bool:
+    """Two ``{"params", "state"}`` dicts of host tensors equal in bits."""
+    return (a["params"].keys() == b["params"].keys()
+            and all(_bits_equal(a["params"][k], b["params"][k]) for k in a["params"])
+            and all(_bits_equal(x, y) for k in a["state"]
+                    for x, y in zip(a["state"][k], b["state"][k], strict=True)))
+
+
+def model_parallel_ranks(smi: str, device=None) -> dict:
+    """Phase 15 (b): 4 gloo ranks sharing the card at ``(data, model) = (2,
+    2)`` on paper-resnet-proxy at full width, against the one-card
+    ``--workers 4 --model-parallel 2`` run in f32 bits (params, and the
+    state of every (worker, shard)); the checkpointed and resumed run
+    against the unbroken one in bits; each rank's state bytes beside the
+    one-card run's per worker."""
+    import tempfile
+
+    from repro_torch import convert
+    from repro_torch.kernels import fused_encode as fe
+    from repro_torch.launch import mesh, train
+
+    device = device or f"{DEVICE}:0"
+    one_card, launches = {}, 0
+    for name, extra in MP_RANK_RUNS.items():
+        args = _rank_args(TRAIN_ARGS, [*extra, "--model-parallel", "2", "--steps",
+                                       str(MP_RANK_STEPS)], device, 4)
+        fe.fused_candidates.launches = 0
+        res = train.run(args)
+        _sync(device)
+        launches += fe.fused_candidates.launches
+        one_card[name] = {
+            "params": {k: v.cpu() for k, v in _flat(res.params).items()},
+            "state": {k: [x.cpu() for x in st] for k, st in _flat(
+                convert.trainer_state_to_jax(res.sp_state, res.plan)).items()},
+            "losses": res.losses, "launches": fe.fused_candidates.launches,
+            "state_bytes": _state_bytes(res.sp_state)}
+        del res
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        mesh.spawn(_mp_rank_body, 4, (f"{d}/store", d, device), timeout=300)
+        seconds = time.perf_counter() - t0
+        ranks = [json.loads(Path(f"{d}/rank{r}.json").read_text())
+                 for r in range(4)]
+        rank0 = {name: torch.load(f"{d}/{name}.pt")
+                 for name in [*MP_RANK_RUNS, "resume"]}
+    out = {"seconds": seconds, "ranks": ranks}
+    for name in MP_RANK_RUNS:
+        rows = [rk[name] for rk in ranks]
+        want = one_card[name]
+        if len({row["digest"] for row in rows}) != 1:
+            raise AssertionError(f"model parallel (b) {name}: ranks' params "
+                                 "differ in bits")
+        if not _same_bits(rank0[name], want) or rows[0]["losses"] != want["losses"]:
+            raise AssertionError(
+                f"model parallel (b) {name}: the 4 ranks differ from the "
+                f"one-card run: {_mismatches(rank0[name]['params'], want['params'])}"
+                f" param bit mismatches, losses {rows[0]['losses']} vs "
+                f"{want['losses']}")
+        for r, row in enumerate(rows):
+            if row["launches"] != MP_RANK_STEPS * row["fused_leaves"]:
+                raise AssertionError(
+                    f"model parallel (b) {name}: rank {r} launched kernel 1 "
+                    f"{row['launches']} times, expected {MP_RANK_STEPS} x "
+                    f"{row['fused_leaves']}")
+        launches += sum(row["launches"] for row in rows)
+        out[name] = {"one_card_losses": want["losses"],
+                     "one_card_launches": want["launches"],
+                     "one_card_state_bytes": want["state_bytes"]}
+        log(f"model parallel (b) {name}: 4 ranks over gloo on one card, (data, "
+            f"model) = (2, 2): params and the state of every (worker, shard) "
+            f"equal in bits to the one-card --workers 4 --model-parallel 2 run "
+            f"and across the ranks; losses {rows[0]['losses'][0]:.4f} -> "
+            f"{rows[0]['losses'][-1]:.4f}; kernel 1 {rows[0]['launches']} "
+            f"launches per rank ({rows[0]['fused_leaves']} fused leaves), "
+            f"{want['launches']} on one card; state bytes per rank "
+            f"{[row['state_bytes'] for row in rows]} (eps "
+            f"{rows[0]['eps_bytes']}), one card {want['state_bytes']} for its "
+            f"4 rows")
+    resumed = [rk["checkpoint"]["losses"] + rk["resume"]["losses"] for rk in ranks]
+    if (not _same_bits(rank0["resume"], rank0["sparse_allgather"])
+            or resumed[0] != ranks[0]["sparse_allgather"]["losses"]):
+        raise AssertionError("model parallel (b): --checkpoint at step "
+                             f"{MP_RANK_CKPT} and --resume differ from the "
+                             "unbroken run")
+    launches += sum(rk[n]["launches"] for rk in ranks for n in ("checkpoint",
+                                                                 "resume"))
+    log(f"model parallel (b): --checkpoint at step {MP_RANK_CKPT}, --resume to "
+        f"step {MP_RANK_STEPS} on the 4 ranks == the unbroken run in bits "
+        f"(params, state, losses); the spawn took {seconds:.1f} s ({smi})")
+    out["launches"] = launches
+    return out
+
+
+def model_parallel_refusals() -> dict:
+    """Phase 15 (c): ``--mesh production`` at a world size of 4 exits
+    non-zero with its message before any process group starts."""
+    env = dict(os.environ, WORLD_SIZE="4", RANK="0", LOCAL_RANK="0",
+               PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--mesh",
+         "production", "--smoke", "--device", "cuda"],
+        env=env, capture_output=True, text=True, timeout=120)
+    want = "--mesh production needs 256 ranks"
+    if res.returncode == 0 or want not in res.stderr or "not 4" not in res.stderr:
+        raise AssertionError(f"model parallel (c): exit {res.returncode}, "
+                             f"stderr {res.stderr[-500:]!r}")
+    log(f"model parallel (c): --mesh production at world size 4 refused, exit "
+        f"{res.returncode}: {res.stderr.strip().splitlines()[-1]}")
+    return {"returncode": res.returncode, "message": res.stderr.strip()}
+
+
+def phase_model_parallel(smi: str) -> dict:
+    """Phase 15: the model axis (see the module docstring); kernel 1's
+    launches counted over (a)'s runs and (b)'s, every rank's summed."""
+    t0 = time.perf_counter()
+    card = model_parallel_card(smi)
+    ranks = model_parallel_ranks(smi)
+    refusal = model_parallel_refusals()
+    out = {"card": card, "ranks": ranks, "refusal": refusal,
+           "launches": card["launches"] + ranks["launches"],
+           "seconds": time.perf_counter() - t0}
+    log(f"model parallel: phase 15 took {out['seconds']:.1f} s, "
+        f"{out['launches']} kernel 1 launches")
+    return out
+
+
 def _full_layers(arch: str) -> int:
     from repro_torch import configs
 
@@ -3456,6 +3785,7 @@ def main(argv=None) -> int:
         options = phase_options(smi, f"{ckpt_dir}/ranks")
     families = phase_families(smi)
     serving = phase_serving(smi)
+    model_parallel = phase_model_parallel(smi)
     ab = phase_ab(args.parent) if args.parent is not None else None
     per_step = kernels["per_step"]
     per_round = score["per_round"]
@@ -3467,7 +3797,7 @@ def main(argv=None) -> int:
         "launches": (trainer["launches"] + wire["trainer"]["launches"]
                      + ranks["launches"] + stragglers["trainer"]["launches"]
                      + planners["trainer"]["launches"] + options["launches"]
-                     + families["launches"]),
+                     + families["launches"] + model_parallel["launches"]),
         "max_abs_err": kernels["max_abs_err"],
         "ms": per_step["ms"],
         "plain_ms": per_step["plain_ms"],
@@ -3519,7 +3849,7 @@ def main(argv=None) -> int:
              "trainer": trainer, "sim": sim, "wire": wire, "ranks": ranks,
              "stragglers": stragglers, "planners": planners,
              "options": options, "families": families, "serving": serving,
-             "ab": ab,
+             "model_parallel": model_parallel, "ab": ab,
              "kernels_line": line},
             indent=1,
         ))

@@ -71,20 +71,29 @@ def _is_compact_tree(sp_state) -> bool:
 def trainer_state_to_jax(sp_state: Any, plan: Any) -> Any:
     """The trainer's sparsifier state (a tree of ``CompactState``, or under
     ``adaptive_k`` the pair with the controller tree) in the JAX trainer's
-    layout (``repro.core.distributed.sparsifier_state_shapes`` with one
-    model shard): ``eps [W, *global_shape]``, ``sent_* [W, 1, k]``,
-    ``sent_idx`` int32, ``t [W]``. The controller tree is common to both
-    packages. This is what a checkpoint holds."""
+    layout (``repro.core.distributed.sparsifier_state_shapes``) for W
+    workers of M model shards (the plan's ``shards``): ``eps [W,
+    *global_shape]`` (each shard's block put back in its place; a leaf
+    left whole from its first shard), ``sent_* [W, M, k]`` with
+    ``sent_idx`` int32 and block-local, ``t [W]``. The controller tree is
+    common to both packages. This is what a checkpoint holds."""
+    from repro_torch.core.distributed import merge_blocks
+
     if not _is_compact_tree(sp_state):
         return (trainer_state_to_jax(sp_state[0], plan), sp_state[1])
 
     def leaf(st: CompactState, p) -> CompactState:
-        W = st.eps.shape[0]
+        M = p.shards
+        W = st.eps.shape[0] // M
+
+        def slots(x):
+            return x.reshape(W, M, *x.shape[1:])
+
         return CompactState(
-            eps=st.eps.reshape((W,) + tuple(p.global_shape)),
-            sent_vals=st.sent_vals[:, None], sent_g=st.sent_g[:, None],
-            sent_idx=st.sent_idx.to(torch.int32)[:, None],
-            sent_w=st.sent_w[:, None], t=st.t,
+            eps=merge_blocks(st.eps, p),
+            sent_vals=slots(st.sent_vals), sent_g=slots(st.sent_g),
+            sent_idx=slots(st.sent_idx.to(torch.int32)),
+            sent_w=slots(st.sent_w), t=slots(st.t)[:, 0],
         )
 
     return tree_map(leaf, sp_state, plan)
@@ -93,23 +102,31 @@ def trainer_state_to_jax(sp_state: Any, plan: Any) -> Any:
 def trainer_state_from_jax(sp_state: Any, plan: Any) -> Any:
     """:func:`trainer_state_to_jax` undone: a state in the JAX trainer's
     layout (torch tensors, e.g. restored from a checkpoint) as the port
-    keeps it, ``eps [W, L]``, ``sent_* [W, k]``, ``sent_idx`` int64. Only
-    one model shard (``sent_*``'s middle axis of 1) is supported."""
+    keeps it, a row per (worker, model shard), worker major: ``eps [W x
+    M, local_len]``, ``sent_* [W x M, k]``, ``sent_idx`` int64, ``t [W x
+    M]``. ``sent_*``'s middle axis must be the plan's ``shards``."""
+    from repro_torch.core.distributed import shard_blocks
+
     if not _is_compact_tree(sp_state):
         return (trainer_state_from_jax(sp_state[0], plan), sp_state[1])
 
     def leaf(st: CompactState, p) -> CompactState:
-        W = st.eps.shape[0]
-        if st.sent_vals.shape[1] != 1:
+        W, M = st.eps.shape[0], p.shards
+        if st.sent_vals.shape[1] != M:
             raise ValueError(
-                f"a state of {st.sent_vals.shape[1]} model shards; the port "
-                "keeps one"
+                f"a state of {st.sent_vals.shape[1]} model shards; the plan "
+                f"has {M}"
             )
+
+        def rows(x):
+            return x.reshape(W * M, *x.shape[2:])
+
         return CompactState(
-            eps=st.eps.reshape(W, p.local_len),
-            sent_vals=st.sent_vals[:, 0], sent_g=st.sent_g[:, 0],
-            sent_idx=st.sent_idx[:, 0].to(torch.int64),
-            sent_w=st.sent_w[:, 0], t=st.t.to(torch.int32),
+            eps=shard_blocks(st.eps, p),
+            sent_vals=rows(st.sent_vals), sent_g=rows(st.sent_g),
+            sent_idx=rows(st.sent_idx).to(torch.int64),
+            sent_w=rows(st.sent_w),
+            t=st.t.to(torch.int32).repeat_interleave(M),
         )
 
     return tree_map(leaf, sp_state, plan)

@@ -186,6 +186,16 @@ def compact_select(
     )
 
 
+def _at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x`` at each row's coords ``idx [R, k]``: ``x[idx]`` for one common
+    ``x [L]``; for ``x [S, L]``, one per model shard, row ``r`` (worker
+    major, shard fastest) reads ``x[r % S]``."""
+    if x.dim() == 1:
+        return x[idx]
+    shard = torch.arange(idx.shape[0], device=idx.device) % x.shape[0]
+    return x[shard[:, None], idx]
+
+
 def _sent_w_at(
     idx: torch.Tensor, den: Optional[torch.Tensor], like: torch.Tensor
 ) -> torch.Tensor:
@@ -193,7 +203,7 @@ def _sent_w_at(
     weighting, exactly 1.0 under worker weighting (``den=None``)."""
     if den is None:
         return torch.ones_like(like)
-    return den[idx].to(like.dtype)
+    return _at(den, idx).to(like.dtype)
 
 
 def compact_finalize(
@@ -229,11 +239,13 @@ def compact_finalize_sent(
     lossy codec's residual stays in the error), and the decoded payload
     recorded for next round's posterior. ``agg [L]`` is the common
     aggregate; ``den [L]`` the sender mass under coordinate weighting
-    (``None``: worker weighting, a mass of exactly 1)."""
+    (``None``: worker weighting, a mass of exactly 1). Rows of several
+    model shards take ``agg`` and ``den`` as ``[S, L]``, one per shard
+    (:func:`_at`)."""
     return CompactState(
         eps=a - sent_dense.to(a.dtype),
         sent_vals=sent_vals.to(st.sent_vals.dtype),
-        sent_g=agg[sent_idx].to(st.sent_g.dtype),
+        sent_g=_at(agg, sent_idx).to(st.sent_g.dtype),
         sent_idx=sent_idx,
         sent_w=_sent_w_at(sent_idx, den, st.sent_w),
         t=st.t + 1,

@@ -31,6 +31,15 @@ coordinate is divided by the mass of the workers that sent it, and that
 mass is recorded in the state for RegTop-k's next posterior. Adam then
 runs once on the common aggregate.
 
+On a ``(data, model)`` mesh (``build_plan(..., axes=, mesh=)``, the
+specs from ``nn.sharding`` under ``DistConfig.rules`` and ``dp_axes``)
+the round runs per (worker, model shard), as the JAX runtime's
+``shard_map`` runs it: each shard's block of the leaf is flattened on its
+own and gets its own ``k = sparsity_to_k(local_len, S)``, the state holds
+a row per (worker, shard), and ``sent_idx`` holds block-local indices. A
+leaf the divisibility guard leaves whole runs M equal rounds on the whole
+leaf. The forward, the parameters and Adam stay whole on every worker.
+
 A partial-participation schedule (``DistConfig.participation``) draws
 one mask a round, shared by every leaf: participants aggregate with the
 renormalized weight ``1/|P_t|``, and a dropped worker keeps its whole
@@ -83,10 +92,11 @@ from repro_torch.core import compact as C
 from repro_torch.core.selectors import sparsity_to_k
 from repro_torch.core.sparsify import SparsifierConfig
 from repro_torch.kernels.regtopk_score import const_div, ordered_mean
-from repro_torch.launch.mesh import DpGroups, dp_axes_of
+from repro_torch.launch.mesh import DP_AXES, DpGroups, dp_axes_of
 from repro_torch.models import get_family
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn.layers import set_fp32_matmul
+from repro_torch.nn.sharding import tree_specs
 from repro_torch.optim import OptConfig, make_optimizer
 from repro_torch.tree import (
     tree_leaves,
@@ -115,6 +125,9 @@ class DistConfig:
     # microbatches each worker's shard splits into, their gradients
     # accumulated in ``state_dtype`` (the CLI's --microbatches)
     microbatches: int = 1
+    # the mesh axes the workers span, outermost first: ("data",) or
+    # ("pod", "data"); every other mesh axis is a model axis
+    dp_axes: Tuple[str, ...] = ("data",)
     # the dtype of the error ``eps`` and the ``sent_*`` slots, "float32" or
     # "bfloat16"; each worker's gradient is cast to it before the round
     state_dtype: str = "float32"
@@ -146,6 +159,9 @@ class DistConfig:
     # --overlap): the leaves run bucket by bucket, with the numbers of
     # "off" bit for bit, and the metrics gain the predicted timeline
     overlap: str = "off"
+    # logical axis -> mesh axis overrides of nn.sharding.DEFAULT_RULES,
+    # e.g. {"experts": "model"}
+    rules: Optional[Dict[str, Optional[str]]] = None
 
     def resolved_collective(self) -> str:
         """``collective``, else ``aggregation``."""
@@ -260,6 +276,71 @@ class LeafPlan(NamedTuple):
     # the leaf's own wire under "auto" planning; None is DistConfig's
     codec: Optional[str] = None
     collective: Optional[str] = None
+    # one model shard's block and the leaf's spec (``nn.sharding``) on the
+    # mesh it was planned on; None is the whole leaf, replicated
+    local_shape: Optional[Tuple[int, ...]] = None
+    spec: Optional[Tuple[object, ...]] = None
+    # M, the model shards of each worker: one round a step for each, on a
+    # block of the split dim, or M identical rounds on a leaf left whole
+    shards: int = 1
+
+
+def split_dim(p: LeafPlan) -> Optional[int]:
+    """The dim of the leaf that its model shards split, None for a leaf
+    left whole. A spec that names a dp axis, or names an axis on two
+    dims, has no split here: the port keeps the parameters whole on every
+    worker and splits only the sparsify stage, over one model axis."""
+    if p.spec is None or p.shards == 1:
+        return None
+    named = [(d, ax) for d, ax in enumerate(p.spec) if ax is not None]
+    if not named:
+        return None
+    if len(named) > 1 or isinstance(named[0][1], tuple) or (
+            named[0][1] in DP_AXES):
+        raise ValueError(
+            f"a leaf of shape {p.global_shape} with spec {p.spec}: the port "
+            "splits a leaf's rounds along one dim over the model axis only"
+        )
+    return named[0][0]
+
+
+def shard_blocks(x: torch.Tensor, p: LeafPlan,
+                 shard: Optional[int] = None) -> torch.Tensor:
+    """``x [N, *global_shape]`` as the rows of its (row, model shard)
+    blocks, each block flattened row-major on its own as the JAX package
+    flattens a shard's local block: ``[N * M, local_len]``, row major
+    with the shard fastest, or with ``shard`` that block alone, ``[N,
+    local_len]``. A leaf left whole gives its M identical copies."""
+    N, M, L = x.shape[0], p.shards, p.local_len
+    if M == 1:
+        return x.reshape(N, L)
+    d = split_dim(p)
+    if d is None:
+        flat = x.reshape(N, 1, L)
+        return flat[:, 0] if shard is not None else (
+            flat.expand(N, M, L).reshape(N * M, L))
+    shape = p.global_shape
+    b = x.reshape(N, *shape[:d], M, shape[d] // M, *shape[d + 1:])
+    if shard is not None:
+        return b.select(d + 1, shard).reshape(N, L)
+    return b.movedim(d + 1, 1).reshape(N * M, L)
+
+
+def merge_blocks(rows: torch.Tensor, p: LeafPlan) -> torch.Tensor:
+    """:func:`shard_blocks` undone: ``[N * M, local_len]`` rows → ``[N,
+    *global_shape]``; a leaf left whole takes each row's first shard (the
+    M are equal)."""
+    M = p.shards
+    N = rows.shape[0] // M
+    if M == 1:
+        return rows.reshape(N, *p.global_shape)
+    d = split_dim(p)
+    if d is None:
+        return rows.reshape(N, M, p.local_len)[:, 0].reshape(
+            N, *p.global_shape)
+    shape = p.global_shape
+    b = rows.reshape(N, M, *shape[:d], shape[d] // M, *shape[d + 1:])
+    return b.movedim(1, d + 1).reshape(N, *shape)
 
 
 def leaf_wire(p: LeafPlan, dist: DistConfig) -> Tuple[str, str]:
@@ -289,8 +370,20 @@ def plan_fastpath(dist: DistConfig, device) -> str:
     return mode
 
 
+def _local_shape(shape, spec, mesh: Dict[str, int]) -> Tuple[int, ...]:
+    """A shard's block: each dim divided by the mesh axes its spec names
+    (``repro.core.distributed._local_shape``)."""
+    out = []
+    for dim, size in enumerate(shape):
+        ax = spec[dim] if dim < len(spec) else None
+        axes = () if ax is None else ax if isinstance(ax, tuple) else (ax,)
+        out.append(size // math.prod(mesh[a] for a in axes))
+    return tuple(out)
+
+
 def build_plan(params, sparsity: float, dist: Optional[DistConfig] = None,
-               table: Optional[fp.ThroughputTable] = None, workers=None):
+               table: Optional[fp.ThroughputTable] = None, workers=None,
+               axes=None, mesh: Optional[Dict[str, int]] = None):
     """Per-leaf static plan: length, ``k = sparsity_to_k(length, S)`` (the
     controller's ``k_max`` bound under ``dist.adaptive_k``: the payload
     capacity) and whether the leaf is fused (``fastpath.leaf_fused`` under
@@ -298,15 +391,36 @@ def build_plan(params, sparsity: float, dist: Optional[DistConfig] = None,
     ``table`` (its defaults when None), and fuses only where the leaf's
     device can run the kernel (``fastpath.backend_supports``).
 
+    ``mesh`` (an ``{axis: size}`` layout, ``launch.mesh``) with ``axes``
+    (the family's ``param_axes(cfg)``) plans each leaf on one model
+    shard's block, as the JAX ``build_plan`` does: its spec
+    (``nn.sharding.tree_specs`` under ``dist.rules`` and
+    ``dist.dp_axes``), its local shape, and the length, k and fusability
+    of that block; ``shards`` is the product of the mesh's non-dp axes.
+    Without a mesh every leaf is whole, one shard.
+
     Under ``codec``/``collective="auto"`` each leaf also gets the (codec,
     collective, fused) that ``autotune.choose_leaf`` picks on the dp
-    layout ``workers`` (W, or the dp sizes outermost first), priced under
-    ``dist.resolved_link_model()`` at the payload capacity and the
-    schedule's expected participants."""
+    layout ``workers`` (W, or the dp sizes outermost first; by default
+    the mesh's dp axes), priced under ``dist.resolved_link_model()`` at
+    the payload capacity and the schedule's expected participants."""
     ctrl = None if dist is None else dist.resolved_adaptive_k()
     if dist is not None:
         dist.resolved_weighting()
     auto = dist is not None and dist.auto
+    dp_axes = ("data",) if dist is None else tuple(dist.dp_axes)
+    specs, shards = tree_map(lambda _: None, params), 1
+    if mesh is not None:
+        if axes is None:
+            raise ValueError(
+                "a mesh plans each leaf on its shard's block: pass "
+                "build_plan(..., axes=<the family's param_axes(cfg)>)"
+            )
+        specs = tree_specs(params, axes, mesh,
+                           None if dist is None else dist.rules, dp_axes)
+        shards = math.prod(v for a, v in mesh.items() if a not in dp_axes)
+        if workers is None:
+            workers = tuple(mesh[a] for a in dp_axes)
     if auto:
         if workers is None:
             raise ValueError(
@@ -320,24 +434,29 @@ def build_plan(params, sparsity: float, dist: Optional[DistConfig] = None,
         model = dist.resolved_link_model()
         word_bytes = dist.resolved_state_dtype().itemsize
 
-    def mk(leaf):
-        n = leaf.numel()
+    def mk(leaf, spec):
+        shape = tuple(leaf.shape)
+        if spec is None:
+            spec = (None,) * len(shape)
+        local = _local_shape(shape, spec, mesh) if mesh is not None else shape
+        n = math.prod(local)
         k = sparsity_to_k(n, sparsity) if ctrl is None else ctrl.bounds(n)[1]
+        lay = dict(local_shape=local, spec=spec, shards=shards)
         if dist is None:
-            return LeafPlan(tuple(leaf.shape), n, k)
+            return LeafPlan(shape, n, k, **lay)
         mode = plan_fastpath(dist, leaf.device)
         if auto:
             d = autotune.choose_leaf(
                 n, k, dp, model, participants=participants, fastpath=mode,
                 compute=table, word_bytes=word_bytes, **restrict,
             )
-            return LeafPlan(tuple(leaf.shape), n, k, d.fused, d.codec,
-                            d.collective)
+            return LeafPlan(shape, n, k, d.fused, d.codec, d.collective,
+                            **lay)
         fused = fp.leaf_fused(mode, dist.codec, dist.resolved_collective(), n,
                               k, table)
-        return LeafPlan(tuple(leaf.shape), n, k, fused)
+        return LeafPlan(shape, n, k, fused, **lay)
 
-    return tree_map(mk, params)
+    return tree_map(mk, params, specs)
 
 
 def apply_plan_decisions(plan, comm_plan):
@@ -354,11 +473,17 @@ def apply_plan_decisions(plan, comm_plan):
 
 
 def init_sparsifier_state(plan, workers: int, device="cuda",
-                          dtype: torch.dtype = torch.float32):
-    """One ``CompactState`` of ``workers`` rows per leaf of ``plan``, its
-    error and ``sent_*`` slots in ``dtype`` (``DistConfig.state_dtype``)."""
+                          dtype: torch.dtype = torch.float32,
+                          shards: Optional[int] = None):
+    """One ``CompactState`` per leaf of ``plan`` with a row for each
+    (worker, model shard), worker major: ``workers`` x the leaf's
+    ``shards`` rows of its block's length (``shards`` given: that many a
+    worker, 1 on a rank, which holds its own), the error and ``sent_*``
+    slots in ``dtype`` (``DistConfig.state_dtype``)."""
     return tree_map(
-        lambda p: C.compact_init(workers, p.local_len, p.k, device, dtype),
+        lambda p: C.compact_init(
+            workers * (p.shards if shards is None else shards), p.local_len,
+            p.k, device, dtype),
         plan,
     )
 
@@ -380,20 +505,36 @@ def init_controller_state(plan, dist: DistConfig, device="cuda"):
     )
 
 
+def _shard_sum(x: torch.Tensor, model_group) -> torch.Tensor:
+    """``x [n, S]`` summed over its S model shards in shard order on one
+    card, ``[n]``; across ranks (S = 1) summed over the model group, as
+    the JAX package's ``psum`` over the model axes."""
+    out = x[:, 0]
+    for s in range(1, x.shape[1]):
+        out = out + x[:, s]
+    return out if model_group is None else _psum(out, (model_group,))
+
+
 def _ctrl_update(ctrl_cfg, ctrl_leaf, new_st, agg, p: LeafPlan, groups,
-                 n_workers: int):
-    """Fold one leaf's round into its controller state: the workers' mean
-    ``||eps||`` (in worker order on one card; summed over the ranks of
-    ``groups`` across ranks; then times fl(1/W), as the jitted ``pmean``)
-    against ``||g_agg||``."""
+                 n_workers: int, model_group=None):
+    """Fold one leaf's round into its controller state: each worker's
+    ``||eps||`` (its shards' sums of squares added first, a leaf left
+    whole M times, as the JAX package's ``psum`` over the model axes
+    counts it), their mean (in worker order on one card; summed over the
+    ranks of ``groups`` across ranks; then times fl(1/W), as the jitted
+    ``pmean``) against ``||g_agg||``, its shards' ``agg [S, L]`` (or one
+    shard's ``[L]``) summed the same way."""
+    ag = agg.reshape(-1, p.local_len).float()
+    S = ag.shape[0]
     eps = new_st.eps.float()
-    norms = torch.sqrt((eps * eps).sum(-1))
+    sq = _shard_sum((eps * eps).sum(-1).reshape(-1, S), model_group)
+    norms = torch.sqrt(sq)
     mean = (ordered_mean(norms) if groups is None
             else const_div(_psum(norms[0], groups), float(n_workers)))
-    ag = agg.reshape(p.local_len).float()
+    g_sq = _shard_sum((ag * ag).sum(-1).reshape(1, S), model_group)[0]
     lo, hi = ctrl_cfg.bounds(p.local_len)
     return ctrl_cfg.observe(
-        ctrl_leaf, mean, torch.sqrt((ag * ag).sum()), k_min=lo, k_max=hi,
+        ctrl_leaf, mean, torch.sqrt(g_sq), k_min=lo, k_max=hi,
     )
 
 
@@ -408,74 +549,92 @@ def _weighted_sum(x: torch.Tensor, weight) -> torch.Tensor:
 
 
 def _spa_leaf(g, st, p: LeafPlan, scfg, codec, collective, coord, counts,
-              groups=None, part_ctx=None, k_dyn=None):
-    """One leaf's round for the W workers of ``g [W, *shape]``. Returns
-    (aggregate ``[*shape]``, new state). ``groups`` (the dp process
-    groups, outermost first) makes it this rank's round, ``g [1,
-    *shape]``, reduced across the ranks; None keeps every worker on this
-    card.
+              groups=None, part_ctx=None, k_dyn=None, shards: int = 1):
+    """One leaf's round for the rows of ``g [R, local_len]``: one row for
+    each (worker, model shard) of this card, worker major with the
+    ``shards`` shards fastest (``shard_blocks``; R = W x shards), each
+    aggregated over the W rows of its shard. Returns (the aggregate of
+    each shard ``[shards, local_len]``, new state). ``groups`` (the dp
+    process groups of this rank's model index, outermost first) makes it
+    this rank's round, one row (``shards`` 1), reduced across the ranks.
 
     ``part_ctx`` ``(m, w_part)`` makes the round partial: ``m`` the mask
-    entries of this card's W workers (``[1]`` across ranks, this rank's
-    own) and ``w_part`` the renormalized participant weight ``1/|P_t|``.
+    entry of each row's worker (``[R]``; across ranks this rank's own)
+    and ``w_part`` the renormalized participant weight ``1/|P_t|``.
     Participants aggregate with ``w_part``; a dropped worker keeps ``a``
     in ``eps`` and its ``sent_*`` frozen. ``k_dyn`` (a tensor) is the
     controller's k under the capacity ``p.k``."""
-    W = g.shape[0]
-    gl = g.reshape(W, p.local_len)
+    S, L = shards, p.local_len
+
+    def rows(x, s):
+        """The W rows of shard ``s`` (a scalar weight is everyone's)."""
+        if S == 1 or not isinstance(x, torch.Tensor):
+            return x
+        return x[s::S]
+
     m, w_part = part_ctx if part_ctx is not None else (None, None)
     if scfg.kind == "none":
-        if m is not None:  # no error state: a dropped gradient is lost
-            wm = m * w_part
-            mean = (_weighted_sum(gl.float(), wm) if groups is None
-                    else _psum(gl[0].float() * wm[0], groups))
-        elif groups is None:  # pmean: in worker order, times fl(1/W)
-            mean = ordered_mean(gl.float())
-        else:  # pmean: the sum over the ranks, times fl(1/their number)
-            n = math.prod(torch_dist.get_world_size(gr) for gr in groups)
-            mean = const_div(_psum(gl[0].float(), groups), float(n))
-        return mean.reshape(p.global_shape).to(g.dtype), st._replace(t=st.t + 1)
+        means = []
+        for s in range(S):
+            gl = rows(g, s)
+            if m is not None:  # no error state: a dropped gradient is lost
+                wm = rows(m, s) * w_part
+                mean = (_weighted_sum(gl.float(), wm) if groups is None
+                        else _psum(gl[0].float() * wm[0], groups))
+            elif groups is None:  # pmean: in worker order, times fl(1/W)
+                mean = ordered_mean(gl.float())
+            else:  # pmean: the sum over the ranks, times fl(1/their number)
+                n = math.prod(torch_dist.get_world_size(gr) for gr in groups)
+                mean = const_div(_psum(gl[0].float(), groups), float(n))
+            means.append(mean.to(g.dtype))
+        return _stack(means), st._replace(t=st.t + 1)
     a, vals, idx = C.compact_select(
-        scfg, st, gl, p.k, k_dyn=k_dyn, fastpath="on" if p.fused else None,
+        scfg, st, g, p.k, k_dyn=k_dyn, fastpath="on" if p.fused else None,
         counts=counts,
     )
     # the aggregation weight: omega, or the participant weight times each
     # worker's mask entry on a partial round
     weight = scfg.omega if m is None else w_part * m
-    den = None  # the sender mass, under coordinate weighting
+    aggs, dens = [], []  # per shard; the sender mass under coordinate weighting
     if collective.name == "dense_allreduce":
         # the dense vector on the wire: each worker's payload scattered
         # (added, so padding slots are no-ops) into its ghat, the weighted
         # sums taken one worker at a time in worker order
         ghat = torch.zeros_like(a).scatter_add_(1, idx, vals)
-        agg = _weighted_sum(ghat, weight)
-        if coord:
-            den = _weighted_sum((ghat != 0).to(ghat.dtype), weight)
-        if groups is not None:
-            agg = _psum(agg, groups)
-            den = _psum(den, groups) if coord else None
-        if coord:
-            agg = _coord_divide(agg, den)
+        for s in range(S):
+            agg = _weighted_sum(rows(ghat, s), rows(weight, s))
+            den = (_weighted_sum((rows(ghat, s) != 0).to(ghat.dtype),
+                                 rows(weight, s)) if coord else None)
+            if groups is not None:
+                agg = _psum(agg, groups)
+                den = _psum(den, groups) if coord else None
+            aggs.append(_coord_divide(agg, den) if coord else agg)
+            dens.append(den)
+        agg, den = _stack(aggs), _stack(dens) if coord else None
         new = C.compact_finalize(st, a, vals, idx, agg, den=den)
     else:
         payload = (
-            codec.encode_fused(vals, idx, p.local_len)
+            codec.encode_fused(vals, idx, L)
             if p.fused
-            else codec.encode(vals, idx, p.local_len)
+            else codec.encode(vals, idx, L)
         )
-        dvals, didx = codec.decode(payload, p.local_len)
+        dvals, didx = codec.decode(payload, L)
         sent_dense = torch.zeros_like(a).scatter_add_(1, didx, dvals.to(a.dtype))
-        if groups is None:
-            reduce = collective.reference_coord if coord else collective.reference
-            out = reduce(codec, payload, weight, p.local_len)
-        else:
-            reduce = collective.shard_coord if coord else collective.shard
-            out = reduce(codec, payload, p.local_len, groups,
-                         scfg.omega if m is None else w_part,
-                         participation=None if m is None else m[0])
-        agg, den = out if coord else (out, None)
-        agg = agg.to(a.dtype)
-        den = None if den is None else den.to(a.dtype)
+        for s in range(S):
+            if groups is None:
+                reduce = (collective.reference_coord if coord
+                          else collective.reference)
+                out = reduce(codec, {key: rows(x, s) for key, x in payload.items()},
+                             rows(weight, s), L)
+            else:
+                reduce = collective.shard_coord if coord else collective.shard
+                out = reduce(codec, payload, L, groups,
+                             scfg.omega if m is None else w_part,
+                             participation=None if m is None else m[0])
+            agg, den = out if coord else (out, None)
+            aggs.append(agg.to(a.dtype))
+            dens.append(None if den is None else den.to(a.dtype))
+        agg, den = _stack(aggs), _stack(dens) if coord else None
         new = C.compact_finalize_sent(st, a, dvals, didx, sent_dense, agg,
                                       den=den)
     if m is not None:
@@ -485,7 +644,25 @@ def _spa_leaf(g, st, p: LeafPlan, scfg, codec, collective, coord, counts,
             torch.where(live.reshape((-1,) + (1,) * (x.dim() - 1)), x, y)
             for x, y in zip(new, dropped, strict=True)
         ))
-    return agg.reshape(p.global_shape).to(g.dtype), new
+    return agg.to(g.dtype), new
+
+
+def _stack(xs: List[torch.Tensor]) -> torch.Tensor:
+    """``[S, ...]`` of the S shards' tensors (a view of one)."""
+    return xs[0][None] if len(xs) == 1 else torch.stack(xs)
+
+
+def _merge_agg(agg: torch.Tensor, p: LeafPlan,
+               mesh: Optional[DpGroups]) -> torch.Tensor:
+    """The whole aggregate ``[*global_shape]`` from the shards' ``agg
+    [S, local_len]``: on one card all M are here; across ranks this rank's
+    block is gathered over its model group first. A leaf left whole
+    takes its own (its M rounds are equal)."""
+    if split_dim(p) is None:
+        return agg[0].reshape(p.global_shape)
+    if mesh is not None:
+        agg = _gather(agg, (mesh.model_group,))
+    return merge_blocks(agg, p)[0]
 
 
 def _dp_groups(mesh: Optional[DpGroups], n_workers: int):
@@ -508,8 +685,20 @@ def make_sparsify_aggregate(plan, dist: DistConfig, n_workers: int,
     ``grads`` leaves are ``[W, *shape]`` on one card, and this rank's
     ``[1, *shape]`` across the ranks of ``mesh`` (W = its size). Under
     ``dist.adaptive_k`` it is ``spa(grads, state, ctrl) -> (agg,
-    new_state, new_ctrl)``."""
+    new_state, new_ctrl)``.
+
+    A leaf of ``shards`` M > 1 (a plan built on a mesh with a model axis)
+    runs one round per (worker, model shard), as the JAX runtime's
+    ``shard_map`` does: each worker's gradient is split along the spec's
+    split dim into M blocks, each flattened on its own
+    (:func:`shard_blocks`), with the block's own k; each shard aggregates
+    over the workers, and the M aggregates are put back together in the
+    leaf's shape (a leaf left whole runs M equal rounds). On one card the
+    W x M rows of a leaf select in one call, so a fused leaf is one kernel
+    launch a step; across ranks a rank runs its own (worker, shard), its
+    shard's aggregate gathered over its model group."""
     groups = _dp_groups(mesh, n_workers)
+    model_group = None if mesh is None else mesh.model_group
     part = dist.resolved_participation()
     if part is not None:
         part.validate(n_workers)
@@ -541,6 +730,12 @@ def make_sparsify_aggregate(plan, dist: DistConfig, n_workers: int,
                     f"plan marks a {p.local_len}-element leaf fused but the "
                     f"({cname}, {sname}) pair is not fusable: {why}"
                 )
+        split_dim(p)  # a spec the split cannot follow raises here
+        if mesh is not None and p.shards != mesh.model:
+            raise ValueError(
+                f"a leaf planned on {p.shards} model shards, but the layout "
+                f"has a model axis of {mesh.model}"
+            )
         if ctrl_cfg is not None and p.k != ctrl_cfg.bounds(p.local_len)[1]:
             raise ValueError(
                 f"adaptive-k plan capacity mismatch: a {p.local_len}-"
@@ -583,17 +778,28 @@ def make_sparsify_aggregate(plan, dist: DistConfig, n_workers: int,
             with (contextlib.nullcontext() if name is None
                   else torch.profiler.record_function(name)):
                 for i in leaves:
-                    outs[i] = _spa_leaf(
-                        g_flat[i], s_flat[i], plan_flat[i], scfg, codecs[i],
-                        colls[i], coord, counts, groups, part_ctx,
-                        None if c_flat[i] is None else c_flat[i].k,
+                    p = plan_flat[i]
+                    S = p.shards if mesh is None else 1
+                    ctx = part_ctx
+                    if ctx is not None and S > 1:  # each row its worker's
+                        ctx = (ctx[0].repeat_interleave(S), ctx[1])
+                    rows, new = _spa_leaf(
+                        shard_blocks(g_flat[i], p,
+                                     None if mesh is None else mesh.shard),
+                        s_flat[i], p, scfg, codecs[i], colls[i], coord,
+                        counts, groups, ctx,
+                        None if c_flat[i] is None else c_flat[i].k, S,
                     )
+                    # the shards' rows are kept only for the controller
+                    outs[i] = (_merge_agg(rows, p, mesh), new,
+                               None if ctrl_cfg is None else rows)
         agg = tree_unflatten(plan, [o[0] for o in outs])
         new_state = tree_unflatten(plan, [o[1] for o in outs])
         if ctrl_cfg is None:
             return agg, new_state
         new_ctrl = tree_unflatten(plan, [
-            _ctrl_update(ctrl_cfg, c, o[1], o[0], p, groups, n_workers)
+            _ctrl_update(ctrl_cfg, c, o[1], o[2], p, groups, n_workers,
+                         model_group)
             for c, o, p in zip(c_flat, outs, plan_flat, strict=True)
         ])
         return agg, new_state, new_ctrl
@@ -734,9 +940,16 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
     opt_state, sp_state, metrics)``. The global batch splits into W equal
     worker shards in order, as the JAX trainer reshapes it to ``[W, B/W,
     ...]``. Across the ranks of ``mesh`` each rank takes worker
-    ``mesh.rank``'s shard, and the W losses are gathered in rank order,
-    so the logged mean is the one-card mean. Matrix products run in full
-    float32 (no TF32).
+    ``mesh.rank``'s shard (every rank of its model group the same), and
+    the W losses are gathered in worker order, so the logged mean is the
+    one-card mean. Matrix products run in full float32 (no TF32).
+
+    On a plan with a model axis (``shards`` M) the forward, the backward,
+    the parameters and Adam stay whole on every worker (every rank of a
+    model group); only the sparsify stage is split, one round per (worker,
+    shard) (:func:`make_sparsify_aggregate`), and Adam runs on the
+    reassembled aggregate, which is the JAX package's sharded update
+    element by element. On one card ``n_workers`` is W = devices / M.
 
     Under ``dist.microbatches`` each worker's shard splits into that many
     contiguous chunks, their gradients accumulated in
@@ -829,8 +1042,8 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
             agg, new_sp = spa(grads_w, sp_state)
         new_params, new_opt = opt.update(agg, opt_state, params)
         losses = torch.stack(losses)
-        if mesh is not None:
-            losses = _gather(losses, (torch_dist.group.WORLD,))
+        if mesh is not None:  # each worker's loss, from its first shard
+            losses = _gather(losses, (torch_dist.group.WORLD,))[::mesh.model]
         metrics = {
             "loss": ordered_mean(losses),
             "comm_bytes": wire_meas,

@@ -11,14 +11,19 @@ paper's proxy, the dense, MoE and VLM decoders (``qwen2.5-3b``,
 ``mamba2-780m`` and the hybrid ``zamba2-7b``; ``--smoke`` takes its
 ``smoke_variant()``.
 
-``--workers W`` is the counterpart of the JAX trainer's host-mesh device
-count: W logical data-parallel workers on one card, one dp mesh axis
-named ``data`` (what ``--link-topo`` names). Runs on ``cuda`` unless
-``--device cpu`` is given.
+``--workers N`` is the counterpart of the JAX trainer's host-mesh device
+count: on one card N logical devices, one dp mesh axis named ``data``
+(what ``--link-topo`` names). ``--model-parallel M`` lays them out as the
+JAX host mesh ``(data, model) = (N/M, M)``: W = N/M workers, each
+gradient split into M model shards with a RegTop-k round each (the
+specs of ``nn.sharding`` on the family's ``param_axes``; the forward,
+the parameters and Adam stay whole). The first line printed is the mesh
+and its dp axes. Runs on ``cuda`` unless ``--device cpu`` is given.
 
-Under ``torchrun`` (``WORLD_SIZE`` set) each rank is one worker and W is
-the world size, the counterpart of the JAX trainer's ``shard_map`` over
-its dp mesh axes:
+Under ``torchrun`` (``WORLD_SIZE`` set) each rank is one (worker, model
+shard), W = world / M, the counterpart of the JAX trainer's ``shard_map``
+over its mesh (``repro_torch.launch.mesh``; ranks row-major with the
+model axis fastest):
 
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
         --smoke --steps 3 --device cpu
@@ -27,9 +32,13 @@ its dp mesh axes:
 explicit ``cuda:i`` is taken as given; ``--device cpu`` runs over
 ``gloo``. ``--backend gloo --device cuda:0`` is the explicit way to run
 several ranks on one card (``nccl`` refuses that with its own error).
-``--multi-pod`` lays the ranks out as ``("pod", "data") = (2, W/2)``
-(``repro_torch.launch.mesh``), and ``--link-topo`` then prices both
-axes. Only rank 0 prints.
+``--multi-pod`` lays the ranks out as ``("pod", "data", "model") = (2,
+world/(2M), M)`` (the port's own host layout; the JAX host mesh has no
+pod axis), and ``--link-topo`` then prices both dp axes. ``--mesh
+production`` is ``(data, model) = (16, 16)``, or ``(2, 16, 16)`` with
+``--multi-pod``: 256 or 512 ranks under ``torchrun``, refused otherwise
+(and on one card). A layout the ranks or ``--workers`` cannot fill is
+refused before anything is allocated. Only rank 0 prints.
 
 ``--participation`` (a straggler schedule: ``round_robin:2``,
 ``bernoulli:0.25``, ``sampled:4``) and ``--adaptive-k`` (the controller's
@@ -52,8 +61,9 @@ step, its state carried over.
 its shard; ``--aggregation`` is ``--collective``'s older name, used when
 ``--collective`` is not given. ``--checkpoint DIR`` saves params (with
 the step reached), optimizer and sparsifier state after the last step in
-the JAX trainer's format and layout (``repro_torch.checkpoint``; across
-ranks rank 0 writes every worker's state), and ``--resume DIR`` runs
+the JAX trainer's format and layout (``repro_torch.checkpoint``; ``sent_*
+[W, M, k]``; across ranks rank 0 writes every (worker, shard)'s state),
+and ``--resume DIR`` runs
 ``--steps`` more steps from such a checkpoint, written by either trainer.
 ``DistConfig.state_dtype`` and the optimizer have no flag, as in the JAX
 trainer: ``run(args, dist=...)`` takes them.
@@ -61,11 +71,13 @@ trainer: ``run(args, dist=...)`` takes them.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import math
 import os
 import sys
 import time
 from collections import Counter
-from typing import List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 import torch.distributed as torch_dist
@@ -100,8 +112,16 @@ from repro_torch.core.distributed import (
 )
 from repro_torch.core.sparsify import SparsifierConfig
 from repro_torch.data import TokenPipeline
-from repro_torch.launch.mesh import DpGroups, dp_axes_of, make_production_groups
-from repro_torch.models import get_family
+from repro_torch.launch.mesh import (
+    DpGroups,
+    check_world,
+    dp_axes_of,
+    host_shape,
+    make_host_groups,
+    make_production_groups,
+    production_shape,
+)
+from repro_torch.models import get_family, param_axes
 from repro_torch.optim import OptConfig, make_optimizer
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -187,8 +207,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke variant of --arch")
     ap.add_argument("--workers", type=int, default=1,
-                    help="data-parallel workers on the card (the JAX "
-                         "trainer's host-mesh device count)")
+                    help="logical devices on the card (the JAX trainer's "
+                         "host-mesh device count): W = workers / "
+                         "--model-parallel data-parallel workers")
+    ap.add_argument("--mesh", default="host", choices=["host", "production"],
+                    help="'host': (data, model) = (devices / M, M); "
+                         "'production': (16, 16), or (2, 16, 16) with "
+                         "--multi-pod, on 256 or 512 ranks under torchrun")
+    ap.add_argument("--model-parallel", type=int, default=1, metavar="M",
+                    help="the model axis of the host mesh: each gradient "
+                         "splits into M shards, one RegTop-k round each")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (under torchrun: cuda:LOCAL_RANK), "
                          "'cuda:i' or 'cpu'")
@@ -196,8 +224,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="torch.distributed backend under torchrun (default "
                          "nccl on the card, gloo on the CPU)")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="under torchrun: dp axes ('pod', 'data') = "
-                         "(2, W/2), as the JAX trainer's multi-pod mesh")
+                    help="under torchrun: ('pod', 'data', 'model') = "
+                         "(2, world / (2M), M); with --mesh production "
+                         "(2, 16, 16)")
     return ap.parse_args(argv)
 
 
@@ -237,9 +266,44 @@ def dist_config(args: argparse.Namespace,
     )
 
 
+def layout(args: argparse.Namespace,
+           mesh: Optional[DpGroups] = None) -> Dict[str, int]:
+    """The ``{axis: size}`` mesh the flags describe (``launch.mesh``): on
+    one card the host mesh of ``--workers`` devices with ``--model-parallel``
+    as its model axis; across ranks ``mesh``'s. Raises ``SystemExit``, with
+    a message, for a layout that cannot be built: ``--mesh production`` or
+    ``--multi-pod`` on one card, an M that does not divide the devices,
+    ``--workers`` other than 1 or the world size under ``torchrun``."""
+    if mesh is not None:
+        world = mesh.size * mesh.model
+        if args.workers not in (1, world):
+            raise SystemExit(
+                f"--workers {args.workers}: under torchrun the devices are "
+                f"the world's {world} ranks"
+            )
+        if args.mesh == "host" and args.model_parallel != mesh.model:
+            raise SystemExit(
+                f"--model-parallel {args.model_parallel}, but the ranks are "
+                f"laid out with a model axis of {mesh.model}"
+            )
+        return mesh.mesh_shape
+    if args.mesh == "production":
+        raise SystemExit(
+            "--mesh production needs 256 ranks ((data, model) = (16, 16)), "
+            "or 512 with --multi-pod: run it under torchrun with that many "
+            "ranks"
+        )
+    if args.multi_pod:
+        raise SystemExit("--multi-pod lays out ranks: run under torchrun")
+    try:
+        return host_shape(args.workers, args.model_parallel)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+
 def _say(mesh: Optional[DpGroups]):
     """``print`` on one card and on rank 0; a no-op on the other ranks."""
-    if mesh is None or mesh.rank == 0:
+    if mesh is None or mesh.row == 0:
         return lambda msg: print(msg, flush=True)
     return lambda msg: None
 
@@ -265,20 +329,14 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
             f"--device {args.device} requested but CUDA is not available"
         )
     say = _say(mesh)
+    shape = layout(args, mesh)
+    axes = dp_axes_of(shape)
+    dp_sizes = tuple(shape[a] for a in axes)
+    W = math.prod(dp_sizes)
+    say(f"mesh: {shape}, dp axes {axes}")
     cfg = cfglib.get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke_variant()
-    if mesh is None:
-        if args.multi_pod:
-            raise SystemExit("--multi-pod lays out ranks: run under torchrun")
-        W, axes, dp_sizes = args.workers, ("data",), args.workers
-    else:
-        W, axes, dp_sizes = mesh.size, dp_axes_of(mesh), mesh.shape
-        if args.workers not in (1, W):
-            raise SystemExit(
-                f"--workers {args.workers}: under torchrun W is the world "
-                f"size, {W}"
-            )
     if args.global_batch % W:
         raise SystemExit(f"--global-batch must be divisible by {W} workers")
     link_topo = link_model = None
@@ -291,7 +349,9 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
             say("--link-topo given; skipping --calibrate")
     elif args.calibrate:
         link_topo, link_model = _calibrate(mesh, axes, args.device, say)
-    dist = dist or dist_config(args, link_topo, link_model)
+    # the layout's dp axes are the ones the workers span
+    dist = dataclasses.replace(dist or dist_config(args, link_topo, link_model),
+                               dp_axes=axes)
     part = dist.participation
     if part is not None:
         part.validate(W)
@@ -312,24 +372,25 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
             f"{dist.resolved_fastpath()}) — fused select->encode on "
             "fusable leaves")
     if mesh is not None:
-        say(f"ranks: {W} over {torch_dist.get_backend()}, dp axes "
-            f"{dict(zip(axes, mesh.shape, strict=True))}, rank 0 on "
+        say(f"ranks: {W * mesh.model} over {torch_dist.get_backend()}, dp "
+            f"axes {dict(zip(axes, mesh.shape, strict=True))}, rank 0 on "
             f"{args.device}")
         if dist.resolved_fastpath() == "auto":
-            if (mesh.rank == 0 and table is None
+            if (mesh.row == 0 and table is None
                     and backend_supports(args.device)):
                 table = ThroughputTable.measure(device=args.device)
             shared = [table]
             torch_dist.broadcast_object_list(shared, src=0)
             table = shared[0]
     params = get_family(cfg).init(cfg, seed=0, device=args.device)
-    plan = build_plan(params, dist.sparsifier.sparsity, dist, table, dp_sizes)
+    plan = build_plan(params, dist.sparsifier.sparsity, dist, table, dp_sizes,
+                      axes=param_axes(cfg), mesh=shape)
     counts = FastpathCounts()
     step_fn = make_train_step(cfg, dist, plan, W, counts, mesh)
     opt_state = make_optimizer(dist.optimizer).init(params)
     sp_state = init_sparsifier_state(
         plan, W if mesh is None else 1, args.device,
-        dist.resolved_state_dtype(),
+        dist.resolved_state_dtype(), None if mesh is None else 1,
     )
     if ctrl is not None:
         sp_state = (sp_state, init_controller_state(plan, dist, args.device))
@@ -418,9 +479,9 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
 
 
 def _all_workers(sp_state, mesh: Optional[DpGroups]):
-    """The sparsifier state of all W workers: this one on one card; across
-    ranks every rank's worker gathered in rank order, which is the worker
-    order (the controller tree is common to the ranks)."""
+    """The sparsifier state of all W x M (worker, shard) rows: this one on
+    one card; across ranks every rank's row gathered in rank order, which
+    is the row order (the controller tree is common to the ranks)."""
     if mesh is None:
         return sp_state
     if isinstance(sp_state, tuple):
@@ -440,11 +501,11 @@ def _rows(sp_state, rows: torch.Tensor):
 def _save(path: str, params, opt_state, sp_state, plan, step: int,
           mesh: Optional[DpGroups]) -> None:
     """``--checkpoint``: params (with the step reached), optimizer state
-    and the W workers' sparsifier state in the JAX trainer's layout, as
-    the JAX trainer writes them; across ranks rank 0 writes what every
-    rank gathered."""
+    and the W workers' sparsifier state in the JAX trainer's layout
+    (``sent_* [W, M, k]``), as the JAX trainer writes them; across ranks
+    rank 0 writes what every rank gathered."""
     full = _all_workers(sp_state, mesh)
-    if mesh is None or mesh.rank == 0:
+    if mesh is None or mesh.row == 0:
         ckpt.save(f"{path}/params", params, metadata={"step": step})
         ckpt.save(f"{path}/opt", opt_state)
         ckpt.save(f"{path}/sparsifier", convert.trainer_state_to_jax(full, plan))
@@ -456,18 +517,19 @@ def _resume(path: str, params, opt_state, sp_state, plan, W: int,
             mesh: Optional[DpGroups]):
     """``--resume``: ``(params, opt_state, sp_state, step)`` from the
     checkpoint in ``path``, each tree restored into the shapes and dtypes
-    of the fresh run's; across ranks each rank takes its worker's row."""
+    of the fresh run's; across ranks each rank takes its (worker, shard)'s
+    row."""
     params = ckpt.restore(f"{path}/params", params)
     opt_state = ckpt.restore(f"{path}/opt", opt_state)
-    # a donor of all W workers: this rank's rows repeated (only shapes,
+    # a donor of all W x M rows: this rank's row repeated (only shapes,
     # dtypes and devices are read)
     donor = sp_state if mesh is None else _rows(
-        sp_state, torch.zeros(W, dtype=torch.long))
+        sp_state, torch.zeros(W * mesh.model, dtype=torch.long))
     restored = ckpt.restore(f"{path}/sparsifier",
                             convert.trainer_state_to_jax(donor, plan))
     sp_state = convert.trainer_state_from_jax(restored, plan)
     if mesh is not None:
-        sp_state = _rows(sp_state, torch.tensor([mesh.rank]))
+        sp_state = _rows(sp_state, torch.tensor([mesh.row]))
     return params, opt_state, sp_state, ckpt.metadata(f"{path}/params").get("step", 0)
 
 
@@ -522,6 +584,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     if "WORLD_SIZE" not in os.environ:
         run(args)
         return 0
+    # the layout is checked before the process group starts
+    world = int(os.environ["WORLD_SIZE"])
+    try:
+        if args.mesh == "production":
+            check_world(production_shape(args.multi_pod), world,
+                        production=True)
+        else:
+            host_shape(world, args.model_parallel, args.multi_pod)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     args.device = rank_device(args.device)
     cuda = torch.device(args.device).type == "cuda"
     if cuda:
@@ -530,7 +602,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         args.backend or ("nccl" if cuda else "gloo"), init_method="env://"
     )
     try:
-        run(args, mesh=make_production_groups(multi_pod=args.multi_pod))
+        groups = (make_production_groups(multi_pod=args.multi_pod)
+                  if args.mesh == "production" else
+                  make_host_groups(args.model_parallel, args.multi_pod))
+        run(args, mesh=groups)
     finally:
         torch_dist.destroy_process_group()
     return 0

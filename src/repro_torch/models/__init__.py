@@ -1,6 +1,11 @@
 from repro_torch.models import encdec, lm, ssm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.registry import get_family, input_specs, make_batch
+from repro_torch.models.registry import (
+    get_family,
+    input_specs,
+    make_batch,
+    param_axes,
+)
 
 __all__ = ["ModelConfig", "encdec", "get_family", "input_specs", "lm",
-           "make_batch", "ssm"]
+           "make_batch", "param_axes", "ssm"]

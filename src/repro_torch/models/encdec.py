@@ -27,9 +27,10 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import (
-    _norm, _stack_layers, _unstack, attend, mask_pad_logits, run_block,
+    _norm, _norm_axes, _stack_layers, _unstack, attend, mask_pad_logits, run_block,
     token_nll, write_kv)
 from repro_torch.nn import layers as L
+from repro_torch.nn.sharding import prefix_axes
 
 Params = Dict[str, Any]
 
@@ -81,6 +82,19 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
         "enc_norm": ninit(cfg.d_model, device, dt),
         "final_norm": ninit(cfg.d_model, device, dt),
     }
+
+
+def param_axes(cfg: ModelConfig) -> Params:
+    """The logical axes of ``init(cfg)``'s tree, the tree the JAX
+    ``init`` returns beside the parameters (nothing drawn)."""
+    enc = {"attn": L.attn_axes(), "mlp": L.mlp_axes(act=cfg.act),
+           "norm1": _norm_axes(cfg), "norm2": _norm_axes(cfg)}
+    dec = {"self": L.attn_axes(), "cross": L.attn_axes(),
+           "mlp": L.mlp_axes(act=cfg.act),
+           **{f"norm{i}": _norm_axes(cfg) for i in (1, 2, 3)}}
+    return {"embed": L.embed_axes(), "enc_layers": prefix_axes(enc),
+            "dec_layers": prefix_axes(dec), "enc_norm": _norm_axes(cfg),
+            "final_norm": _norm_axes(cfg)}
 
 
 def _enc_block(lp: Params, x: torch.Tensor, cfg: ModelConfig,

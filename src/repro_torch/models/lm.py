@@ -40,6 +40,7 @@ from repro_torch.kernels.regtopk_score import const_div
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as M
+from repro_torch.nn.sharding import prefix_axes
 
 Params = Dict[str, Any]
 
@@ -117,6 +118,27 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
         params["vision_proj"] = L.linear_init(
             gen, cfg.vision_dim, cfg.d_model, device, bias=True, dtype=dt)
     return params
+
+
+def _norm_axes(cfg: ModelConfig) -> Params:
+    return L.rmsnorm_axes() if cfg.norm == "rmsnorm" else L.layernorm_axes()
+
+
+def param_axes(cfg: ModelConfig) -> Params:
+    """The logical axes of ``init(cfg)``'s tree, the tree the JAX
+    ``init`` returns beside the parameters (nothing drawn): each layer's
+    under a leading ``"layers"``; the MoE experts by
+    ``cfg.moe_parallelism``."""
+    layer = {"attn": L.attn_axes(qkv_bias=cfg.qkv_bias),
+             "mlp": (M.moe_axes(n_shared=cfg.n_shared_experts,
+                                parallelism=cfg.moe_parallelism)
+                     if cfg.is_moe else L.mlp_axes(act=cfg.act)),
+             "norm1": _norm_axes(cfg), "norm2": _norm_axes(cfg)}
+    axes = {"embed": L.embed_axes(), "layers": prefix_axes(layer),
+            "final_norm": _norm_axes(cfg)}
+    if cfg.family == "vlm":
+        axes["vision_proj"] = L.linear_axes(None, "embed", bias=True)
+    return axes
 
 
 def _unstack(params_layers: Params, n: int):

@@ -2,6 +2,8 @@
 ``repro.models.registry``).
 
 Every family module exposes ``init(cfg, *, seed, device)``,
+``param_axes(cfg)`` (the logical axes of ``init``'s tree, which the JAX
+``init`` returns beside the parameters; :func:`param_axes` here),
 ``loss_fn(params, cfg, batch) -> (loss, metrics)``, ``prefill(params,
 cfg, batch) -> logits``, ``init_cache(cfg, batch, max_len, *, device)``,
 ``cache_axes(cfg)`` and ``decode_step(params, cfg, cache, tokens) ->
@@ -37,6 +39,14 @@ def get_family(cfg: ModelConfig) -> ModuleType:
         raise ValueError(
             f"unknown family {cfg.family!r}; available: {sorted(_FAMILIES)}"
         ) from None
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """The logical axes of ``cfg``'s parameter tree, nothing drawn: the
+    tree ``repro.core.distributed.shapes_and_axes`` gives the JAX
+    package's ``init``, which ``nn.sharding.tree_specs`` resolves on a
+    mesh."""
+    return get_family(cfg).param_axes(cfg)
 
 
 def input_specs(cfg: ModelConfig, batch: int, seq: int, *, kind: str = "train"

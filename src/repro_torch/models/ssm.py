@@ -32,6 +32,7 @@ from repro_torch.models.lm import (
     write_kv)
 from repro_torch.nn import layers as L
 from repro_torch.nn import ssd
+from repro_torch.nn.sharding import prefix_axes
 
 Params = Dict[str, Any]
 
@@ -99,6 +100,25 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
                                            trailing, device)
     params["final_norm"] = L.rmsnorm_init(cfg.d_model, device, dt)
     return params
+
+
+def param_axes(cfg: ModelConfig) -> Params:
+    """The logical axes of ``init(cfg)``'s tree, the tree the JAX
+    ``init`` returns beside the parameters (nothing drawn): ``grouped.*``
+    under ``("layers", "blocks")``, ``trailing.*`` under ``"layers"``."""
+    n_groups, per_group, trailing = _plan(cfg)
+    mamba = {"mixer": ssd.ssd_axes(), "norm": L.rmsnorm_axes()}
+    axes: Params = {"embed": L.embed_axes()}
+    if n_groups * per_group:
+        axes["grouped"] = prefix_axes(prefix_axes(mamba, "blocks"), "layers")
+        axes["shared_attn"] = {"attn": L.attn_axes(),
+                               "mlp": L.mlp_axes(act=cfg.act),
+                               "norm1": L.rmsnorm_axes(),
+                               "norm2": L.rmsnorm_axes()}
+    if trailing:
+        axes["trailing"] = prefix_axes(mamba)
+    axes["final_norm"] = L.rmsnorm_axes()
+    return axes
 
 
 def _mamba_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, cache=None):

@@ -5,7 +5,9 @@ layouts, so a weight tree moves between the two stacks name for name
 (``repro_torch.convert``). Activations are ``x [B, S, E]``; attention
 heads ``[B, S, H, Dh]``. Every ``*_init`` draws from an explicit CPU
 ``torch.Generator`` and moves the result to ``device``, so a seed gives
-the same weights on any device.
+the same weights on any device. Beside each ``*_init``, a ``*_axes``
+returns the logical axes that the JAX ``*_init`` returns with its
+parameters (``nn.sharding`` resolves them on a mesh).
 """
 from __future__ import annotations
 
@@ -53,6 +55,14 @@ def linear_init(
     return p
 
 
+def linear_axes(in_ax: Optional[str], out_ax: Optional[str], *,
+                bias: bool = False) -> Dict[str, tuple]:
+    a = {"w": (in_ax, out_ax)}
+    if bias:
+        a["b"] = (out_ax,)
+    return a
+
+
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     y = x @ p["w"].to(x.dtype)
     if "b" in p:
@@ -67,6 +77,10 @@ def rmsnorm_init(dim: int, device, dtype: torch.dtype = torch.float32) -> Params
     return {"scale": torch.ones(dim, dtype=dtype, device=device)}
 
 
+def rmsnorm_axes() -> Dict[str, tuple]:
+    return {"scale": ("embed",)}
+
+
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = x.float().square().mean(dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps).to(x.dtype)
@@ -76,6 +90,10 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 def layernorm_init(dim: int, device, dtype: torch.dtype = torch.float32) -> Params:
     return {"scale": torch.ones(dim, dtype=dtype, device=device),
             "bias": torch.zeros(dim, dtype=dtype, device=device)}
+
+
+def layernorm_axes() -> Dict[str, tuple]:
+    return {"scale": ("embed",), "bias": ("embed",)}
 
 
 def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -287,6 +305,21 @@ def attn_init(
     return p
 
 
+def attn_axes(*, qkv_bias: bool = False) -> Dict[str, tuple]:
+    """The logical axes of ``attn_init``'s weights, ``pad_to`` or not."""
+    a = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if qkv_bias:
+        a["bq"] = ("heads", "head_dim")
+        a["bk"] = ("kv_heads", "head_dim")
+        a["bv"] = ("kv_heads", "head_dim")
+    return a
+
+
 def attn_qkv(p: Params, x: torch.Tensor, xkv: Optional[torch.Tensor] = None):
     """Project to q, k, v. ``xkv`` (if given) is the cross-attention
     source of k and v."""
@@ -324,6 +357,13 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, device, *,
     }
 
 
+def mlp_axes(*, act: str = "swiglu") -> Dict[str, tuple]:
+    a = {"wu": ("embed", "mlp"), "wd": ("mlp", "embed")}
+    if act == "swiglu":
+        a["wg"] = ("embed", "mlp")
+    return a
+
+
 def mlp(p: Params, x: torch.Tensor, *, act: str = "swiglu") -> torch.Tensor:
     """``act="gelu"`` is the tanh approximation, ``jax.nn.gelu``'s default
     (``torch.nn.functional.gelu`` defaults to the erf form)."""
@@ -345,6 +385,10 @@ def embed_init(
     scale: float = 0.02, dtype: torch.dtype = torch.float32,
 ) -> Params:
     return {"embedding": _normal(gen, (vocab, d_model), scale, device, dtype)}
+
+
+def embed_axes() -> Dict[str, tuple]:
+    return {"embedding": ("vocab", "embed")}
 
 
 def embed(p: Params, tokens: torch.Tensor, dtype=None) -> torch.Tensor:

@@ -62,6 +62,26 @@ def moe_init(
     return p
 
 
+def moe_axes(*, n_shared: int = 0, parallelism: str = "tensor"
+             ) -> Dict[str, object]:
+    """The logical axes of ``moe_init``'s weights under ``parallelism``:
+    ``"tensor"`` shards each expert's FFN width (``moe_mlp``) and keeps
+    the experts whole (``experts``); ``"expert"`` shards the experts
+    (``experts_sharded``) and keeps their width whole."""
+    e_ax = "experts" if parallelism == "tensor" else "experts_sharded"
+    f_ax = "moe_mlp" if parallelism == "tensor" else None
+    a: Dict[str, object] = {
+        "router": ("embed", None),
+        "wg": (e_ax, "embed", f_ax),
+        "wu": (e_ax, "embed", f_ax),
+        "wd": (e_ax, f_ax, "embed"),
+    }
+    if n_shared:
+        a["shared"] = {"wg": ("embed", "mlp"), "wu": ("embed", "mlp"),
+                       "wd": ("mlp", "embed")}
+    return a
+
+
 def _expert_ffn(p: Params, xe: torch.Tensor) -> torch.Tensor:
     """``xe [E, C, D] -> [E, C, D]``, SwiGLU per expert."""
     h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["wg"].to(xe.dtype)))

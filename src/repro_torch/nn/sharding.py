@@ -1,0 +1,119 @@
+"""Logical-axis → mesh-axis resolution (counterpart of
+``repro.nn.sharding``, MaxText-style sharding rules).
+
+Every family's ``param_axes(cfg)`` returns a tree of logical axis name
+tuples beside its ``init``'s parameters, e.g. ``("embed", "mlp")`` for an
+MLP up-projection. This module maps those names onto the axes of a
+``(data, model)`` mesh, with the JAX package's divisibility guard: a
+logical axis is sharded only if its size is divisible by the mesh axis it
+would map to and at least as large (otherwise it stays whole, e.g.
+phi3's 40 heads on a 16-way model axis while its 17920-wide FFN shards).
+
+The mesh is a plain ``{axis name: size}`` mapping (``launch.mesh``'s
+``host_shape`` / ``production_shape``), not a device mesh, and a spec is a
+tuple with one entry per dim: a mesh axis name, a tuple of names (the dp
+axes, for ``"__dp__"``), or None. It stands in for ``PartitionSpec``.
+``repro.nn.sharding.tree_shardings`` has no counterpart: it builds
+``NamedSharding``s, and the port places nothing by spec (the trainer
+splits each gradient into its shards itself, ``core.distributed``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+from repro_torch.tree import tree_map
+
+Spec = Tuple[object, ...]
+
+# default logical → mesh-axis rules; batch-like axes go to data parallel.
+DEFAULT_RULES: Dict[str, Optional[str]] = {
+    # tensor-parallel candidates
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "mlp": "model",
+    "moe_mlp": "model",
+    "d_inner": "model",
+    "ssm_heads": "model",
+    "experts": None,  # default: tensor-parallel MoE (experts replicated)
+    "experts_sharded": "model",  # expert-parallel layout
+    # replicated
+    "embed": None,
+    "layers": None,
+    "blocks": None,
+    "head_dim": None,
+    "ssm_state": None,
+    "conv": None,
+    "expert_in": None,
+    # data-parallel (activations)
+    "batch": "__dp__",  # placeholder resolved to the dp axes tuple
+    "worker": "__dp__",
+    "seq": None,
+}
+
+
+def resolve_spec(
+    logical_axes: Tuple[Optional[str], ...],
+    shape: Tuple[int, ...],
+    mesh_shape: Mapping[str, int],
+    rules: Optional[Mapping[str, Optional[str]]] = None,
+    dp_axes: Tuple[str, ...] = ("data",),
+) -> Spec:
+    """One parameter's logical axes resolved to a spec on ``mesh_shape``.
+
+    Divisibility guard: if ``shape[d]`` is not divisible by the mesh axis
+    size (the product of the dp axes for ``"__dp__"``), or is smaller,
+    that dim stays whole (None).
+
+    >>> resolve_spec(("embed", "mlp"), (64, 128), {"data": 2, "model": 4})
+    (None, 'model')
+    >>> resolve_spec(("embed", "kv_heads"), (64, 2), {"data": 1, "model": 4})
+    (None, None)
+    """
+    rules = dict(DEFAULT_RULES, **(rules or {}))
+    out = []
+    for dim, name in enumerate(logical_axes):
+        mesh_ax = rules.get(name) if name is not None else None
+        if mesh_ax is None:
+            out.append(None)
+            continue
+        if mesh_ax == "__dp__":
+            size = 1
+            for ax in dp_axes:
+                size *= mesh_shape[ax]
+            if shape[dim] % size == 0 and shape[dim] >= size:
+                out.append(tuple(dp_axes) if len(dp_axes) > 1 else dp_axes[0])
+            else:
+                out.append(None)
+            continue
+        size = mesh_shape[mesh_ax]
+        out.append(mesh_ax if shape[dim] % size == 0 and shape[dim] >= size
+                   else None)
+    return tuple(out)
+
+
+def tree_specs(
+    params: object,
+    axes: object,
+    mesh_shape: Mapping[str, int],
+    rules: Optional[Mapping[str, Optional[str]]] = None,
+    dp_axes: Tuple[str, ...] = ("data",),
+):
+    """Map a (params, logical-axes) tree pair to a spec tree; a params
+    leaf is anything with a ``shape`` (a tensor, on the ``meta`` device
+    too)."""
+    return tree_map(
+        lambda p, ax: resolve_spec(tuple(ax), tuple(p.shape), mesh_shape,
+                                   rules, dp_axes),
+        params, axes,
+    )
+
+
+def prefix_axes(axes: object, name: str = "layers"):
+    """Every logical-axes tuple of ``axes`` with ``name`` in front: the
+    axes of leaves stacked on a leading axis.
+
+    >>> prefix_axes({"w": ("embed", "mlp")})
+    {'w': ('layers', 'embed', 'mlp')}
+    """
+    return tree_map(lambda ax: (name,) + tuple(ax), axes)

@@ -51,6 +51,20 @@ def ssd_init(
     }
 
 
+def ssd_axes() -> Dict[str, tuple]:
+    """The logical axes of ``ssd_init``'s weights."""
+    return {
+        "in_proj": ("embed", "d_inner"),
+        "conv_w": ("conv", "d_inner"),
+        "conv_b": ("d_inner",),
+        "A_log": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "norm": ("d_inner",),
+        "out_proj": ("d_inner", "embed"),
+    }
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: ``logaddexp(x, 0)`` (``F.softplus`` computes
     ``log1p(exp(x))`` below its threshold)."""

@@ -429,3 +429,108 @@ def test_trainer_state_layout_round_trips():
             assert str(x.dtype).split(".")[-1] == str(np.dtype(y.dtype)), path
     back = convert.trainer_state_from_jax(got, plan)
     _assert_bits(back, st)
+
+
+def _jax_state_template(amesh, W, sparsity=0.01):
+    """The JAX trainer's sparsifier state (zeros) of paper-resnet-proxy's
+    smoke variant on ``amesh``: ``sent_* [W, M, k]``."""
+    import jax.numpy as jnp
+
+    from repro import configs as jconfigs
+    from repro.core import distributed as jd
+    from repro.models import get_family
+    from repro.nn import sharding as jsh
+
+    cfg = jconfigs.get_config("paper-resnet-proxy").smoke_variant()
+    shapes, axes = jd.shapes_and_axes(get_family(cfg), cfg)
+    specs = jsh.tree_specs(shapes, axes, amesh, None, ("data",))
+    plan = jd.build_plan(shapes, specs, amesh, sparsity)
+    return jd.init_sparsifier_state(plan, W, amesh, ("data",), jnp.float32)[0]
+
+
+def test_trainer_state_layout_round_trips_on_model_shards():
+    """At ``(data, model) = (3, 2)``: a state in the JAX layout (``eps [W,
+    *shape]``, ``sent_* [W, M, k]``) becomes a row per (worker, shard),
+    each row its shard's block flattened on its own (a leaf left whole
+    twice), and comes back in bits; the shapes and dtypes are
+    ``sparsifier_state_shapes``'."""
+    import jax.numpy as jnp
+    from jax.sharding import AbstractMesh
+
+    from repro.core import distributed as jd
+    from repro.nn import sharding as jsh
+    from repro_torch.core import distributed as td
+
+    rng = np.random.default_rng(5)
+    shapes = {"a": (4, 6), "b": {"c": (10,)}, "d": (2, 8, 3)}
+    axes = {"a": ("embed", "mlp"), "b": {"c": ("embed",)},
+            "d": ("layers", "heads", "head_dim")}
+    params = {"a": torch.zeros(4, 6), "b": {"c": torch.zeros(10)},
+              "d": torch.zeros(2, 8, 3)}
+    mesh = {"data": 3, "model": 2}
+    plan = td.build_plan(params, 0.2, td.DistConfig(), axes=axes, mesh=mesh)
+    amesh = AbstractMesh((3, 2), ("data", "model"))
+    jshapes = {"a": jnp.zeros((4, 6)), "b": {"c": jnp.zeros(10)},
+               "d": jnp.zeros((2, 8, 3))}
+    jplan = jd.build_plan(jshapes, jsh.tree_specs(jshapes, axes, amesh), amesh, 0.2)
+    want, _ = jd.sparsifier_state_shapes(jplan, 3, amesh, ("data",), jnp.float32)
+
+    def leaf(p, s):
+        M, k = 2, p.k
+        return convert.CompactState(
+            eps=torch.from_numpy(rng.standard_normal((3, *s)).astype(np.float32)),
+            sent_vals=torch.from_numpy(rng.standard_normal((3, M, k)).astype(np.float32)),
+            sent_g=torch.from_numpy(rng.standard_normal((3, M, k)).astype(np.float32)),
+            sent_idx=torch.from_numpy(rng.integers(0, p.local_len, (3, M, k)).astype(np.int32)),
+            sent_w=torch.ones(3, M, k), t=torch.tensor([4, 4, 4], dtype=torch.int32))
+
+    jstate = {"a": leaf(plan["a"], shapes["a"]),
+              "b": {"c": leaf(plan["b"]["c"], shapes["b"]["c"])},
+              "d": leaf(plan["d"], shapes["d"])}
+    ours = convert.trainer_state_from_jax(jstate, plan)
+    assert ours["a"].eps.shape == (6, 12) and ours["b"]["c"].eps.shape == (6, 10)
+    assert ours["d"].eps.shape == (6, 24) and ours["a"].t.tolist() == [4] * 6
+    # row (w, m) of a is worker w's columns m*3 .. m*3+2, flattened row-major
+    for w in range(3):
+        for m in range(2):
+            assert torch.equal(ours["a"].eps[2 * w + m],
+                               jstate["a"].eps[w][:, 3 * m:3 * m + 3].reshape(-1))
+            assert torch.equal(ours["d"].eps[2 * w + m],
+                               jstate["d"].eps[w][:, 4 * m:4 * m + 4].reshape(-1))
+            assert torch.equal(ours["b"]["c"].eps[2 * w + m], jstate["b"]["c"].eps[w])
+            assert torch.equal(ours["a"].sent_idx[2 * w + m],
+                               jstate["a"].sent_idx[w, m].long())
+    back = convert.trainer_state_to_jax(ours, plan)
+    _assert_bits(back, jstate)
+    for (path, a), (_, b) in zip(tree_items(back), tree_items(want), strict=True):
+        for x, y in zip(a, b, strict=True):
+            assert tuple(x.shape) == tuple(y.shape), path
+            assert str(x.dtype).split(".")[-1] == str(np.dtype(y.dtype)), path
+    with pytest.raises(ValueError, match="2 model shards; the plan has 1"):
+        convert.trainer_state_from_jax(jstate, td.build_plan(params, 0.2))
+
+
+def test_model_parallel_checkpoint_restores_in_jax_and_back(tmp_path):
+    """The port's ``--workers 4 --model-parallel 2 --checkpoint`` restores in
+    ``repro.checkpoint.restore`` into the JAX trainer's state tree at
+    ``(2, 2)`` (``sent_* [2, 2, k]``) in bits, and what the JAX package
+    saves of it restores in the port, back to the run's own state."""
+    from jax.sharding import AbstractMesh
+
+    from repro.checkpoint import restore as jrestore
+    from repro.checkpoint import save as jsave
+    from repro_torch.launch import train
+
+    res = train.run(_args("--workers", "4", "--model-parallel", "2", "--steps",
+                          "2", "--fastpath", "on", "--checkpoint",
+                          str(tmp_path / "port")))
+    mine = convert.trainer_state_to_jax(res.sp_state, res.plan)
+    template = _jax_state_template(AbstractMesh((2, 2), ("data", "model")), 2)
+    got = jrestore(str(tmp_path / "port") + "/sparsifier", template)
+    _assert_bits(convert_tree(got), mine, "sparsifier")
+    assert all(tuple(np.shape(st.sent_idx))[:2] == (2, 2)
+               for _, st in tree_items(convert_tree(got)))
+    jsave(str(tmp_path / "jax") + "/sparsifier", got)
+    back = convert.trainer_state_from_jax(
+        ckpt.restore(str(tmp_path / "jax") + "/sparsifier", mine), res.plan)
+    _assert_bits(back, res.sp_state, "round trip")

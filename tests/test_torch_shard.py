@@ -90,7 +90,7 @@ def _shard_rank(rank, world, store, out_dir):
     mesh.init_file_store(store, rank, world, "gloo")
     try:
         layouts = {"host": mesh.make_host_groups(),
-                   "pods": mesh.make_production_groups(multi_pod=True)}
+                   "pods": mesh.make_host_groups(multi_pod=True)}
         vals, idx = _inputs(world)
         out = {}
         for n, coll, layout, codec, weighting in CASES:
