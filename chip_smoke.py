@@ -225,6 +225,19 @@ Phases, each raising on failure (the script then exits non-zero):
               the unbroken run in bits; each rank's state bytes; (c)
               --mesh production at a world size of 4 exits non-zero with
               its message.
+16. dry run — launch/dryrun.py on the meta device, which makes no CUDA
+              call: (a) one combo of its CLI path, qwen2.5-3b x train_4k
+              on the (16, 16) production layout, its record and seconds,
+              the card's allocated bytes unchanged across it; (b) each of
+              phase 13's six runs counted at its depth, W, batch and
+              float32 (TF32 off): one training step of W workers'
+              forward and backward and Adam (launch/op_cost.py; the round
+              with the fastpath off, as the kernels take no meta tensor,
+              adds no FLOP term), divided by the device time of phase
+              13's profiled step, as TFLOP/s and a share of the card's
+              67 TFLOP/s in float32 (launch.mesh.PEAK_FLOPS_F32); a share
+              above 1.05 fails the phase. The step's traced peak is
+              printed beside phase 13's measured and reckoned peaks.
 
 Each kernel's launch count is set to 0 just before the path that runs it
 (select: ``count_above``, ``global_max``, ``block_topk_candidates``;
@@ -3689,6 +3702,107 @@ def phase_model_parallel(smi: str) -> dict:
     return out
 
 
+# phase 16: the dry run; a share of the card's float32 peak above this is
+# impossible, so the FLOP count (or the device time) is wrong
+DRYRUN_COMBO = ("qwen2.5-3b", "train_4k")
+MAX_F32_SHARE = 1.05
+
+
+def dryrun_combo() -> dict:
+    """Phase 16 (a): ``dryrun.run_combo`` as the CLI runs it, on the meta
+    device: the card's allocated bytes stay as they were."""
+    from repro_torch.launch import dryrun
+
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rec = dryrun.run_combo(*DRYRUN_COMBO, multi_pod=False)
+    seconds = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated()
+    mem = rec["mem"]
+    if after != before or not (rec["flops"] > 0 and mem["argument_bytes"] > 0
+                               and mem["peak_bytes"] >= rec["rank_bytes"] > 0):
+        raise AssertionError(f"dry run (a): allocated {before} -> {after} B, "
+                             f"record {json.dumps(rec)[:500]}")
+    log(f"dry run (a): {' x '.join(DRYRUN_COMBO)} x {rec['mesh']} in "
+        f"{seconds:.1f} s, card allocation unchanged ({after} B): "
+        f"{rec['flops']:.4e} FLOPs a rank, argument {mem['argument_bytes']:,} B, "
+        f"rank {rec['rank_bytes']:,} B, peak {mem['peak_bytes']:,} B "
+        f"(fits 80 GB: {rec['fits']}), all-gather "
+        f"{rec['collective_bytes']['all-gather']:,.0f} B")
+    log(f"dry run (a): record {json.dumps(rec)}")
+    return {"record": rec, "seconds": seconds}
+
+
+def _step_count(cfg, W: int, B: int, S: int) -> tuple:
+    """(FLOPs, traced peak bytes) of one one-card training step of ``cfg``
+    at W workers and batch B x S on the meta device, phase 13's RegTop-k
+    and Adam with the fastpath off."""
+    from repro_torch.core import distributed as td
+    from repro_torch.core.sparsify import SparsifierConfig
+    from repro_torch.launch import op_cost
+    from repro_torch.models import get_family, input_specs
+    from repro_torch.optim import OptConfig, make_optimizer
+    from repro_torch.tree import tree_leaves
+
+    dist = td.DistConfig(
+        sparsifier=SparsifierConfig(kind="regtopk", sparsity=FAMILY_SPARSITY),
+        optimizer=OptConfig(kind="adam", learning_rate=FAMILY_LR))
+    params = get_family(cfg).init(cfg, device="meta")
+    plan = td.build_plan(params, FAMILY_SPARSITY, dist)
+    opt_state = make_optimizer(dist.optimizer).init(params)
+    sp = td.init_sparsifier_state(plan, W, "meta")
+    batch = {k: torch.empty(s, dtype=d, device="meta")
+             for k, (s, d) in input_specs(cfg, B, S).items()}
+    resident = sum(x.numel() * x.element_size()
+                   for x in tree_leaves([params, opt_state, sp, batch])
+                   if isinstance(x, torch.Tensor))
+    cost = op_cost.analyze(td.make_train_step(cfg, dist, plan, W), params,
+                           opt_state, sp, batch)
+    return cost["flops"], resident + cost["peak_bytes"]
+
+
+def phase_dryrun(smi: str, families: dict) -> dict:
+    """Phase 16: the dry run (see the module docstring); no kernel
+    launches."""
+    from repro_torch import configs
+    from repro_torch.launch import mesh as meshlib
+
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    out = {"combo": dryrun_combo(), "families": {}}
+    for arch, run in FAMILY_RUNS.items():
+        W, B, S = run["workers"], run["batch"], run.get("seq", FAMILY_SEQ)
+        cfg = configs.get_config(arch)
+        if run["layers"] is not None:
+            cfg = cfg.replace(n_layers=run["layers"])
+        t_count = time.perf_counter()
+        flops, peak = _step_count(cfg, W, B, S)
+        fam = families[arch]
+        device_ms = fam["profile"]["device_ms"]
+        rate = flops / (device_ms / 1e3)
+        share = rate / meshlib.PEAK_FLOPS_F32
+        log(f"dry run (b) {arch}: {flops:.4e} FLOPs a step (W = {W}, batch "
+            f"{B} x {S}, counted in {time.perf_counter() - t_count:.1f} s) over "
+            f"{device_ms:.1f} ms of device time = {rate / 1e12:.2f} TFLOP/s, "
+            f"{share:.1%} of {meshlib.PEAK_FLOPS_F32 / 1e12:.0f} TFLOP/s in "
+            f"float32 ({smi}); peak traced {peak / 1e9:.2f} GB, measured "
+            f"{fam['peak_bytes'] / 1e9:.2f} GB, reckoned "
+            f"{fam['reckoned_bytes'] / 1e9:.2f} GB")
+        if not share <= MAX_F32_SHARE:
+            raise AssertionError(f"dry run (b) {arch}: {share:.3f} of the card's "
+                                 "float32 peak is impossible")
+        out["families"][arch] = {
+            "flops": flops, "device_ms": device_ms, "tflops": rate / 1e12,
+            "f32_share": share, "traced_peak_bytes": peak,
+            "measured_peak_bytes": fam["peak_bytes"],
+            "reckoned_bytes": fam["reckoned_bytes"]}
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError("dry run: the card's allocation changed")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"dry run: phase 16 took {out['seconds']:.1f} s, no kernel launches")
+    return out
+
+
 def _full_layers(arch: str) -> int:
     from repro_torch import configs
 
@@ -3786,6 +3900,7 @@ def main(argv=None) -> int:
     families = phase_families(smi)
     serving = phase_serving(smi)
     model_parallel = phase_model_parallel(smi)
+    dry = phase_dryrun(smi, families)
     ab = phase_ab(args.parent) if args.parent is not None else None
     per_step = kernels["per_step"]
     per_round = score["per_round"]
@@ -3849,7 +3964,7 @@ def main(argv=None) -> int:
              "trainer": trainer, "sim": sim, "wire": wire, "ranks": ranks,
              "stragglers": stragglers, "planners": planners,
              "options": options, "families": families, "serving": serving,
-             "model_parallel": model_parallel, "ab": ab,
+             "model_parallel": model_parallel, "dryrun": dry, "ab": ab,
              "kernels_line": line},
             indent=1,
         ))

@@ -20,6 +20,11 @@ axis (``vals [W, k]``, ``bitmap [W, ceil(L/8)]``, ``coo_q8``'s ``scale
   The port quantizes in f32 whatever the input dtype; the JAX package
   quantizes in the input dtype, which breaks its error bound in bf16.
 
+The three COO codecs carry int32 indices, so a leaf (or a model shard's
+block) of ``MAX_WIRE_LEN`` elements or more cannot go on their wire:
+``core.distributed.build_plan`` refuses it (``int32_indices``), where the
+JAX package's int32 wire wraps. ``bitmap_dense`` has no such limit.
+
 Round-trip contract: for a lossless codec, the scatter-add of the decoded
 payload equals that of the encoded one exactly (decode may reorder
 coordinates and merge the ``(+0.0, index 0)`` padding slots).
@@ -35,6 +40,10 @@ from repro_torch.kernels.regtopk_score import const_div
 
 Payload = Dict[str, torch.Tensor]
 
+# the COO codecs send each index as an int32, so every index of a leaf
+# must be below this (``Codec.int32_indices``)
+MAX_WIRE_LEN = 2**31
+
 
 class Codec:
     """Base codec. Subclasses set ``name``/``lossless`` and implement
@@ -46,6 +55,8 @@ class Codec:
     name: str = "base"
     lossless: bool = True
     supports_fused: bool = False
+    # whether the payload carries int32 indices (a leaf below MAX_WIRE_LEN)
+    int32_indices: bool = False
 
     def encode(self, vals: torch.Tensor, idx: torch.Tensor, length: int) -> Payload:
         raise NotImplementedError
@@ -84,6 +95,7 @@ class CooFp32(Codec):
     name = "coo_fp32"
     lossless = True
     supports_fused = True
+    int32_indices = True
 
     def encode(self, vals, idx, length):
         return {"vals": vals.float(), "idx": idx.int()}
@@ -120,6 +132,7 @@ class CooIdxDelta(Codec):
     name = "coo_idx_delta"
     lossless = True
     supports_fused = True
+    int32_indices = True
 
     def encode_fused(self, vals, idx, length):
         """A k-sized sort and difference of the selected entries."""
@@ -217,6 +230,7 @@ class CooQ8(Codec):
     name = "coo_q8"
     lossless = False
     supports_fused = True
+    int32_indices = True
 
     def encode(self, vals, idx, length):
         # in f32 whatever the input dtype; the scale is amax times

@@ -80,7 +80,7 @@ from repro_torch.comm import fastpath as fp
 from repro_torch.comm import overlap as overlap_lib
 from repro_torch.comm.controller import AdaptiveKController
 from repro_torch.comm.participation import Participation, worker_index
-from repro_torch.comm.codec import get_codec
+from repro_torch.comm.codec import MAX_WIRE_LEN, get_codec
 from repro_torch.comm.collectives import (
     _coord_divide,
     _gather,
@@ -381,6 +381,27 @@ def _local_shape(shape, spec, mesh: Dict[str, int]) -> Tuple[int, ...]:
     return tuple(out)
 
 
+def _check_wire_len(shape, local, codec: str, collective: str,
+                    dist: DistConfig) -> None:
+    """Refuse a leaf whose block (``local``, the whole leaf without a
+    mesh) has ``MAX_WIRE_LEN`` elements or more on a codec that sends
+    int32 indices: index ``2**31 + 5`` would come back as ``-2147483643``.
+    A dense wire (kind "none", ``dense_allreduce``) sends no index."""
+    n = math.prod(local)
+    if (n < MAX_WIRE_LEN or not get_codec(codec).int32_indices
+            or dist.sparsifier.kind == "none"
+            or collective == "dense_allreduce"):
+        return
+    raise ValueError(
+        f"a leaf of shape {shape} has a block of {n} elements "
+        f"{tuple(local)}, at or beyond MAX_WIRE_LEN = 2**31, and codec "
+        f"{codec!r} sends its indices as int32 (the JAX package's int32 "
+        "wire would wrap them): split the leaf with a model axis "
+        "(build_plan(..., axes=, mesh=) with a larger model size) or send "
+        "it with codec 'bitmap_dense'"
+    )
+
+
 def build_plan(params, sparsity: float, dist: Optional[DistConfig] = None,
                table: Optional[fp.ThroughputTable] = None, workers=None,
                axes=None, mesh: Optional[Dict[str, int]] = None):
@@ -403,7 +424,11 @@ def build_plan(params, sparsity: float, dist: Optional[DistConfig] = None,
     collective, fused) that ``autotune.choose_leaf`` picks on the dp
     layout ``workers`` (W, or the dp sizes outermost first; by default
     the mesh's dp axes), priced under ``dist.resolved_link_model()`` at
-    the payload capacity and the schedule's expected participants."""
+    the payload capacity and the schedule's expected participants.
+
+    A block of ``MAX_WIRE_LEN`` (2**31) elements or more on a codec with
+    int32 indices raises before anything is allocated (under "auto",
+    once the leaf's codec is picked)."""
     ctrl = None if dist is None else dist.resolved_adaptive_k()
     if dist is not None:
         dist.resolved_weighting()
@@ -450,8 +475,11 @@ def build_plan(params, sparsity: float, dist: Optional[DistConfig] = None,
                 n, k, dp, model, participants=participants, fastpath=mode,
                 compute=table, word_bytes=word_bytes, **restrict,
             )
+            _check_wire_len(shape, local, d.codec, d.collective, dist)
             return LeafPlan(shape, n, k, d.fused, d.codec, d.collective,
                             **lay)
+        _check_wire_len(shape, local, dist.codec, dist.resolved_collective(),
+                        dist)
         fused = fp.leaf_fused(mode, dist.codec, dist.resolved_collective(), n,
                               k, table)
         return LeafPlan(shape, n, k, fused, **lay)
@@ -731,6 +759,9 @@ def make_sparsify_aggregate(plan, dist: DistConfig, n_workers: int,
                     f"({cname}, {sname}) pair is not fusable: {why}"
                 )
         split_dim(p)  # a spec the split cannot follow raises here
+        # a plan built without dist has not met the wire's index limit
+        _check_wire_len(p.global_shape, p.local_shape or p.global_shape,
+                        cname, sname, dist)
         if mesh is not None and p.shards != mesh.model:
             raise ValueError(
                 f"a leaf planned on {p.shards} model shards, but the layout "
@@ -933,6 +964,50 @@ def comm_round_timeline(plan, dist: DistConfig, workers,
     return bplan, overlap_lib.overlap_timeline(bplan, compute_seconds)
 
 
+def make_worker_grads(cfg: ModelConfig, dist: DistConfig):
+    """``worker_grads(params, wbatch) -> (loss, gradient leaves)``: one
+    worker's forward and backward on its shard, as the train step runs
+    it (under ``dist.microbatches``, accumulated in the state dtype)."""
+    n_mb = dist.microbatches
+    if n_mb < 1:
+        raise ValueError(f"microbatches must be >= 1, got {n_mb}")
+    acc_dt = dist.resolved_state_dtype()
+    loss_fn = get_family(cfg).loss_fn
+
+    def value_and_grad(params, mbatch):
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss = loss_fn(live, cfg, mbatch)[0]
+        return loss.detach(), torch.autograd.grad(loss, tree_leaves(live))
+
+    def worker_grads(params, wbatch):
+        """The worker's loss and gradient; under ``microbatches`` its
+        shard's ``n_mb`` contiguous chunks in order, the loss accumulated
+        in f32 and the gradient in the state dtype from zero, each term
+        times fl(1/n_mb), as the jitted JAX scan adds ``x / n_mb``."""
+        if n_mb == 1:
+            return value_and_grad(params, wbatch)
+        rows = wbatch["tokens"].shape[0]
+        if rows % n_mb:
+            raise ValueError(
+                f"a worker's shard of {rows} rows does not split into "
+                f"{n_mb} microbatches"
+            )
+        per_mb = rows // n_mb
+        leaves = tree_leaves(params)
+        loss_acc = torch.zeros((), device=leaves[0].device)
+        g_acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+                 for p in leaves]
+        for i in range(n_mb):
+            mb = {key: v[i * per_mb:(i + 1) * per_mb] for key, v in wbatch.items()}
+            loss, grads = value_and_grad(params, mb)
+            loss_acc = loss_acc + const_div(loss, float(n_mb))
+            g_acc = [ac + const_div(gg, float(n_mb)).to(acc_dt)
+                     for ac, gg in zip(g_acc, grads, strict=True)]
+        return loss_acc, g_acc
+
+    return worker_grads
+
+
 def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
                     counts: Optional[fp.FastpathCounts] = None,
                     mesh: Optional[DpGroups] = None):
@@ -977,42 +1052,8 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
                                 dtype=torch.float32)
     mine = range(W) if mesh is None else [mesh.rank]
 
-    n_mb = dist.microbatches
-    if n_mb < 1:
-        raise ValueError(f"microbatches must be >= 1, got {n_mb}")
     acc_dt = dist.resolved_state_dtype()
-    loss_fn = get_family(cfg).loss_fn
-
-    def value_and_grad(params, mbatch):
-        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss = loss_fn(live, cfg, mbatch)[0]
-        return loss.detach(), torch.autograd.grad(loss, tree_leaves(live))
-
-    def worker_grads(params, wbatch):
-        """The worker's loss and gradient; under ``microbatches`` its
-        shard's ``n_mb`` contiguous chunks in order, the loss accumulated
-        in f32 and the gradient in the state dtype from zero, each term
-        times fl(1/n_mb), as the jitted JAX scan adds ``x / n_mb``."""
-        if n_mb == 1:
-            return value_and_grad(params, wbatch)
-        rows = wbatch["tokens"].shape[0]
-        if rows % n_mb:
-            raise ValueError(
-                f"a worker's shard of {rows} rows does not split into "
-                f"{n_mb} microbatches"
-            )
-        per_mb = rows // n_mb
-        leaves = tree_leaves(params)
-        loss_acc = torch.zeros((), device=leaves[0].device)
-        g_acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
-                 for p in leaves]
-        for i in range(n_mb):
-            mb = {key: v[i * per_mb:(i + 1) * per_mb] for key, v in wbatch.items()}
-            loss, grads = value_and_grad(params, mb)
-            loss_acc = loss_acc + const_div(loss, float(n_mb))
-            g_acc = [ac + const_div(gg, float(n_mb)).to(acc_dt)
-                     for ac, gg in zip(g_acc, grads, strict=True)]
-        return loss_acc, g_acc
+    worker_grads = make_worker_grads(cfg, dist)
 
     def train_step(params, opt_state, sp_state, batch: Dict[str, Any]):
         B = batch["tokens"].shape[0]

@@ -49,6 +49,15 @@ MODEL_AXIS = "model"
 PRODUCTION = {False: {"data": 16, "model": 16},
               True: {"pod": 2, "data": 16, "model": 16}}
 
+# Hardware constants of one NVIDIA H100 SXM at its 700 W limit (NVIDIA's
+# H100 data sheet; dense rates, without sparsity), which the dry run's
+# records are read against.
+PEAK_FLOPS_BF16 = 989e12  # per card, on the tensor cores
+PEAK_FLOPS_F32 = 67e12  # per card, outside the tensor cores (TF32 off)
+HBM_BW = 3.35e12  # bytes/s per card
+HBM_BYTES = 80e9  # bytes of device memory per card
+NVLINK_BW = 450e9  # bytes/s per card, each way (NVLink 4, 900 GB/s total)
+
 
 def host_shape(devices: int, model: int = 1,
                multi_pod: bool = False) -> Dict[str, int]:

@@ -224,8 +224,10 @@ def test_zero_score_candidates_never_certify():
 def test_shape_fusable_refuses_leaves_beyond_int32(length, fusable):
     """Kernel 1 writes int32 flat indices, so a leaf of 2**31 elements or
     more stays unfused, with a reason (lengths only: no tensor is made);
-    ``leaf_fused`` and ``build_plan`` (over shapes on the meta device)
-    follow, and a plan that marks such a leaf fused is refused."""
+    ``leaf_fused`` follows, ``build_plan`` (over shapes on the meta device)
+    fuses the shorter leaves and refuses the longer one on the int32 wire
+    of ``coo_fp32`` (``MAX_WIRE_LEN``), and a plan that marks such a leaf
+    fused is refused."""
     from repro_torch.comm import fastpath as fp
     from repro_torch.core import distributed as td
     from repro_torch.core.sparsify import SparsifierConfig
@@ -239,9 +241,13 @@ def test_shape_fusable_refuses_leaves_beyond_int32(length, fusable):
     dist = td.DistConfig(sparsifier=SparsifierConfig(kind="regtopk",
                                                      sparsity=0.001),
                          fastpath="on")
-    plan = td.build_plan({"w": torch.empty(length, device="meta")}, 0.001, dist)
-    assert plan["w"].fused == fusable
-    if not fusable:
+    leaf = {"w": torch.empty(length, device="meta")}
+    if fusable:
+        assert td.build_plan(leaf, 0.001, dist)["w"].fused
+    else:
+        with pytest.raises(ValueError, match="MAX_WIRE_LEN"):
+            td.build_plan(leaf, 0.001, dist)
+        plan = td.build_plan(leaf, 0.001)  # no wire: the shapes alone
         with pytest.raises(ValueError, match="beyond int32"):
             td.make_sparsify_aggregate(
                 {"w": plan["w"]._replace(fused=True)}, dist, 2)
@@ -249,9 +255,11 @@ def test_shape_fusable_refuses_leaves_beyond_int32(length, fusable):
 
 def test_phi3_plan_keeps_its_largest_leaves_unfused():
     """At full depth phi3-medium-14b's stacked MLP leaves hold 3.67e9
-    elements each: ``--fastpath on`` plans them unfused and fuses the
-    rest."""
+    elements each: kernel 1's guard (``leaf_fused`` under ``--fastpath
+    on``) keeps them unfused and fuses the rest, and ``build_plan`` refuses
+    them on the int32 wire of ``coo_fp32``, naming the limit."""
     from repro_torch import configs
+    from repro_torch.comm import fastpath as fp
     from repro_torch.core import distributed as td
     from repro_torch.core.sparsify import SparsifierConfig
     from repro_torch.models import lm
@@ -261,8 +269,12 @@ def test_phi3_plan_keeps_its_largest_leaves_unfused():
     dist = td.DistConfig(sparsifier=SparsifierConfig(kind="regtopk",
                                                      sparsity=0.001),
                          fastpath="on")
-    plan = dict(tree_items(td.build_plan(params, 0.001, dist)))
-    unfused = sorted(path for path, p in plan.items() if not p.fused)
+    plan = dict(tree_items(td.build_plan(params, 0.001)))  # the shapes
+    unfused = sorted(path for path, p in plan.items() if not fp.leaf_fused(
+        "on", dist.codec, "sparse_allgather", p.local_len, p.k))
     assert unfused == ["layers.mlp.wd", "layers.mlp.wg", "layers.mlp.wu"]
     assert all(p.local_len >= 2**31 for path, p in plan.items()
                if path in unfused)
+    with pytest.raises(ValueError, match="MAX_WIRE_LEN") as e:
+        td.build_plan(params, 0.001, dist)
+    assert "3670016000 elements" in str(e.value)

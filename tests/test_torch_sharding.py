@@ -15,8 +15,10 @@
   local shape, local length, k, spec and the fused flag under fastpath
   "on"), and under ``codec``/``collective="auto"`` the per-leaf picks, both
   packages pricing with one ``ThroughputTable``. The one difference is
-  the port's: a block of ``MAX_FUSED_LEN`` (2**31) elements or more stays
-  unfused (kernel 1 writes int32 indices; ROADMAP §3).
+  the port's: a block of ``MAX_WIRE_LEN`` (2**31) elements or more (the
+  tensor-parallel experts of mixtral-8x7b and deepseek-moe-16b on a small
+  model axis) is refused on the COO codecs' int32 wire, where JAX's plan
+  fuses it; its shapes are held from the plan without a wire.
 * The layout arithmetic of ``launch.mesh`` for the host and production
   layouts, with no process group.
 """
@@ -34,6 +36,7 @@ from repro.core.sparsify import SparsifierConfig as JaxSparsifierConfig
 from repro.models import get_family as jax_family
 from repro.nn import sharding as jsh
 from repro_torch import configs as tconfigs
+from repro_torch.comm import codec as tcodec
 from repro_torch.comm import fastpath as tfp
 from repro_torch.core import distributed as td
 from repro_torch.core.sparsify import SparsifierConfig
@@ -179,21 +182,39 @@ def test_plans_match_jax_build_plan(mesh_id, auto):
         jspecs = jsh.tree_specs(jshape, jaxes, amesh, None, dp)
         jplan = dict(tree_items(
             jd.build_plan(jshape, jspecs, amesh, SPARSITY, jdist)))
-        plan = dict(tree_items(td.build_plan(
-            _port_meta(name), SPARSITY, tdist,
-            tfp.ThroughputTable(JAX_RATE, JAX_RATE),
-            axes=param_axes(CFGS[name][1]), mesh=mesh)))
-        assert plan.keys() == jplan.keys(), name
-        for path, p in plan.items():
+        params, axes = _port_meta(name), param_axes(CFGS[name][1])
+        # the port's int32 wire guard: a block of MAX_WIRE_LEN elements or
+        # more on a COO codec is refused; its shape fields are held from
+        # the plan without a wire, the other leaves' wire under tdist
+        shapes = dict(tree_items(td.build_plan(params, SPARSITY, axes=axes,
+                                               mesh=mesh)))
+        long = {path for path, p in shapes.items()
+                if p.local_len >= tcodec.MAX_WIRE_LEN}
+        table = tfp.ThroughputTable(JAX_RATE, JAX_RATE)
+        try:
+            plan = dict(tree_items(td.build_plan(
+                params, SPARSITY, tdist, table, axes=axes, mesh=mesh)))
+        except ValueError as e:
+            assert long and "MAX_WIRE_LEN" in str(e), (name, e)
+            plan = dict(tree_items(td.build_plan(
+                _without(params, long), SPARSITY, tdist, table,
+                axes=_without(axes, long), mesh=mesh)))
+        else:  # "auto" may send them on a wire without indices
+            for path in long:
+                cname, coll = td.leaf_wire(plan.pop(path), tdist)
+                assert auto and (coll == "dense_allreduce" or not
+                                 tcodec.get_codec(cname).int32_indices), path
+        assert plan.keys() | long == jplan.keys(), name
+        for path, p in {**plan, **{q: shapes[q] for q in long}}.items():
             jp, where = jplan[path], f"{name} {mesh_id} {path}"
             assert p.global_shape == tuple(jp.global_shape), where
             assert p.local_shape == tuple(jp.local_shape), where
             assert p.local_len == jp.local_len and p.k == jp.k, where
             assert p.spec == _jspec(jp.spec), where
             assert p.shards == mesh["model"], where
-            if p.local_len >= tfp.MAX_FUSED_LEN:  # the port's int32 guard
+            if p.local_len >= tfp.MAX_FUSED_LEN:  # kernel 1's int32 guard
                 beyond.add(f"{name}:{path}")
-                assert not p.fused and jp.fused, where
+                assert path in long and jp.fused, where
                 continue
             assert p.fused == jp.fused, where
             if auto:
@@ -206,6 +227,18 @@ def test_plans_match_jax_build_plan(mesh_id, auto):
     experts = {f"{name}:layers.mlp.{w}" for w in ("wd", "wg", "wu")
                for name in big}
     assert beyond == experts
+
+
+def _without(tree, paths):
+    """``tree`` (nested dicts) without the leaves at the dotted ``paths``."""
+    out = {}
+    for key, sub in tree.items():
+        inner = {p.split(".", 1)[1] for p in paths if p.split(".", 1)[0] == key
+                 and "." in p}
+        if key in paths:
+            continue
+        out[key] = _without(sub, inner) if inner else sub
+    return out
 
 
 def test_plan_without_a_mesh_is_whole():
