@@ -207,22 +207,36 @@ Phases, each raising on failure (the script then exits non-zero):
               is within that.
 15. model parallel — the model axis (one RegTop-k round per (worker,
               model shard), each shard's block of a leaf flattened on its
-              own with its own k; the forward, the params and Adam whole):
-              (a) qwen2.5-3b at 6 of 36 layers (W = 2 per layout's data
-              axis, batch 4 x 512, RegTop-k at S = 0.01, Adam, 3 steps) on
-              the host meshes of --workers 4 with --model-parallel 2
-              ((data, model) = (2, 2)) and 4 ((1, 4), where 7 of 14
-              leaves stay whole), fastpath on against off: params and
-              every sparsifier-state field in bits, each leaf's block and
-              k, kernel 1 once per fused leaf per step (the W x M rows of a
-              leaf in one launch), the peak beside the reckoned one; (b)
-              4 gloo ranks sharing the card at (2, 2) on
-              paper-resnet-proxy at full width (phase 9's flags), 10
-              steps each of sparse_allgather and dense_allreduce, held in
-              f32 bits (params, losses and the state of every (worker,
-              shard)) against the one-card --workers 4 --model-parallel 2
-              run; --checkpoint at step 5 and --resume to step 10 against
-              the unbroken run in bits; each rank's state bytes; (c)
+              own with its own k): (a) on one card, where the forward, the
+              params and Adam stay whole, qwen2.5-3b at 6 of 36 layers (W
+              = 2 per layout's data axis, batch 4 x 512, RegTop-k at S =
+              0.01, Adam, 3 steps) on the host meshes of --workers 4 with
+              --model-parallel 2 ((data, model) = (2, 2)) and 4 ((1, 4),
+              where 7 of 14 leaves stay whole), fastpath on against off:
+              params and every sparsifier-state field in bits, each leaf's
+              block and k, kernel 1 once per fused leaf per step (the W x
+              M rows of a leaf in one launch), the peak beside the
+              reckoned one; (b) 4 gloo ranks sharing the card at (2, 2) on
+              paper-resnet-proxy at full width (phase 9's flags), tensor
+              parallel (each rank its blocks of the params, forward,
+              backward and Adam), 6 steps each of sparse_allgather and
+              dense_allreduce against the one-card --workers 4
+              --model-parallel 2 run (losses to rtol 1e-5, params by
+              _param_diff's rule: rtol 1e-5 with a leaf's floor, or at
+              most 0.1% of them off by at most 2 lr a step; the errors
+              and sent indices reported), the same ranks with the
+              fastpath off in bits, --checkpoint at step 3 and --resume
+              to step 6 against the unbroken run in bits, each rank's
+              state bytes; (c) tensor parallel at published widths on 4
+              gloo ranks, 3 steps, after each config's one-card twin:
+              qwen2.5-3b at (1, 4), 12 of 36 layers (its kv heads whole,
+              its query heads split), batch 4 x 512, and internvl2-1b
+              whole at (2, 2), batch 8 x 512, held against the twin as in
+              (b), fastpath on == off in bits on every rank, whole leaves
+              bit-equal across the ranks, each rank's blocks, kernel 1
+              once per fused leaf a step on every rank; the step time,
+              each rank's peak and their sum beside tp_prediction, the
+              model group's collectives a step under the profiler; (d)
               --mesh production at a world size of 4 exits non-zero with
               its message.
 16. dry run — launch/dryrun.py on the meta device, which makes no CUDA
@@ -258,6 +272,7 @@ fresh processes on this card, into the details.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -1835,7 +1850,8 @@ def _flat(tree) -> dict:
     return dict(tree_items(tree))
 
 
-def _param_diff(got: dict, want: dict, adam_step: float = 0.0) -> dict:
+def _param_diff(got: dict, want: dict, adam_step: float = 0.0,
+                floors=None) -> dict:
     """Two parameter trees: bit mismatches, the largest difference relative
     to ``|want| + max|leaf of want|``, and the elements beyond rtol 1e-5
     with a floor of 1e-5 of their leaf's largest magnitude
@@ -1850,14 +1866,15 @@ def _param_diff(got: dict, want: dict, adam_step: float = 0.0) -> dict:
     for path, w in want.items():
         g = got[path].to(w.device)
         mismatches += int((g.view(torch.int32) != w.view(torch.int32)).sum())
-        floor = float(w.abs().max())
+        # a block's floor is its whole leaf's, given in ``floors``
+        floor = float(w.abs().max()) if floors is None else floors[path]
         diff = (g - w).abs()
         worst = max(worst, float((diff / (w.abs() + floor)).max()))
         beyond += int((diff > 1e-5 * w.abs() + 1e-5 * floor).sum())
         max_abs, n = max(max_abs, float(diff.max())), n + w.numel()
     ok = beyond == 0 or (beyond <= 1e-3 * n and max_abs <= adam_step)
     return {"mismatches": mismatches, "largest_rel_diff": worst,
-            "beyond_rtol": beyond, "max_abs_diff": max_abs, "ok": ok}
+            "beyond_rtol": beyond, "max_abs_diff": max_abs, "n": n, "ok": ok}
 
 
 def ranks_world_one(device: str = DEVICE, backend: str = "nccl") -> dict:
@@ -3396,18 +3413,23 @@ def phase_serving(smi: str) -> dict:
 
 # phase 15: the model axis. (a) qwen2.5-3b at phase 13's depth and batch on
 # the host meshes of --workers 4 with a model axis of 2 and of 4; (b) four
-# gloo ranks at (data, model) = (2, 2) on paper-resnet-proxy.
+# gloo ranks at (data, model) = (2, 2) on paper-resnet-proxy, tensor
+# parallel; (c) four gloo ranks, tensor parallel at published widths.
 MP_ARCH, MP_LAYERS, MP_BATCH, MP_DEVICES = "qwen2.5-3b", 6, 4, 4
 MP_MODELS = (2, 4)
-MP_RANK_STEPS, MP_RANK_CKPT = 10, 5
+MP_RANK_STEPS, MP_RANK_CKPT = 6, 3
 MP_RANK_RUNS = {"sparse_allgather": [],
                 "dense_allreduce": ["--collective", "dense_allreduce"]}
+# (b)'s sparse_allgather run with the fastpath off, across the ranks only
+MP_RANK_OFF = {"fastpath_off": ["--fastpath", "off"]}
 
 
-def _mp_train(cfg, params0, W: int, M: int, fastpath: str):
+def _mp_train(cfg, params0, W: int, M: int, fastpath: str,
+              batch: int = MP_BATCH):
     """``FAMILY_STEPS`` steps of ``cfg`` on the host mesh ``(data, model) =
-    (W, M)`` of one card, from a copy of ``params0``, RegTop-k at
-    ``FAMILY_SPARSITY``: one round per (worker, model shard). Returns
+    (W, M)`` of one card, from a copy of ``params0`` on the card (which
+    may lie on the host), RegTop-k at ``FAMILY_SPARSITY``: one round per
+    (worker, model shard), a global batch of ``batch`` rows. Returns
     (params, sparsifier state, plan, losses, kernel 1 launches, seconds,
     peak bytes)."""
     from repro_torch.comm.fastpath import FastpathCounts
@@ -3423,13 +3445,13 @@ def _mp_train(cfg, params0, W: int, M: int, fastpath: str):
         sparsifier=SparsifierConfig(kind="regtopk", sparsity=FAMILY_SPARSITY),
         optimizer=OptConfig(kind="adam", learning_rate=FAMILY_LR),
         fastpath=fastpath)
-    params = tree_map(torch.clone, params0)
+    params = tree_map(lambda x: x.to(DEVICE, copy=True), params0)
     plan = td.build_plan(params, FAMILY_SPARSITY, dist, axes=param_axes(cfg),
                          mesh={"data": W, "model": M})
     step = td.make_train_step(cfg, dist, plan, W, FastpathCounts())
     opt_state = make_optimizer(dist.optimizer).init(params)
     sp = td.init_sparsifier_state(plan, W, DEVICE)
-    pipe = TokenPipeline(cfg, MP_BATCH, FAMILY_SEQ, 0, DEVICE)
+    pipe = TokenPipeline(cfg, batch, FAMILY_SEQ, 0, DEVICE)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fe.fused_candidates.launches = 0
@@ -3526,11 +3548,15 @@ def model_parallel_card(smi: str) -> dict:
 def _mp_rank_body(rank: int, world: int, store: str, out_dir: str,
                   device: str) -> None:
     """One of phase 15 (b)'s 4 gloo ranks on ``device``, ``(data, model) =
-    (2, 2)``: each run of ``MP_RANK_RUNS`` for ``MP_RANK_STEPS`` steps, then
-    ``MP_RANK_CKPT`` steps with ``--checkpoint`` and the rest with
-    ``--resume``; kernel 1's launches counted around each. Every rank
-    saves its numbers; rank 0 also the params and the state of every
+    (2, 2)``: each run of ``MP_RANK_RUNS`` and ``MP_RANK_OFF`` for
+    ``MP_RANK_STEPS`` steps, then ``MP_RANK_CKPT`` steps with
+    ``--checkpoint`` and the rest with ``--resume``; kernel 1's launches
+    counted around each. Every rank saves its numbers; rank 0 also the
+    params (gathered whole by ``train.run``) and the state of every
     (worker, shard), gathered, in the JAX layout."""
+    import contextlib
+    import io
+
     import torch.distributed as dist
 
     from repro_torch import convert
@@ -3542,7 +3568,7 @@ def _mp_rank_body(rank: int, world: int, store: str, out_dir: str,
     try:
         out = {}
         runs = {name: (extra, ["--steps", str(MP_RANK_STEPS)])
-                for name, extra in MP_RANK_RUNS.items()}
+                for name, extra in {**MP_RANK_RUNS, **MP_RANK_OFF}.items()}
         runs["checkpoint"] = ([], ["--steps", str(MP_RANK_CKPT), "--checkpoint",
                                    f"{out_dir}/ckpt"])
         runs["resume"] = ([], ["--steps", str(MP_RANK_STEPS - MP_RANK_CKPT),
@@ -3553,7 +3579,9 @@ def _mp_rank_body(rank: int, world: int, store: str, out_dir: str,
             groups = mesh.make_host_groups(model=2)
             fe.fused_candidates.launches = 0
             _sync(device)
-            res = train.run(args, mesh=groups)
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                res = train.run(args, mesh=groups)
             _sync(device)
             full = convert.trainer_state_to_jax(
                 train._all_workers(res.sp_state, groups), res.plan)
@@ -3564,7 +3592,9 @@ def _mp_rank_body(rank: int, world: int, store: str, out_dir: str,
                                           for st in _flat(res.sp_state).values()),
                          "fused_leaves": sum(p.fused for p in
                                              _flat(res.plan).values()),
-                         "worker": groups.rank, "shard": groups.shard}
+                         "worker": groups.rank, "shard": groups.shard,
+                         "model_axis": [ln for ln in printed.getvalue().splitlines()
+                                        if ln.startswith("model axis:")]}
             if rank == 0:
                 torch.save({"params": {k: v.cpu() for k, v in
                                        _flat(res.params).items()},
@@ -3584,13 +3614,32 @@ def _same_bits(a: dict, b: dict) -> bool:
                     for x, y in zip(a["state"][k], b["state"][k], strict=True)))
 
 
+def _state_diff(got: dict, want: dict, adam_step: float) -> tuple:
+    """Two states of every (worker, shard) in the JAX layout (``{path:
+    [eps, sent_vals, sent_g, sent_idx, sent_w, t]}``): ``_param_diff`` of
+    the errors under ``adam_step``'s rule, and the number of (worker,
+    shard) rows whose ``sent_idx`` differ as sets."""
+    eps = _param_diff({k: v[0] for k, v in got.items()},
+                      {k: v[0] for k, v in want.items()}, adam_step)
+    rows = sum(int((g[3].sort(-1).values != w[3].sort(-1).values).any(-1).sum())
+               for g, w in ((got[k], want[k]) for k in want))
+    return eps, rows
+
+
 def model_parallel_ranks(smi: str, device=None) -> dict:
     """Phase 15 (b): 4 gloo ranks sharing the card at ``(data, model) = (2,
-    2)`` on paper-resnet-proxy at full width, against the one-card
-    ``--workers 4 --model-parallel 2`` run in f32 bits (params, and the
-    state of every (worker, shard)); the checkpointed and resumed run
-    against the unbroken one in bits; each rank's state bytes beside the
-    one-card run's per worker."""
+    2)`` on paper-resnet-proxy at full width, tensor parallel (the dense
+    family), against the one-card ``--workers 4 --model-parallel 2`` run:
+    losses to rtol 1e-5, params to rtol 1e-5 with a floor of 1e-5 of a
+    leaf's largest magnitude, at most 0.1% of them off by up to 2 lr a
+    step (``_param_diff``: the gloo all-reduce's row-parallel sums round
+    otherwise than the one card's whole products, and a last-ulp change
+    can flip a selection or the sign of a near-cancelling Adam step); the
+    errors of every (worker, shard) and their ``sent_idx`` reported (after
+    a flip every later gradient moves by the flipped step, and the errors
+    keep it); the same ranks with the fastpath off in bits; the
+    checkpointed and resumed run against the unbroken one in bits; each
+    rank's state bytes beside the one-card run's per worker."""
     import tempfile
 
     from repro_torch import convert
@@ -3620,20 +3669,17 @@ def model_parallel_ranks(smi: str, device=None) -> dict:
         ranks = [json.loads(Path(f"{d}/rank{r}.json").read_text())
                  for r in range(4)]
         rank0 = {name: torch.load(f"{d}/{name}.pt")
-                 for name in [*MP_RANK_RUNS, "resume"]}
+                 for name in [*MP_RANK_RUNS, *MP_RANK_OFF, "resume"]}
     out = {"seconds": seconds, "ranks": ranks}
-    for name in MP_RANK_RUNS:
+    adam_step = 2 * _rank_args(TRAIN_ARGS, [], device, 4).lr * MP_RANK_STEPS
+    for name in [*MP_RANK_RUNS, *MP_RANK_OFF]:
         rows = [rk[name] for rk in ranks]
-        want = one_card[name]
         if len({row["digest"] for row in rows}) != 1:
             raise AssertionError(f"model parallel (b) {name}: ranks' params "
                                  "differ in bits")
-        if not _same_bits(rank0[name], want) or rows[0]["losses"] != want["losses"]:
-            raise AssertionError(
-                f"model parallel (b) {name}: the 4 ranks differ from the "
-                f"one-card run: {_mismatches(rank0[name]['params'], want['params'])}"
-                f" param bit mismatches, losses {rows[0]['losses']} vs "
-                f"{want['losses']}")
+        if not any("tensor parallel" in ln for ln in rows[0]["model_axis"]):
+            raise AssertionError(f"model parallel (b) {name}: not tensor "
+                                 f"parallel: {rows[0]['model_axis']}")
         for r, row in enumerate(rows):
             if row["launches"] != MP_RANK_STEPS * row["fused_leaves"]:
                 raise AssertionError(
@@ -3641,13 +3687,45 @@ def model_parallel_ranks(smi: str, device=None) -> dict:
                     f"{row['launches']} times, expected {MP_RANK_STEPS} x "
                     f"{row['fused_leaves']}")
         launches += sum(row["launches"] for row in rows)
+    off = rank0["fastpath_off"]
+    if (not _same_bits(off, rank0["sparse_allgather"])
+            or ranks[0]["fastpath_off"]["losses"]
+            != ranks[0]["sparse_allgather"]["losses"]):
+        raise AssertionError(
+            "model parallel (b): the 4 ranks with the fastpath on differ from "
+            f"off: {_mismatches(rank0['sparse_allgather']['params'], off['params'])}"
+            " param bit mismatches")
+    log(f"model parallel (b): 4 ranks, tensor parallel, fastpath on == off in "
+        f"bits (params, losses and the state of every (worker, shard)); "
+        f"{ranks[0]['fastpath_off']['launches']} kernel 1 launches off")
+    for name in MP_RANK_RUNS:
+        rows = [rk[name] for rk in ranks]
+        want = one_card[name]
+        diff = _param_diff(rank0[name]["params"], want["params"], adam_step)
+        eps, sent_rows = _state_diff(rank0[name]["state"], want["state"],
+                                     adam_step)
+        loss_ok = all(abs(g - w) <= 1e-5 * abs(w) for g, w in zip(
+            rows[0]["losses"], want["losses"], strict=True))
+        if not (diff["ok"] and loss_ok):
+            raise AssertionError(
+                f"model parallel (b) {name}: the 4 ranks against the one-card "
+                f"run: params {diff}, eps {eps}, losses {rows[0]['losses']} vs "
+                f"{want['losses']}")
         out[name] = {"one_card_losses": want["losses"],
                      "one_card_launches": want["launches"],
-                     "one_card_state_bytes": want["state_bytes"]}
+                     "one_card_state_bytes": want["state_bytes"],
+                     "vs_one_card": diff, "eps_vs_one_card": eps,
+                     "sent_idx_rows_differing": sent_rows}
         log(f"model parallel (b) {name}: 4 ranks over gloo on one card, (data, "
-            f"model) = (2, 2): params and the state of every (worker, shard) "
-            f"equal in bits to the one-card --workers 4 --model-parallel 2 run "
-            f"and across the ranks; losses {rows[0]['losses'][0]:.4f} -> "
+            f"model) = (2, 2), {rows[0]['model_axis'][0]}; params equal in bits "
+            f"across the ranks; against the one-card --workers 4 "
+            f"--model-parallel 2 run: losses within rtol 1e-5, params "
+            f"{diff['mismatches']} bit mismatches, largest relative difference "
+            f"{diff['largest_rel_diff']:.3e}, {diff['beyond_rtol']} elements "
+            f"beyond rtol 1e-5 (largest |diff| {diff['max_abs_diff']:.3e}); "
+            f"reported: eps {eps['beyond_rtol']} of {eps['n']} beyond (largest "
+            f"|diff| {eps['max_abs_diff']:.3e}), {sent_rows} (worker, shard) "
+            f"rows with other sent_idx; losses {rows[0]['losses'][0]:.4f} -> "
             f"{rows[0]['losses'][-1]:.4f}; kernel 1 {rows[0]['launches']} "
             f"launches per rank ({rows[0]['fused_leaves']} fused leaves), "
             f"{want['launches']} on one card; state bytes per rank "
@@ -3669,8 +3747,431 @@ def model_parallel_ranks(smi: str, device=None) -> dict:
     return out
 
 
+# (c): each config's depth (None: whole), (data, model) layout and global
+# batch of FAMILY_SEQ tokens; qwen2.5-3b at the deepest depth whose 4
+# allocators' reserve leaves the card a margin (PERF.md: 14 layers
+# reserved 78.9-80.9 GB of 85.0, and one run of the script failed there)
+TP_RUNS = {
+    "qwen2.5-3b": dict(layers=12, data=1, model=4, batch=4),
+    "internvl2-1b": dict(layers=None, data=2, model=2, batch=8),
+}
+TP_STEPS = 3
+TP_SORT_BYTES = 32  # the dense fallback's sort, a byte count an element
+TP_TIMEOUT = 900.0  # seconds for the 4 ranks of every config
+
+
+def _tp_config(arch: str):
+    from repro_torch import configs
+
+    cfg, layers = configs.get_config(arch), TP_RUNS[arch]["layers"]
+    return cfg if layers is None else cfg.replace(n_layers=layers)
+
+
+def _tp_dist(fastpath: str):
+    from repro_torch.core import distributed as td
+    from repro_torch.core.sparsify import SparsifierConfig
+    from repro_torch.optim import OptConfig
+
+    return td.DistConfig(
+        sparsifier=SparsifierConfig(kind="regtopk", sparsity=FAMILY_SPARSITY),
+        optimizer=OptConfig(kind="adam", learning_rate=FAMILY_LR),
+        fastpath=fastpath)
+
+
+def tp_prediction(arch: str) -> dict:
+    """Phase 15 (c)'s memory, predicted on the meta device (no CUDA call):
+    one rank's tensor-parallel step traced by ``launch.dryrun.count_layout``
+    at the run's layout, batch and float32 (the round with the fastpath
+    off, which the kernel's certificate falls back to), plus
+    ``TP_SORT_BYTES`` an element of the rank's largest block for the
+    fallback's sort (a library op's workspace, which the trace cannot
+    see); times the ranks for the card's sum. On any machine: ``python -c
+    'import chip_smoke as c; print(c.tp_prediction("qwen2.5-3b"))'`` with
+    ``PYTHONPATH=src``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.tree import tree_leaves
+
+    run, cfg = TP_RUNS[arch], _tp_config(arch)
+    W, M = run["data"], run["model"]
+    lay = dryrun.layout_of(cfg, _tp_dist("off"), {"data": W, "model": M},
+                           run["batch"], FAMILY_SEQ)
+    rank = dryrun.count_layout(lay)
+    big = max(p.local_len for p in tree_leaves(lay.plan))
+    per_rank = rank["resident"] + rank["cost"]["peak_bytes"] + TP_SORT_BYTES * big
+    return {"layers": cfg.n_layers, "rank_bytes": per_rank,
+            "sum_bytes": W * M * per_rank,
+            "rank_collective_bytes": rank["collectives"][1]}
+
+
+def _tp_timed(fn, times: dict, model_group):
+    """``fn(x, groups)`` (``_psum`` or ``_gather``) that adds its host
+    seconds, the card synchronised on entry and exit, to ``times``
+    under its name and whether it ran over the model group or a dp
+    group."""
+    def timed(x, groups):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(x, groups)
+        torch.cuda.synchronize()
+        key = (f"{fn.__name__.strip('_')}:"
+               f"{'model' if tuple(groups) == (model_group,) else 'dp'}")
+        times[key] = times.get(key, 0.0) + time.perf_counter() - t0
+        return out
+    return timed
+
+
+@contextlib.contextmanager
+def _tp_profile(rank: int, comm: dict, model_group):
+    """The block with the model group's collectives timed into ``comm``
+    (``_tp_timed``) and, on rank 0, under the torch profiler, which it
+    yields (None on the other ranks)."""
+    from repro_torch.comm import collectives
+
+    plain = collectives._psum, collectives._gather
+    collectives._psum = _tp_timed(plain[0], comm, model_group)
+    collectives._gather = _tp_timed(plain[1], comm, model_group)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with (torch.profiler.profile(activities=acts) if rank == 0
+              else contextlib.nullcontext()) as prof:
+            yield prof
+    finally:
+        collectives._psum, collectives._gather = plain
+
+
+def _tp_arch(rank: int, device: str, arch: str, out_dir: str) -> dict:
+    """One config of phase 15 (c) on this gloo rank (see ``_tp_rank_body``):
+    its numbers, the on == off comparison and the difference from the
+    twin."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch.comm.fastpath import FastpathCounts
+    from repro_torch.core import distributed as td
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import fused_encode as fe
+    from repro_torch.launch import mesh
+    from repro_torch.models import param_axes
+    from repro_torch.nn.sharding import shard_params
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_items, tree_leaves, tree_map
+
+    t_start = time.perf_counter()
+    run = TP_RUNS[arch]
+    W, M = run["data"], run["model"]
+    groups = mesh.make_host_groups(model=M)
+    cfg = _tp_config(arch)
+    saved = torch.load(f"{out_dir}/{arch}.pt", mmap=True)
+    p0 = _nested(saved["p0"])
+    plans = {fastpath: td.build_plan(
+        p0, FAMILY_SPARSITY, _tp_dist(fastpath), axes=param_axes(cfg),
+        mesh={"data": W, "model": M}) for fastpath in ("on", "off")}
+    specs = tree_map(lambda p: p.spec, plans["on"])
+    blocks0 = shard_params(p0, specs, groups.shard, M)
+    split = {path: td.split_dim(p) is not None
+             for path, p in tree_items(plans["on"])}
+    out, on = {}, None
+    stages = {"load": time.perf_counter() - t_start}
+    for fastpath, plan in plans.items():
+        t_run = time.perf_counter()
+        dcfg = _tp_dist(fastpath)
+        params = tree_map(lambda x: x.to(device), blocks0)
+        counts = FastpathCounts()
+        step = td.make_train_step(cfg, dcfg, plan, W, counts, groups)
+        opt_state = make_optimizer(dcfg.optimizer).init(params)
+        sp = td.init_sparsifier_state(plan, 1, device, shards=1)
+        pipe = TokenPipeline(cfg, run["batch"], FAMILY_SEQ, 0, device)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fe.fused_candidates.launches = 0
+        torch.cuda.synchronize()
+        dist.barrier()
+        losses, times, comm, prof = [], [], {}, None
+        for t in range(TP_STEPS):
+            # the off run's last step under the profiler: the model group
+            # moves what it moves with the fastpath on, and no step is added
+            profiled = fastpath == "off" and t == TP_STEPS - 1
+            t0 = time.perf_counter()
+            with (_tp_profile(rank, comm, groups.model_group) if profiled
+                  else contextlib.nullcontext()) as got_prof:
+                params, opt_state, sp, m = step(params, opt_state, sp,
+                                                pipe.batch_at(t))
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+            prof = got_prof if profiled else prof
+            times.append(time.perf_counter() - t0)
+        row = {"losses": losses, "launches": fe.fused_candidates.launches,
+               "step_s": times, "hit_rate": counts.hit_rate,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "reserved_bytes": torch.cuda.max_memory_reserved(),
+               # the caches keep what the steps reserved: the card's free
+               # bytes now are its headroom at the steps' peak
+               "card_free_bytes": torch.cuda.mem_get_info()[0],
+               "fused_leaves": sum(p.fused for p in tree_leaves(plan))}
+        stages[fastpath] = time.perf_counter() - t_run
+        if fastpath == "off":
+            row["comm_s"] = comm
+            if rank == 0:
+                evs = prof.key_averages()
+                row["device_ms"] = sum(
+                    ev.self_device_time_total for ev in evs
+                    if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+                row["collective_ops"] = {
+                    ev.key: [ev.count, ev.cpu_time_total / 1e3] for ev in evs
+                    if any(w in ev.key.replace("_", "") for w in
+                           ("allreduce", "allgather"))}
+        else:
+            t_check = time.perf_counter()
+            h = hashlib.sha256()
+            for path, x in tree_items(params):
+                if not split[path]:
+                    h.update(x.cpu().view(torch.int32).numpy().tobytes())
+            row["whole_digest"] = h.hexdigest()
+            row["block_shapes"] = {path: list(x.shape)
+                                   for path, x in tree_items(params)}
+            # the twin's blocks, compared on the card; rank 0 also holds
+            # the whole leaves to it
+            mine = shard_params(saved["twin"], dict(tree_items(specs)),
+                                groups.shard, M)
+            got = {k: x for k, x in tree_items(params)
+                   if split[k] or rank == 0}
+            row["vs_twin"] = _param_diff(
+                got, {k: mine[k].to(device) for k in got},
+                2 * FAMILY_LR * TP_STEPS, floors=saved["floors"])
+            del mine, got
+            stages["checked"] = time.perf_counter() - t_check
+        if fastpath == "on":  # kept on the host while the off run runs
+            on = (tree_map(lambda x: x.cpu(), params),
+                  [[x.cpu() for x in st] for st in tree_leaves(sp)], losses)
+        else:  # compared on the card, one leaf at a time
+            out["on_off_param_mismatches"] = sum(
+                _bit_mismatches(x.to(device), y) for (_, x), (_, y) in
+                zip(tree_items(on[0]), tree_items(params), strict=True))
+            out["on_off_state_equal"] = all(
+                _bits_equal(x.to(device), y)
+                for a, b in zip(on[1], tree_leaves(sp), strict=True)
+                for x, y in zip(a, b, strict=True))
+            out["on_off_losses_equal"] = on[2] == losses
+        out[fastpath] = row
+        del params, opt_state, sp, step
+    out["shard"], out["worker"] = groups.shard, groups.rank
+    out["stages_s"] = stages
+    torch.cuda.empty_cache()
+    return out
+
+
+def _nested(flat: dict) -> dict:
+    """``{dotted path: leaf}`` as the nested tree it came from."""
+    out: dict = {}
+    for path, x in flat.items():
+        *head, last = path.split(".")
+        d = out
+        for key in head:
+            d = d.setdefault(key, {})
+        d[last] = x
+    return out
+
+
+def _tp_rank_body(rank: int, world: int, store: str, out_dir: str,
+                  device: str) -> None:
+    """One of phase 15 (c)'s 4 gloo ranks on ``device``: each config of
+    ``TP_RUNS`` in turn, trained tensor parallel from the rank's blocks of
+    the weights the parent drew (``out_dir/<arch>.pt``: ``p0``, the
+    one-card twin's trained params ``twin`` and each leaf's largest
+    magnitude ``floors``), ``TP_STEPS`` steps with the fastpath on
+    (kernel 1's launches counted), then the same steps with the fastpath
+    off, the last of them with the model group's collectives timed and,
+    on rank 0, under the profiler. Each rank writes, per config, its numbers, the on
+    == off comparison in bits, its blocks' difference from the twin's
+    params (rank 0 also the whole leaves) and the digest of its whole
+    leaves to ``out_dir/rank{rank}.json``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+
+    torch.cuda.set_device(device)
+    mesh.init_file_store(store, rank, world, "gloo")
+    try:
+        out = {arch: _tp_arch(rank, device, arch, out_dir) for arch in TP_RUNS}
+        Path(f"{out_dir}/rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def model_parallel_tp(smi: str, device=None) -> dict:
+    """Phase 15 (c): tensor parallelism at published widths across 4 gloo
+    ranks sharing the card, fastpath on, RegTop-k at S = 0.01, Adam, 3
+    steps, float32: each ``TP_RUNS`` config after its one-card twin
+    (``mesh=None`` at the same layout, run first, its weights and result
+    handed to the ranks), held against it (losses to rtol 1e-5, params by
+    ``_param_diff``'s rule), fastpath on == off in bits on every rank,
+    every whole leaf equal in bits across the ranks, each rank holding
+    its blocks, kernel 1 once per fused leaf a step on every rank; the
+    step time beside the twin's, each rank's peak and their sum beside
+    ``tp_prediction``, the card's free bytes before the spawn and after
+    the steps, each stage's seconds, and the model group's collectives a
+    step (host clock, rank 0, the card synchronised around each) under
+    the profiler. One spawn runs every config."""
+    import tempfile
+
+    from repro_torch.launch import mesh
+    from repro_torch.models import get_family
+    from repro_torch.tree import tree_items
+
+    device = device or f"{DEVICE}:0"
+    twins, launches = {}, 0
+    world = {run["data"] * run["model"] for run in TP_RUNS.values()}
+    if len(world) != 1:
+        raise ValueError(f"phase 15 (c) runs every config on one world: {world}")
+    with tempfile.TemporaryDirectory() as d:
+        for arch, run in TP_RUNS.items():
+            cfg = _tp_config(arch)
+            t0 = time.perf_counter()
+            params0 = get_family(cfg).init(cfg, seed=0, device="cpu")
+            stages = {"init": time.perf_counter() - t0}
+            params, _, plan, losses, n, seconds, peak = _mp_train(
+                cfg, params0, run["data"], run["model"], "on",
+                batch=run["batch"])
+            twin = {k: x.cpu() for k, x in tree_items(params)}
+            del params, _
+            torch.cuda.empty_cache()
+            stages["twin"] = time.perf_counter() - t0 - stages["init"]
+            t0 = time.perf_counter()
+            torch.save({"p0": dict(tree_items(params0)), "twin": twin,
+                        "floors": {k: float(x.abs().max())
+                                   for k, x in twin.items()}},
+                       f"{d}/{arch}.pt")
+            del params0, twin
+            stages["save"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            prediction = tp_prediction(arch)
+            stages["predict"] = time.perf_counter() - t0
+            launches += n
+            twins[arch] = {"plan": plan, "losses": losses, "launches": n,
+                           "seconds": seconds, "peak": peak,
+                           "layers": cfg.n_layers, "prediction": prediction,
+                           "stages_s": stages}
+        n_ranks = world.pop()
+        # what the 4 ranks share: the card's free bytes with this process'
+        # context and cache in place
+        free0, total = torch.cuda.mem_get_info()
+        parent = {"allocated": torch.cuda.memory_allocated(),
+                  "reserved": torch.cuda.memory_reserved(),
+                  "card_free": free0, "card_total": total}
+        log(f"tensor parallel: before the spawn the card has {free0 / 1e9:.2f} "
+            f"of {total / 1e9:.2f} GB free; this process holds "
+            f"{parent['allocated'] / 1e9:.2f} GB allocated, "
+            f"{parent['reserved'] / 1e9:.2f} reserved")
+        t0 = time.perf_counter()
+        mesh.spawn(_tp_rank_body, n_ranks, (f"{d}/store", d, device),
+                   timeout=TP_TIMEOUT)
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.loads(Path(f"{d}/rank{r}.json").read_text())
+                 for r in range(n_ranks)]
+    out = {"spawn_s": spawn_s, "before_spawn": parent}
+    for arch, run in TP_RUNS.items():
+        W, M = run["data"], run["model"]
+        tw = twins[arch]
+        plan, losses, pred = tw["plan"], tw["losses"], tw["prediction"]
+        rks = [rk[arch] for rk in ranks]
+        on = [rk["on"] for rk in rks]
+        n_fused = on[0]["fused_leaves"]
+        for r, rk in enumerate(rks):
+            if (rk["on"]["launches"] != TP_STEPS * n_fused or not n_fused
+                    or rk["off"]["launches"]):
+                raise AssertionError(
+                    f"tensor parallel {arch}: rank {r} launched kernel 1 "
+                    f"{rk['on']['launches']} times on, {rk['off']['launches']} "
+                    f"off, expected {TP_STEPS} x {n_fused}")
+            if (rk["on_off_param_mismatches"] or not rk["on_off_state_equal"]
+                    or not rk["on_off_losses_equal"]):
+                raise AssertionError(
+                    f"tensor parallel {arch}: rank {r} fastpath on != off: "
+                    f"{rk['on_off_param_mismatches']} param bit mismatches, "
+                    f"state equal {rk['on_off_state_equal']}")
+            if rk["on"]["whole_digest"] != on[0]["whole_digest"]:
+                raise AssertionError(f"tensor parallel {arch}: rank {r}'s whole "
+                                     "leaves differ in bits from rank 0's")
+            blocks = rk["on"]["block_shapes"]
+            for path, p in tree_items(plan):
+                if list(p.local_shape) != blocks[path]:
+                    raise AssertionError(
+                        f"tensor parallel {arch}: {path} held as "
+                        f"{blocks[path]}, its block is {p.local_shape}")
+        diffs = [o["vs_twin"] for o in on]
+        diff = {"mismatches": sum(x["mismatches"] for x in diffs),
+                "largest_rel_diff": max(x["largest_rel_diff"] for x in diffs),
+                "beyond_rtol": sum(x["beyond_rtol"] for x in diffs),
+                "max_abs_diff": max(x["max_abs_diff"] for x in diffs),
+                "n": sum(x["n"] for x in diffs)}
+        adam_step = 2 * FAMILY_LR * TP_STEPS
+        diff["ok"] = diff["beyond_rtol"] == 0 or (
+            diff["beyond_rtol"] <= 1e-3 * diff["n"]
+            and diff["max_abs_diff"] <= adam_step)
+        got = on[0]["losses"]
+        loss_ok = all(abs(g - w) <= 1e-5 * abs(w)
+                      for g, w in zip(got, losses, strict=True))
+        if not (diff["ok"] and loss_ok and all(math.isfinite(x) for x in got)):
+            raise AssertionError(f"tensor parallel {arch}: against the one-card "
+                                 f"twin: losses {got} vs {losses}, params {diff}")
+        peaks = [o["peak_bytes"] for o in on]
+        # the first step pays the card's and gloo's warm-up on every rank
+        step_ms = statistics.median(1e3 * t for o in on for t in o["step_s"][1:])
+        off0 = rks[0]["off"]  # its last step was the profiled one
+        comm = off0["comm_s"]
+        launches += sum(o["launches"] for o in on)
+        split = sum(p.local_shape != p.global_shape for _, p in tree_items(plan))
+        row = {"layers": tw["layers"], "workers": W, "shards": M,
+               "batch": run["batch"], "losses": got, "twin_losses": losses,
+               "vs_twin": diff, "peaks": peaks,
+               "reserved": [o["reserved_bytes"] for o in on],
+               "peak_sum": sum(peaks), "prediction": pred,
+               "twin_peak": tw["peak"],
+               "twin_step_ms": 1e3 * tw["seconds"] / FAMILY_STEPS,
+               "step_ms": step_ms, "rank_step_s": [o["step_s"] for o in on],
+               "comm_s": comm, "device_ms": off0["device_ms"],
+               "collective_ops": off0["collective_ops"],
+               "launches": [o["launches"] for o in on], "fused_leaves": n_fused,
+               "split_leaves": split, "hit_rate": on[0]["hit_rate"],
+               "card_free": min(o["card_free_bytes"] for o in on),
+               "parent_stages_s": tw["stages_s"],
+               "rank_stages_s": [rk["stages_s"] for rk in rks]}
+        out[arch] = row
+        log(f"tensor parallel {arch}: {tw['layers']} layers, (data, model) = "
+            f"({W}, {M}), {W * M} gloo ranks on one card, batch {run['batch']} "
+            f"x {FAMILY_SEQ}, {split}/{len(tree_items(plan))} leaves split; "
+            f"losses {got[0]:.4f} -> {got[-1]:.4f} (twin {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, within rtol 1e-5); params against the twin "
+            f"{diff['mismatches']} bit mismatches, {diff['beyond_rtol']} of "
+            f"{diff['n']} beyond rtol 1e-5 (largest |diff| "
+            f"{diff['max_abs_diff']:.3e}, 2 lr a step {adam_step:.1e}); "
+            f"fastpath on == off in bits on every rank; whole leaves equal in "
+            f"bits across the ranks; kernel 1 {on[0]['launches']} launches per "
+            f"rank ({n_fused} fused leaves, hit rate {on[0]['hit_rate']:.3f})")
+        log(f"tensor parallel {arch}: step {step_ms:.1f} ms (median over ranks "
+            f"and steps 2-{TP_STEPS}, host clock; twin "
+            f"{row['twin_step_ms']:.1f} ms a step over its {FAMILY_STEPS}); "
+            f"peak per rank {[round(x / 1e9, 2) for x in peaks]} GB, sum "
+            f"{sum(peaks) / 1e9:.2f} GB (predicted {pred['sum_bytes'] / 1e9:.2f}"
+            f", {pred['rank_bytes'] / 1e9:.2f} a rank; reserved sum "
+            f"{sum(row['reserved']) / 1e9:.2f}, the card "
+            f"{row['card_free'] / 1e9:.2f} GB free after the steps); twin peak "
+            f"{tw['peak'] / 1e9:.2f} GB; rank 0's collectives in its profiled "
+            "step (the fastpath-off run's last): " + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in comm.items())
+            + f" of a step with {row['device_ms']:.1f} ms of device time ({smi})")
+        r0 = row["rank_stages_s"][0]
+        log(f"tensor parallel {arch}: seconds, this process "
+            + ", ".join(f"{k} {v:.1f}" for k, v in tw["stages_s"].items())
+            + "; rank 0 " + ", ".join(f"{k} {v:.1f}" for k, v in r0.items()))
+    log(f"tensor parallel: the spawn of both configs took {spawn_s:.1f} s")
+    out["launches"] = launches
+    return out
+
+
 def model_parallel_refusals() -> dict:
-    """Phase 15 (c): ``--mesh production`` at a world size of 4 exits
+    """Phase 15 (d): ``--mesh production`` at a world size of 4 exits
     non-zero with its message before any process group starts."""
     env = dict(os.environ, WORLD_SIZE="4", RANK="0", LOCAL_RANK="0",
                PYTHONPATH=str(ROOT / "src"))
@@ -3680,9 +4181,9 @@ def model_parallel_refusals() -> dict:
         env=env, capture_output=True, text=True, timeout=120)
     want = "--mesh production needs 256 ranks"
     if res.returncode == 0 or want not in res.stderr or "not 4" not in res.stderr:
-        raise AssertionError(f"model parallel (c): exit {res.returncode}, "
+        raise AssertionError(f"model parallel (d): exit {res.returncode}, "
                              f"stderr {res.stderr[-500:]!r}")
-    log(f"model parallel (c): --mesh production at world size 4 refused, exit "
+    log(f"model parallel (d): --mesh production at world size 4 refused, exit "
         f"{res.returncode}: {res.stderr.strip().splitlines()[-1]}")
     return {"returncode": res.returncode, "message": res.stderr.strip()}
 
@@ -3693,9 +4194,11 @@ def phase_model_parallel(smi: str) -> dict:
     t0 = time.perf_counter()
     card = model_parallel_card(smi)
     ranks = model_parallel_ranks(smi)
+    tp = model_parallel_tp(smi)
     refusal = model_parallel_refusals()
-    out = {"card": card, "ranks": ranks, "refusal": refusal,
-           "launches": card["launches"] + ranks["launches"],
+    out = {"card": card, "ranks": ranks, "tensor_parallel": tp,
+           "refusal": refusal,
+           "launches": card["launches"] + ranks["launches"] + tp["launches"],
            "seconds": time.perf_counter() - t0}
     log(f"model parallel: phase 15 took {out['seconds']:.1f} s, "
         f"{out['launches']} kernel 1 launches")
@@ -3739,10 +4242,9 @@ def _step_count(cfg, W: int, B: int, S: int) -> tuple:
     and Adam with the fastpath off."""
     from repro_torch.core import distributed as td
     from repro_torch.core.sparsify import SparsifierConfig
-    from repro_torch.launch import op_cost
+    from repro_torch.launch import dryrun, op_cost
     from repro_torch.models import get_family, input_specs
     from repro_torch.optim import OptConfig, make_optimizer
-    from repro_torch.tree import tree_leaves
 
     dist = td.DistConfig(
         sparsifier=SparsifierConfig(kind="regtopk", sparsity=FAMILY_SPARSITY),
@@ -3753,9 +4255,8 @@ def _step_count(cfg, W: int, B: int, S: int) -> tuple:
     sp = td.init_sparsifier_state(plan, W, "meta")
     batch = {k: torch.empty(s, dtype=d, device="meta")
              for k, (s, d) in input_specs(cfg, B, S).items()}
-    resident = sum(x.numel() * x.element_size()
-                   for x in tree_leaves([params, opt_state, sp, batch])
-                   if isinstance(x, torch.Tensor))
+    resident = sum(dryrun._tree_bytes(x)
+                   for x in (params, opt_state, sp, batch))
     cost = op_cost.analyze(td.make_train_step(cfg, dist, plan, W), params,
                            opt_state, sp, batch)
     return cost["flops"], resident + cost["peak_bytes"]

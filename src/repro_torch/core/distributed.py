@@ -38,7 +38,12 @@ the round runs per (worker, model shard), as the JAX runtime's
 own and gets its own ``k = sparsity_to_k(local_len, S)``, the state holds
 a row per (worker, shard), and ``sent_idx`` holds block-local indices. A
 leaf the divisibility guard leaves whole runs M equal rounds on the whole
-leaf. The forward, the parameters and Adam stay whole on every worker.
+leaf. On one card, and across ranks for a family whose forward is not
+sharded (``models.tensor_parallel``), the forward, the parameters and
+Adam stay whole on every worker. Across ranks for a family that shards
+it (the dense and VLM decoders), each rank holds, computes and updates
+its own block of every leaf the spec splits (tensor parallelism,
+:func:`make_train_step`).
 
 A partial-participation schedule (``DistConfig.participation``) draws
 one mask a round, shared by every leaf: participants aggregate with the
@@ -93,10 +98,11 @@ from repro_torch.core.selectors import sparsity_to_k
 from repro_torch.core.sparsify import SparsifierConfig
 from repro_torch.kernels.regtopk_score import const_div, ordered_mean
 from repro_torch.launch.mesh import DP_AXES, DpGroups, dp_axes_of
-from repro_torch.models import get_family
+from repro_torch.models import get_family, param_axes, tensor_parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn.layers import set_fp32_matmul
 from repro_torch.nn.sharding import tree_specs
+from repro_torch.nn.tensor_parallel import ModelShard, split_axes
 from repro_torch.optim import OptConfig, make_optimizer
 from repro_torch.tree import (
     tree_leaves,
@@ -288,8 +294,8 @@ class LeafPlan(NamedTuple):
 def split_dim(p: LeafPlan) -> Optional[int]:
     """The dim of the leaf that its model shards split, None for a leaf
     left whole. A spec that names a dp axis, or names an axis on two
-    dims, has no split here: the port keeps the parameters whole on every
-    worker and splits only the sparsify stage, over one model axis."""
+    dims, has no split here: the port splits a leaf's round (and, tensor
+    parallel, its parameters) along one dim over one model axis."""
     if p.spec is None or p.shards == 1:
         return None
     named = [(d, ax) for d, ax in enumerate(p.spec) if ax is not None]
@@ -715,6 +721,10 @@ def make_sparsify_aggregate(plan, dist: DistConfig, n_workers: int,
     ``dist.adaptive_k`` it is ``spa(grads, state, ctrl) -> (agg,
     new_state, new_ctrl)``.
 
+    A tensor-parallel rank's gradient of a split leaf is already its
+    block, ``[1, *local_shape]``: that is the round's row as it is, and
+    the aggregate stays the rank's block, gathered nowhere.
+
     A leaf of ``shards`` M > 1 (a plan built on a mesh with a model axis)
     runs one round per (worker, model shard), as the JAX runtime's
     ``shard_map`` does: each worker's gradient is split along the spec's
@@ -814,15 +824,19 @@ def make_sparsify_aggregate(plan, dist: DistConfig, n_workers: int,
                     ctx = part_ctx
                     if ctx is not None and S > 1:  # each row its worker's
                         ctx = (ctx[0].repeat_interleave(S), ctx[1])
+                    # a tensor-parallel rank's block of a split leaf
+                    block = tuple(g_flat[i].shape[1:]) != p.global_shape
                     rows, new = _spa_leaf(
-                        shard_blocks(g_flat[i], p,
-                                     None if mesh is None else mesh.shard),
+                        g_flat[i].reshape(1, p.local_len) if block
+                        else shard_blocks(g_flat[i], p,
+                                          None if mesh is None else mesh.shard),
                         s_flat[i], p, scfg, codecs[i], colls[i], coord,
                         counts, groups, ctx,
                         None if c_flat[i] is None else c_flat[i].k, S,
                     )
                     # the shards' rows are kept only for the controller
-                    outs[i] = (_merge_agg(rows, p, mesh), new,
+                    outs[i] = (rows[0].reshape(p.local_shape) if block
+                               else _merge_agg(rows, p, mesh), new,
                                None if ctrl_cfg is None else rows)
         agg = tree_unflatten(plan, [o[0] for o in outs])
         new_state = tree_unflatten(plan, [o[1] for o in outs])
@@ -964,19 +978,40 @@ def comm_round_timeline(plan, dist: DistConfig, workers,
     return bplan, overlap_lib.overlap_timeline(bplan, compute_seconds)
 
 
-def make_worker_grads(cfg: ModelConfig, dist: DistConfig):
+def model_shard(cfg: ModelConfig, plan, group, index: int
+                ) -> Optional[ModelShard]:
+    """Shard ``index``'s ``ModelShard`` over the model ``group`` (None on
+    the meta device: counted, not moved) when the trainer shards ``cfg``'s
+    forward: a plan of M > 1 model shards for a family of
+    ``models.tensor_parallel``. None otherwise: the forward stays whole.
+    Its split axes are those of the plan's specs."""
+    M = tree_leaves(plan)[0].shards
+    if M == 1 or not tensor_parallel(cfg):
+        return None
+    split = split_axes(param_axes(cfg), tree_map(lambda p: p.spec, plan))
+    if "kv_heads" in split and "heads" not in split:
+        raise ValueError("the kv heads are split over the model axis but the "
+                         "query heads are whole")
+    return ModelShard(group, index, M, split)
+
+
+def make_worker_grads(cfg: ModelConfig, dist: DistConfig,
+                      shard: Optional[ModelShard] = None):
     """``worker_grads(params, wbatch) -> (loss, gradient leaves)``: one
     worker's forward and backward on its shard, as the train step runs
-    it (under ``dist.microbatches``, accumulated in the state dtype)."""
+    it (under ``dist.microbatches``, accumulated in the state dtype).
+    Under a ``shard`` the params are the rank's blocks (tensor
+    parallelism), and so are the gradients."""
     n_mb = dist.microbatches
     if n_mb < 1:
         raise ValueError(f"microbatches must be >= 1, got {n_mb}")
     acc_dt = dist.resolved_state_dtype()
     loss_fn = get_family(cfg).loss_fn
+    kw = {} if shard is None else {"shard": shard}
 
     def value_and_grad(params, mbatch):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss = loss_fn(live, cfg, mbatch)[0]
+        loss = loss_fn(live, cfg, mbatch, **kw)[0]
         return loss.detach(), torch.autograd.grad(loss, tree_leaves(live))
 
     def worker_grads(params, wbatch):
@@ -1019,12 +1054,29 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
     the W losses are gathered in worker order, so the logged mean is the
     one-card mean. Matrix products run in full float32 (no TF32).
 
-    On a plan with a model axis (``shards`` M) the forward, the backward,
-    the parameters and Adam stay whole on every worker (every rank of a
-    model group); only the sparsify stage is split, one round per (worker,
-    shard) (:func:`make_sparsify_aggregate`), and Adam runs on the
+    On a plan with a model axis (``shards`` M) the sparsify stage runs
+    one round per (worker, shard) (:func:`make_sparsify_aggregate`). On
+    one card ``n_workers`` is W = devices / M, and the forward, the
+    backward, the parameters and Adam stay whole: Adam runs on the
     reassembled aggregate, which is the JAX package's sharded update
-    element by element. On one card ``n_workers`` is W = devices / M.
+    element by element.
+
+    Across the ranks of ``mesh`` with M > 1, for a family that shards its
+    forward (``models.tensor_parallel``: the dense and VLM decoders), the
+    step is tensor parallel: ``params`` and the optimizer state are this
+    rank's blocks (``nn.sharding.shard_params`` under the plan's specs,
+    a leaf the divisibility guard leaves whole whole on every rank), the
+    forward and backward run on them with the model group's collectives
+    (``nn.tensor_parallel``), each split leaf's gradient is its round's
+    row as it is and its aggregate stays local, Adam updates the local
+    blocks, and the clip's global norm sums the split leaves' squares over
+    the model group. The row-parallel sums are taken by ``all_reduce`` as
+    GSPMD takes them, so the result is the one-card run's to rounding, not
+    in bits; a whole leaf is equal in bits on the ranks of a model group.
+    For the other families only the sparsify stage is split across ranks:
+    every rank of a model group runs its worker's whole forward and
+    backward and holds the whole parameters and Adam state, and each split
+    leaf's aggregate is gathered over the model group.
 
     Under ``dist.microbatches`` each worker's shard splits into that many
     contiguous chunks, their gradients accumulated in
@@ -1038,7 +1090,10 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
     ``dist.overlap`` they gain ``"timeline"``, the ``[n_buckets, 2]`` f32
     (launch, complete) stamps of ``comm_round_timeline``."""
     set_fp32_matmul()
-    opt = make_optimizer(dist.optimizer)
+    shard = None if mesh is None else model_shard(
+        cfg, plan, mesh.model_group, mesh.shard)
+    opt = make_optimizer(dist.optimizer, split=None if shard is None else (
+        mesh.model_group, [split_dim(p) is not None for p in tree_leaves(plan)]))
     spa = make_sparsify_aggregate(plan, dist, n_workers, counts, mesh)
     adaptive = dist.resolved_adaptive_k() is not None
     W = n_workers
@@ -1053,7 +1108,7 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
     mine = range(W) if mesh is None else [mesh.rank]
 
     acc_dt = dist.resolved_state_dtype()
-    worker_grads = make_worker_grads(cfg, dist)
+    worker_grads = make_worker_grads(cfg, dist, shard)
 
     def train_step(params, opt_state, sp_state, batch: Dict[str, Any]):
         B = batch["tokens"].shape[0]

@@ -26,29 +26,39 @@ record has the JAX record's keys and the port's own:
   shards the forward, the parameters and Adam would hold. The port's
   dtypes differ from JAX's in two fields: the tokens and labels, and
   ``sent_idx``, are int64, not int32;
-* ``mem.peak_bytes``: the peak of one step as the port runs it today
-  (the forward is not sharded): what the rank holds before the step
-  (``rank_bytes``) and the most that the step's own tensors hold at once,
-  traced on the meta device. ``output_bytes`` and ``temp_bytes`` have no
-  counterpart and are null;
+* ``mem.peak_bytes``: the peak of one step as the port's trainer runs it
+  across ranks: what the rank holds before the step (``rank_bytes``) and
+  the most that the step's own tensors hold at once, traced on the meta
+  device. ``output_bytes`` and ``temp_bytes`` have no counterpart and
+  are null;
 * ``flops``, ``hbm_bytes``: ``op_cost.analyze`` of that step (one
-  worker's forward and backward at its rows, its round and Adam; or one
-  prefill or decode step). ``xla_flops_looponce`` is null;
+  worker's forward and backward at its rows, on the rank's blocks where
+  the trainer is tensor parallel, its round and Adam; or one prefill or
+  decode step). ``xla_flops_looponce`` is null;
 * ``collective_bytes``: what the step's collectives return on one rank
   of the sharded layout, from the plan: ``all-gather``, the payloads
   gathered over the dp axes (W x one payload per leaf under
   ``sparse_allgather``) and ZeRO-1's gather of each dp-sharded update in
   f32, and ``all-reduce``, the dense sums (``dense_allreduce``,
   ``hierarchical``'s inner stage) and the loss mean's 4 B: at M = 1 the
-  figures of JAX's walker. GSPMD's activation traffic at M > 1 has no
-  counterpart before the forward is sharded;
+  figures of JAX's walker. GSPMD's activation traffic at M > 1 is not in
+  it (the port's own is in ``rank_collective_bytes``);
 * ``rank_bytes``, ``rank_collective_bytes`` (the port's own): what one
-  rank of the port's trainer holds and moves today: the whole
-  parameters, one gradient in the state dtype, the whole Adam state, its
-  own (worker, shard) state rows and its worker's batch rows; the dp
-  payloads, every rank's 4 B loss gathered and ``all-gather:model``, the
-  model group's gather of each split leaf's aggregate (M > 1). For
-  serving, the whole parameters and the cache of the rank's batch rows;
+  rank of the port's trainer holds and moves: the parameters, one
+  gradient in the state dtype and the Adam state, its own (worker, shard)
+  state rows and its worker's batch rows; the dp payloads and every
+  rank's 4 B loss gathered. At M > 1 a dense or VLM decoder trains tensor
+  parallel (``core.distributed.make_train_step``): the parameters, the
+  gradient and Adam are the rank's blocks (ZeRO-1's dp split of the
+  moments is the JAX dry run's layout, not its trainer's, and the port
+  keeps the moments whole over dp), and ``all-reduce:model`` and
+  ``all-gather:model`` are the model group's activation all-reduces and
+  the logits' vocabulary gather, counted as the traced step issues them
+  (``nn.tensor_parallel``; remat's recompute included). The other
+  families hold the whole parameters and Adam state on every rank, and
+  ``all-gather:model`` is the model group's gather of each split leaf's
+  aggregate. For serving, the whole parameters and the cache of the
+  rank's batch rows;
 * ``fits``: whether ``peak_bytes`` fits one card's ``HBM_BYTES``.
 
 A combo that ``build_plan`` refuses (a block past the int32 wire's
@@ -76,7 +86,7 @@ from repro_torch.core.sparsify import SparsifierConfig
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import op_cost
 from repro_torch.models import get_family, input_specs, param_axes
-from repro_torch.nn.sharding import tree_specs
+from repro_torch.nn.sharding import shard_params, tree_specs
 from repro_torch.optim import OptConfig, make_optimizer
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -178,8 +188,11 @@ def _nbytes(shape, dtype: torch.dtype, spec=None,
 
 
 def _tree_bytes(tree) -> int:
-    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
-               if isinstance(x, torch.Tensor))
+    """Bytes of a tree's tensors, those of its ``CompactState`` leaves
+    (tuples of tensors) too."""
+    return sum(t.numel() * t.element_size() for x in tree_leaves(tree)
+               for t in (x if isinstance(x, tuple) else (x,))
+               if isinstance(t, torch.Tensor))
 
 
 def _meta_batch(specs) -> Dict[str, torch.Tensor]:
@@ -240,7 +253,16 @@ def train_layout(arch: str, shape_name: str, mesh_shape: Mapping[str, int],
         cfg = cfg.replace(attn_block=ATTN_BLOCK[arch])
     cfg = _apply_overrides(cfg)
     seq, global_batch, _ = cfglib.INPUT_SHAPES[shape_name]
-    dist = dist or arch_dist_config(arch, mesh)
+    return layout_of(cfg, dist or arch_dist_config(arch, mesh), mesh,
+                     global_batch, seq)
+
+
+def layout_of(cfg, dist: td.DistConfig, mesh_shape: Mapping[str, int],
+              global_batch: int, seq: int) -> TrainLayout:
+    """:func:`train_layout` of a given config, ``DistConfig`` and batch:
+    ``global_batch`` rows of ``seq`` tokens over the dp axes of
+    ``mesh_shape``."""
+    mesh = dict(mesh_shape)
     dp = tuple(dist.dp_axes)
     W = math.prod(mesh[a] for a in dp)
     rows = max(1, global_batch // W)
@@ -276,10 +298,12 @@ def train_layout(arch: str, shape_name: str, mesh_shape: Mapping[str, int],
                        argument_bytes)
 
 
-def train_collectives(lay: TrainLayout):
+def train_collectives(lay: TrainLayout, traffic=None):
     """``(collective_bytes, rank_collective_bytes)``: what one step's
     collectives return on one rank of the sharded layout and of the
-    port's trainer today (the module docstring)."""
+    port's trainer (the module docstring); ``traffic``, the model group's
+    activation collectives of a tensor-parallel step
+    (``ModelShard.traffic``), replaces the aggregates' gather."""
     dist, mesh = lay.dist, lay.mesh
     dp_sizes = [mesh[a] for a in dist.dp_axes]
     word = dist.resolved_state_dtype().itemsize
@@ -308,22 +332,29 @@ def train_collectives(lay: TrainLayout):
                "all-reduce": wire["all-reduce"] + 4}  # and the loss mean
     rank = {"all-gather": wire["all-gather"] + 4 * world,  # and the losses
             "all-reduce": wire["all-reduce"]}
-    if model:
+    if traffic is not None:
+        rank["all-reduce:model"] = float(traffic["all-reduce"])
+        rank["all-gather:model"] = float(traffic["all-gather"])
+    elif model:
         rank["all-gather:model"] = model
     for out in (sharded, rank):
         out["total"] = sum(out.values())
     return sharded, rank
 
 
-def _rank_step(lay: TrainLayout):
+def _rank_step(lay: TrainLayout, shard=None):
     """``step(params, opt_state, rows, batch)``: one rank's training step
     as the port's trainer runs it across ranks (``make_train_step(...,
-    mesh=)``), its collectives left out: the worker's gradient, the round
-    of the rank's (worker, shard) block with this rank's payload alone
-    (``_spa_leaf``), the split leaves' aggregates put back whole (the model
-    group's gather), and Adam on the whole parameters."""
+    mesh=)``), its dp collectives left out: the worker's gradient, the
+    round of the rank's (worker, shard) block with this rank's payload
+    alone (``_spa_leaf``), then Adam. Under a ``shard`` (a
+    ``ModelShard`` without a group, which counts the model group's
+    collectives) the params and Adam state are the rank's blocks, each
+    block's gradient its row and its aggregate local; otherwise the split
+    leaves' aggregates are put back whole (the model group's gather) and
+    Adam runs on the whole parameters."""
     dist, plan_flat = lay.dist, tree_leaves(lay.plan)
-    grads_fn = td.make_worker_grads(lay.cfg, dist)
+    grads_fn = td.make_worker_grads(lay.cfg, dist, shard)
     opt = make_optimizer(dist.optimizer)
     acc_dt = dist.resolved_state_dtype()
     scfg = dataclasses.replace(dist.sparsifier, omega=1.0 / lay.W)
@@ -335,10 +366,13 @@ def _rank_step(lay: TrainLayout):
         aggs, new_rows = [], []
         for g, st, p, (cname, sname) in zip(grads, tree_leaves(rows),
                                             plan_flat, wires, strict=True):
-            block = td.shard_blocks(g.to(acc_dt)[None], p, 0)
+            block = (g.to(acc_dt).reshape(1, p.local_len) if shard is not None
+                     else td.shard_blocks(g.to(acc_dt)[None], p, 0))
             agg, new = td._spa_leaf(block, st, p, scfg, get_codec(cname),
                                     get_collective(sname), coord, None)
-            if td.split_dim(p) is None:
+            if shard is not None:
+                aggs.append(agg[0].reshape(p.local_shape))
+            elif td.split_dim(p) is None:
                 aggs.append(agg[0].reshape(p.global_shape))
             else:
                 aggs.append(td.merge_blocks(agg.repeat(p.shards, 1), p)[0])
@@ -385,19 +419,43 @@ def count_train(arch: str, shape_name: str, mesh_shape: Mapping[str, int],
     t0 = time.perf_counter()
     lay = train_layout(arch, shape_name, mesh_shape, dist)
     lower_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c = count_layout(lay)
+    return _record(arch, shape_name, lay.mesh, "train", tag, lower_s, c["cost"],
+                   sum(lay.argument_bytes.values()), c["resident"],
+                   c["rank_bytes"], *c["collectives"], time.perf_counter() - t0)
+
+
+def count_layout(lay: TrainLayout) -> Dict[str, Any]:
+    """One rank's training step on ``lay`` traced on the meta device, as
+    the port's trainer runs it across ranks (tensor parallel where
+    ``core.distributed.model_shard`` says so): ``cost``
+    (``op_cost.analyze``), ``resident`` (the bytes the rank holds before
+    the step), ``rank_bytes`` (and one gradient) and ``collectives``
+    (``train_collectives``)."""
     rows = td.init_sparsifier_state(
         lay.plan, 1, "meta", lay.dist.resolved_state_dtype(), shards=1)
     batch = _meta_batch(input_specs(lay.cfg, lay.rows, lay.seq, kind="train"))
-    resident = (_tree_bytes(lay.params) + _tree_bytes(lay.opt_state)
+    params, opt_state = lay.params, lay.opt_state
+    shard = td.model_shard(lay.cfg, lay.plan, None, 0)
+    if shard is not None:  # the rank's blocks, as the trainer holds them
+        specs = tree_map(lambda p: p.spec, lay.plan)
+
+        def cut(tree):
+            return shard_params(tree, specs, 0, shard.size)
+
+        params = cut(params)
+        opt_state = {k: v if k == "step" else cut(v)
+                     for k, v in opt_state.items()}
+    resident = (_tree_bytes(params) + _tree_bytes(opt_state)
                 + _tree_bytes(rows) + _tree_bytes(batch))
-    grad = (sum(p.numel() for p in tree_leaves(lay.params))
+    grad = (sum(p.numel() for p in tree_leaves(params))
             * lay.dist.resolved_state_dtype().itemsize)
-    t0 = time.perf_counter()
-    cost = op_cost.analyze(_rank_step(lay), lay.params, lay.opt_state,
-                           rows, batch)
-    return _record(arch, shape_name, lay.mesh, "train", tag, lower_s, cost,
-                   sum(lay.argument_bytes.values()), resident, resident + grad,
-                   *train_collectives(lay), time.perf_counter() - t0)
+    cost = op_cost.analyze(_rank_step(lay, shard), params, opt_state, rows,
+                           batch)
+    return {"cost": cost, "resident": resident, "rank_bytes": resident + grad,
+            "collectives": train_collectives(
+                lay, None if shard is None else shard.traffic)}
 
 
 def serve_rules(cfg, M: int) -> Dict[str, Optional[str]]:

@@ -38,6 +38,7 @@ import itertools
 import math
 import multiprocessing
 import os
+import tempfile
 import time
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -46,6 +47,7 @@ import torch.distributed as dist
 
 DP_AXES = ("pod", "data")
 MODEL_AXIS = "model"
+ERROR_CHARS = 2000  # of each failed rank's exception, in spawn's error
 PRODUCTION = {False: {"data": 16, "model": 16},
               True: {"pod": 2, "data": 16, "model": 16}}
 
@@ -268,11 +270,18 @@ def init_file_store(store: str, rank: int, world: int, backend: str) -> None:
     )
 
 
-def _rank_main(fn: Callable, rank: int, world: int, args: tuple) -> None:
+def _rank_main(fn: Callable, rank: int, world: int, args: tuple,
+               errors: str) -> None:
     # the host's cores shared out, as torchrun's OMP_NUM_THREADS=1 does:
     # W ranks of all-core thread pools spin against each other
     torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // world))
-    fn(rank, world, *args)
+    try:
+        fn(rank, world, *args)
+    except Exception as e:  # the parent names it; the traceback still prints
+        text = f"{type(e).__name__}: {e}"
+        with open(os.path.join(errors, f"rank{rank}"), "w") as f:
+            f.write(text[:ERROR_CHARS])
+        raise
 
 
 def spawn(fn: Callable, world: int, args: tuple = (),
@@ -281,24 +290,40 @@ def spawn(fn: Callable, world: int, args: tuple = (),
     ``spawn`` start method, so ``fn`` is a module-level function), each
     with its share of the host's cores for its thread pool, and wait for
     all of them, at most ``timeout`` seconds in all. Raises if a rank
-    fails or is still running then; a rank still running is killed."""
+    fails or is still running then; a rank still running is killed. The
+    error names each failed rank's exception, so the rank whose fault made
+    its peers' collectives fail shows beside them."""
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main, args=(fn, r, world, args))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + timeout
-    try:
+    with tempfile.TemporaryDirectory() as errors:
+        procs = [ctx.Process(target=_rank_main,
+                             args=(fn, r, world, args, errors))
+                 for r in range(world)]
         for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()))
-    finally:
-        hung = [r for r, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(10)
+            p.start()
+        deadline = time.monotonic() + timeout
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        raised = {}
+        for r in range(world):
+            path = os.path.join(errors, f"rank{r}")
+            if os.path.exists(path):
+                with open(path) as f:
+                    raised[r] = f.read()
     if hung:
-        raise TimeoutError(f"ranks {hung} of {world} still ran after {timeout} s")
+        raise TimeoutError(f"ranks {hung} of {world} still ran after {timeout} s"
+                           + _raised(raised))
     failed = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
     if failed:
-        raise RuntimeError(f"ranks failed (rank: exit code): {failed}")
+        raise RuntimeError(f"ranks failed (rank: exit code): {failed}"
+                           + _raised(raised))
+
+
+def _raised(raised: Dict[int, str]) -> str:
+    return "".join(f"\n  rank {r} raised {text}" for r, text in raised.items())

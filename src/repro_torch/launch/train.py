@@ -28,6 +28,15 @@ model axis fastest):
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
         --smoke --steps 3 --device cpu
 
+With a model axis M > 1 across ranks, a dense or VLM decoder trains
+tensor parallel: each rank holds, computes and updates its model shard's
+block of every leaf that ``nn.sharding`` splits (``core.distributed.
+make_train_step``); the other families run a whole forward on every rank
+of a model group and split the sparsify stage alone. A line after the
+mesh's names the path the model axis takes. ``--checkpoint`` gathers
+each leaf whole before it writes and ``--resume`` cuts the blocks out
+again, so a checkpoint moves between ranks and one process either way.
+
 ``--device cuda`` puts rank r on ``cuda:LOCAL_RANK`` over ``nccl``; an
 explicit ``cuda:i`` is taken as given; ``--device cpu`` runs over
 ``gloo``. ``--backend gloo --device cuda:0`` is the explicit way to run
@@ -108,7 +117,9 @@ from repro_torch.core.distributed import (
     init_sparsifier_state,
     leaf_wire,
     make_train_step,
+    model_shard,
     plan_fastpath,
+    split_dim,
 )
 from repro_torch.core.sparsify import SparsifierConfig
 from repro_torch.data import TokenPipeline
@@ -122,6 +133,7 @@ from repro_torch.launch.mesh import (
     production_shape,
 )
 from repro_torch.models import get_family, param_axes
+from repro_torch.nn.sharding import shard_params, unshard_params
 from repro_torch.optim import OptConfig, make_optimizer
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -319,7 +331,9 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
 
     ``mesh`` (the dp process groups of an initialised process group)
     makes this rank one worker of W = ``mesh.size``: it returns the
-    common params and losses, and its own worker's state and counts.
+    common params and losses (the params and optimizer state whole, also
+    where the rank trained its blocks of them), and its own worker's
+    state and counts.
     Under ``--fastpath auto`` rank 0's table (``ThroughputTable.measure``
     on the card when none is given) is broadcast, and ``--calibrate`` and
     ``--replan-every`` fit rank 0's samples, so every rank builds one
@@ -385,6 +399,11 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
     params = get_family(cfg).init(cfg, seed=0, device=args.device)
     plan = build_plan(params, dist.sparsifier.sparsity, dist, table, dp_sizes,
                       axes=param_axes(cfg), mesh=shape)
+    shard = None if mesh is None else model_shard(cfg, plan, mesh.model_group,
+                                                  mesh.shard)
+    M = tree_leaves(plan)[0].shards
+    if M > 1:
+        say(_model_axis_line(cfg, plan, mesh, shard))
     counts = FastpathCounts()
     step_fn = make_train_step(cfg, dist, plan, W, counts, mesh)
     opt_state = make_optimizer(dist.optimizer).init(params)
@@ -399,6 +418,13 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
         params, opt_state, sp_state, start = _resume(
             args.resume, params, opt_state, sp_state, plan, W, mesh)
         say(f"resumed from step {start}")
+    if shard is not None:  # the rank's blocks; the whole trees let go
+        specs = tree_map(lambda p: p.spec, plan)
+
+        def cut(tree):
+            return shard_params(tree, specs, mesh.shard, M)
+
+        params, opt_state = cut(params), _moments(opt_state, cut)
     pipe = TokenPipeline(cfg, args.global_batch, args.seq, 0, args.device)
     pred_b, meas_b = comm_round_bytes(plan, dist, dp_sizes)
     round_cost = comm_round_cost(plan, dist, dp_sizes)
@@ -472,10 +498,40 @@ def run(args: argparse.Namespace, dist: Optional[DistConfig] = None,
         say(f"fastpath: certificate hit rate {counts.hit_rate:.4f} "
             f"({counts.rounds - counts.fallbacks}/{counts.rounds} "
             "worker-leaf rounds used the kernel's answer)")
+    if shard is not None:  # whole again, on every rank of the model group
+        specs = tree_map(lambda p: p.spec, plan)
+
+        def whole(tree):
+            return unshard_params(tree, specs, mesh.model_group, M)
+
+        params, opt_state = whole(params), _moments(opt_state, whole)
     if args.checkpoint:
         _save(args.checkpoint, params, opt_state, sp_state, plan, end, mesh)
         say(f"checkpointed to {args.checkpoint}")
     return RunResult(losses, params, sp_state, counts, plan, dist, opt_state)
+
+
+def _model_axis_line(cfg, plan, mesh: Optional[DpGroups], shard) -> str:
+    """The line that names the path the model axis of M > 1 takes."""
+    leaves = tree_leaves(plan)
+    M, n_split = leaves[0].shards, sum(split_dim(p) is not None for p in leaves)
+    blocks = f"{n_split}/{len(leaves)} leaves split"
+    if mesh is None:
+        return (f"model axis: {M} shards on one card — one round per (worker, "
+                f"shard), {blocks}; the forward, params and Adam whole")
+    if shard is None:
+        return (f"model axis: {M} ranks split the sparsify stage, {blocks}; "
+                f"the {cfg.family} family's forward, params and Adam whole "
+                "on every rank")
+    return (f"model axis: tensor parallel over {M} ranks — params, forward, "
+            f"backward and Adam sharded, {blocks} (axes "
+            f"{', '.join(sorted(shard.split)) or 'none'})")
+
+
+def _moments(opt_state, fn):
+    """``opt_state`` with ``fn`` applied to each of its parameter-shaped
+    trees (Adam's ``m`` and ``v``, the momentum); the step stays."""
+    return {k: v if k == "step" else fn(v) for k, v in opt_state.items()}
 
 
 def _all_workers(sp_state, mesh: Optional[DpGroups]):

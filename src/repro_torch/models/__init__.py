@@ -5,7 +5,8 @@ from repro_torch.models.registry import (
     input_specs,
     make_batch,
     param_axes,
+    tensor_parallel,
 )
 
 __all__ = ["ModelConfig", "encdec", "get_family", "input_specs", "lm",
-           "make_batch", "param_axes", "ssm"]
+           "make_batch", "param_axes", "ssm", "tensor_parallel"]

@@ -21,6 +21,18 @@ lets the port be held against the JAX package leaf for leaf.
 (``torch.utils.checkpoint``), which keeps the values and frees the
 activations inside the blocks.
 
+Tensor parallelism (the families of ``TENSOR_PARALLEL``): ``loss_fn``,
+``forward`` and the blocks take a ``shard`` (``nn.tensor_parallel.
+ModelShard``) when the trainer's rank holds its model shard's block of
+each leaf that ``nn.sharding`` splits over the model axis. Each layer
+reads from the shard whether its own logical axis is split (the query
+heads, the kv heads, the MLP's columns, the vocabulary rows), so the
+divisibility guard decides leaf by leaf: qwen2.5-3b at M = 4 splits its
+16 query heads and keeps its 2 kv heads whole. The vision projection
+and the norms stay whole. The vocabulary-parallel logits are gathered
+over the model group before the loss, whose padding rows are masked by
+their global index as before.
+
 Serving: ``forward(mode="chunked")`` (``prefill``) runs the online-softmax
 attention over KV blocks of ``attn_block`` keys; ``init_cache`` and
 ``decode_step`` run one token at a time against a KV cache
@@ -43,6 +55,10 @@ from repro_torch.nn import moe as M
 from repro_torch.nn.sharding import prefix_axes
 
 Params = Dict[str, Any]
+
+# the families of this module whose forward the trainer shards over the
+# model axis; the MoE family keeps a whole forward
+TENSOR_PARALLEL = frozenset({"dense", "vlm"})
 
 
 def _norm(cfg: ModelConfig):
@@ -154,17 +170,18 @@ def _unstack(params_layers: Params, n: int):
 
 def _block(
     lp: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-    mode: str = "dense",
+    mode: str = "dense", shard=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder block: ``(x, aux)``, aux 0 outside the MoE family.
-    ``mode`` is the attention: "dense" or "chunked"."""
+    ``mode`` is the attention: "dense" or "chunked"; ``shard`` the
+    rank's model shard (module docstring)."""
     _, norm = _norm(cfg)
     h = norm(lp["norm1"], x)
-    q, k, v = L.attn_qkv(lp["attn"], h)
+    q, k, v = L.attn_qkv(lp["attn"], h, shard=shard)
     q = L.rope(q, positions, base=cfg.rope_base, fraction=cfg.rope_fraction)
     k = L.rope(k, positions, base=cfg.rope_base, fraction=cfg.rope_fraction)
     ctx = attend(q, k, v, cfg, mode, causal=True, window=cfg.sliding_window)
-    x = x + L.attn_out(lp["attn"], ctx)
+    x = x + L.attn_out(lp["attn"], ctx, shard=shard)
     h = norm(lp["norm2"], x)
     if cfg.is_moe:
         y, aux = M.moe_apply(
@@ -173,7 +190,7 @@ def _block(
             group_size=cfg.moe_group_size, dispatch=cfg.moe_dispatch,
         )
     else:
-        y = L.mlp(lp["mlp"], h, act=cfg.act)
+        y = L.mlp(lp["mlp"], h, act=cfg.act, shard=shard)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, aux
 
@@ -199,23 +216,25 @@ def run_block(block, *args, remat: bool):
 
 
 def _stack(params_layers: Params, x: torch.Tensor, cfg: ModelConfig,
-           positions: torch.Tensor, mode: str = "dense"
+           positions: torch.Tensor, mode: str = "dense", shard=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The blocks in layer order; the aux losses summed in layer order
     and divided by the layer count as the jitted scan does
     (``const_div``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unstack(params_layers, cfg.n_layers):
-        x, a = run_block(_block, lp, x, cfg, positions, mode, remat=cfg.remat)
+        x, a = run_block(_block, lp, x, cfg, positions, mode, shard,
+                         remat=cfg.remat)
         aux = aux + a
     return x, const_div(aux, float(cfg.n_layers))
 
 
-def _embed_inputs(params: Params, cfg: ModelConfig, batch
+def _embed_inputs(params: Params, cfg: ModelConfig, batch, shard=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(x [B, S', E], positions [S'])``: the token embeddings, behind
-    the projected patch prefix for the VLM family."""
-    x = L.embed(params["embed"], batch["tokens"], cfg.torch_dtype)
+    the projected patch prefix for the VLM family (its projection whole
+    on every rank of a model group)."""
+    x = L.embed(params["embed"], batch["tokens"], cfg.torch_dtype, shard)
     if cfg.family == "vlm":
         vis = L.linear(params["vision_proj"],
                        batch["patches"].to(cfg.torch_dtype))
@@ -223,18 +242,18 @@ def _embed_inputs(params: Params, cfg: ModelConfig, batch
     return x, torch.arange(x.shape[1], device=x.device)
 
 
-def forward(params: Params, cfg: ModelConfig, batch, *, mode: str = "dense"
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Params, cfg: ModelConfig, batch, *, mode: str = "dense",
+            shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(logits [B, S, padded_vocab], aux)`` over the token positions
     (the VLM prefix stripped); ``mode`` is the attention, "dense" or
-    "chunked"."""
-    x, positions = _embed_inputs(params, cfg, batch)
-    x, aux = _stack(params["layers"], x, cfg, positions, mode)
+    "chunked"; under ``shard`` the rank's blocks, the logits whole."""
+    x, positions = _embed_inputs(params, cfg, batch, shard)
+    x, aux = _stack(params["layers"], x, cfg, positions, mode, shard)
     _, norm = _norm(cfg)
     x = norm(params["final_norm"], x)
     if cfg.family == "vlm":
         x = x[:, -batch["tokens"].shape[1]:]
-    return L.unembed(params["embed"], x), aux
+    return L.unembed(params["embed"], x, shard), aux
 
 
 def mask_pad_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -245,11 +264,13 @@ def mask_pad_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return logits.masked_fill(bad, L.NEG_INF)
 
 
-def loss_fn(params: Params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
+def loss_fn(params: Params, cfg: ModelConfig, batch, shard=None
+            ) -> Tuple[torch.Tensor, Dict]:
     """Mean next-token cross-entropy plus ``aux_loss_coef`` times the
     layers' mean aux loss (0 outside the MoE family); metrics ``{"nll",
-    "aux"}``."""
-    logits, aux = forward(params, cfg, batch)
+    "aux"}``. ``shard``: the rank's model shard, for a family of
+    ``TENSOR_PARALLEL`` (module docstring)."""
+    logits, aux = forward(params, cfg, batch, shard=shard)
     nll = token_nll(logits, cfg, batch["labels"])
     return total_loss(nll, aux, cfg.aux_loss_coef), {"nll": nll, "aux": aux}
 

@@ -41,6 +41,14 @@ def get_family(cfg: ModelConfig) -> ModuleType:
         ) from None
 
 
+def tensor_parallel(cfg: ModelConfig) -> bool:
+    """Whether the trainer shards ``cfg``'s forward, parameters and Adam
+    over the model axis: its family module lists the family in its
+    ``TENSOR_PARALLEL`` (a family without it keeps a whole forward, and
+    the model axis splits its sparsify stage alone)."""
+    return cfg.family in getattr(get_family(cfg), "TENSOR_PARALLEL", ())
+
+
 def param_axes(cfg: ModelConfig) -> Dict:
     """The logical axes of ``cfg``'s parameter tree, nothing drawn: the
     tree ``repro.core.distributed.shapes_and_axes`` gives the JAX

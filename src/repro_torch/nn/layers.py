@@ -8,6 +8,14 @@ heads ``[B, S, H, Dh]``. Every ``*_init`` draws from an explicit CPU
 the same weights on any device. Beside each ``*_init``, a ``*_axes``
 returns the logical axes that the JAX ``*_init`` returns with its
 parameters (``nn.sharding`` resolves them on a mesh).
+
+The attention projections, the MLP, the embedding and the unembedding
+take an optional ``shard`` (a ``tensor_parallel.ModelShard``): where it
+splits the function's logical axis (``"heads"``, ``"mlp"``, ``"vocab"``),
+the function's leaves are this rank's blocks and it enters and leaves
+the model group around its product (``nn.tensor_parallel``), as GSPMD
+partitions the JAX forward. Without one, or where its axis stays whole,
+the function is the one-process function.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.regtopk_score import const_div
+from repro_torch.nn import tensor_parallel as TP
 
 Params = Dict[str, torch.Tensor]
 
@@ -37,7 +46,9 @@ def _normal(gen: torch.Generator, shape, scale: float, device,
     ``device``; on the ``meta`` device only the shape (nothing drawn)."""
     if torch.device(device).type == "meta":
         return torch.empty(shape, dtype=dtype, device="meta")
-    return (scale * torch.randn(shape, generator=gen)).to(device, dtype)
+    # scaled in place: the same bits as ``scale * x``, a pass and an
+    # allocation fewer (a whole model's draws are host-bound)
+    return torch.randn(shape, generator=gen).mul_(scale).to(device, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -146,9 +157,17 @@ def attn_scale(x: torch.Tensor, head_dim: int) -> torch.Tensor:
     return const_div(x, head_dim**0.5)
 
 
-def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """GQA: repeat kv heads to match query heads. k: [B, S, Kh, Dh]."""
+def _expand_kv(k: torch.Tensor, n_heads: int, first: int = 0,
+               group: Optional[int] = None) -> torch.Tensor:
+    """GQA: repeat kv heads to match query heads. k: [B, S, Kh, Dh].
+    Given ``group`` (query heads per kv head over the whole model), the
+    ``n_heads`` query heads are global heads ``first ...`` of a rank's
+    block, each reading kv head ``(first + j) // group`` of the whole
+    ``k``: GQA groups by the global head index."""
     kh = k.shape[-2]
+    if group is not None:
+        idx = (first + torch.arange(n_heads, device=k.device)) // group
+        return k.index_select(-2, idx)
     if kh == n_heads:
         return k
     return torch.repeat_interleave(k, n_heads // kh, dim=-2)
@@ -320,22 +339,48 @@ def attn_axes(*, qkv_bias: bool = False) -> Dict[str, tuple]:
     return a
 
 
-def attn_qkv(p: Params, x: torch.Tensor, xkv: Optional[torch.Tensor] = None):
+def _project(p: Params, x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` through ``w<name>``, plus ``b<name>`` where there is one."""
+    y = torch.einsum("bse,ehd->bshd", x, p[f"w{name}"].to(x.dtype))
+    if f"b{name}" in p:
+        y = y + p[f"b{name}"].to(x.dtype)
+    return y
+
+
+def attn_qkv(p: Params, x: torch.Tensor, xkv: Optional[torch.Tensor] = None,
+             shard: Optional[TP.ModelShard] = None):
     """Project to q, k, v. ``xkv`` (if given) is the cross-attention
-    source of k and v."""
+    source of k and v.
+
+    Under a ``shard`` that splits ``"heads"``, ``wq`` is the rank's block
+    of query heads and ``x`` enters the model group. Where ``"kv_heads"``
+    is split too, ``wk`` and ``wv`` are the rank's kv heads, whose GQA
+    groups are its query heads. Where they stay whole, k and v are
+    computed whole from ``x`` and enter the group, and each of the rank's
+    query heads takes the kv head of its global index (``_expand_kv``),
+    so k and v come back with one head per query head."""
     src = x if xkv is None else xkv
-    q = torch.einsum("bse,ehd->bshd", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bse,ehd->bshd", src, p["wk"].to(x.dtype))
-    v = torch.einsum("bse,ehd->bshd", src, p["wv"].to(x.dtype))
-    if "bq" in p:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+    if shard is None or not shard.splits("heads"):
+        return _project(p, x, "q"), _project(p, src, "k"), _project(p, src, "v")
+    q = _project(p, TP.enter(x, shard), "q")
+    if shard.splits("kv_heads"):
+        src = TP.enter(src, shard)
+        return q, _project(p, src, "k"), _project(p, src, "v")
+    heads, kv = q.shape[-2], p["wk"].shape[-2]
+    group = heads * shard.size // kv
+    k, v = (_expand_kv(TP.enter(_project(p, src, n), shard), heads,
+                       shard.index * heads, group) for n in "kv")
     return q, k, v
 
 
-def attn_out(p: Params, ctx: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshd,hde->bse", ctx, p["wo"].to(ctx.dtype))
+def attn_out(p: Params, ctx: torch.Tensor,
+             shard: Optional[TP.ModelShard] = None) -> torch.Tensor:
+    """The output projection; over the rank's heads under a ``shard``
+    that splits ``"heads"``, summed over the model group."""
+    y = torch.einsum("bshd,hde->bse", ctx, p["wo"].to(ctx.dtype))
+    if shard is not None and shard.splits("heads"):
+        return TP.leave(y, shard)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -364,9 +409,16 @@ def mlp_axes(*, act: str = "swiglu") -> Dict[str, tuple]:
     return a
 
 
-def mlp(p: Params, x: torch.Tensor, *, act: str = "swiglu") -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, *, act: str = "swiglu",
+        shard: Optional[TP.ModelShard] = None) -> torch.Tensor:
     """``act="gelu"`` is the tanh approximation, ``jax.nn.gelu``'s default
-    (``torch.nn.functional.gelu`` defaults to the erf form)."""
+    (``torch.nn.functional.gelu`` defaults to the erf form). Under a
+    ``shard`` that splits ``"mlp"``, the weights are the rank's columns
+    in and rows out: ``x`` enters the model group and the down
+    projection's partial sums leave it."""
+    tp = shard is not None and shard.splits("mlp")
+    if tp:
+        x = TP.enter(x, shard)
     if act == "swiglu":
         h = torch.nn.functional.silu(x @ p["wg"].to(x.dtype)) * (
             x @ p["wu"].to(x.dtype)
@@ -374,7 +426,8 @@ def mlp(p: Params, x: torch.Tensor, *, act: str = "swiglu") -> torch.Tensor:
     else:
         h = torch.nn.functional.gelu(x @ p["wu"].to(x.dtype),
                                      approximate="tanh")
-    return h @ p["wd"].to(x.dtype)
+    y = h @ p["wd"].to(x.dtype)
+    return TP.leave(y, shard) if tp else y
 
 
 # ---------------------------------------------------------------------------
@@ -391,12 +444,29 @@ def embed_axes() -> Dict[str, tuple]:
     return {"embedding": ("vocab", "embed")}
 
 
-def embed(p: Params, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
+def embed(p: Params, tokens: torch.Tensor, dtype=None,
+          shard: Optional[TP.ModelShard] = None) -> torch.Tensor:
+    """The tokens' rows. Under a ``shard`` that splits ``"vocab"`` the
+    table is the rank's block of rows: a token outside it looks up zeros,
+    and the sum over the model group is every token's row, in bits."""
     e = p["embedding"]
     if dtype is not None:
         e = e.to(dtype)
-    return e[tokens]
+    if shard is None or not shard.splits("vocab"):
+        return e[tokens]
+    local = tokens - shard.index * e.shape[0]
+    mine = (local >= 0) & (local < e.shape[0])
+    rows = e[torch.where(mine, local, 0)]
+    return TP.leave(torch.where(mine[..., None], rows, 0.0), shard)
 
 
-def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bse,ve->bsv", x, p["embedding"].to(x.dtype))
+def unembed(p: Params, x: torch.Tensor,
+            shard: Optional[TP.ModelShard] = None) -> torch.Tensor:
+    """The logits over the (padded) vocabulary; under a ``shard`` that
+    splits ``"vocab"``, the rank's block of them gathered over the model
+    group in vocabulary order."""
+    if shard is None or not shard.splits("vocab"):
+        return torch.einsum("bse,ve->bsv", x, p["embedding"].to(x.dtype))
+    logits = torch.einsum("bse,ve->bsv", TP.enter(x, shard),
+                          p["embedding"].to(x.dtype))
+    return TP.gather_last(logits, shard)

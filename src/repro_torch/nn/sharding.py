@@ -14,16 +14,25 @@ The mesh is a plain ``{axis name: size}`` mapping (``launch.mesh``'s
 tuple with one entry per dim: a mesh axis name, a tuple of names (the dp
 axes, for ``"__dp__"``), or None. It stands in for ``PartitionSpec``.
 ``repro.nn.sharding.tree_shardings`` has no counterpart: it builds
-``NamedSharding``s, and the port places nothing by spec (the trainer
-splits each gradient into its shards itself, ``core.distributed``).
+``NamedSharding``s, and the port places nothing by spec. A rank of a
+model group holds its own block of each leaf a spec splits over
+``model`` instead: :func:`shard_params` cuts the blocks out of a whole
+tree (the port's seeded init, or weights carried across from JAX by
+``convert``), and :func:`unshard_params` puts them back together over the
+model group. The block is the contiguous slice along the split dim,
+which flattens row-major exactly as ``core.distributed.shard_blocks``
+flattens a shard's block, so a rank's gradient is its round's row.
 """
 from __future__ import annotations
 
 from typing import Dict, Mapping, Optional, Tuple
 
+import torch
+
 from repro_torch.tree import tree_map
 
 Spec = Tuple[object, ...]
+MODEL_AXIS = "model"
 
 # default logical → mesh-axis rules; batch-like axes go to data parallel.
 DEFAULT_RULES: Dict[str, Optional[str]] = {
@@ -117,3 +126,61 @@ def prefix_axes(axes: object, name: str = "layers"):
     {'w': ('layers', 'embed', 'mlp')}
     """
     return tree_map(lambda ax: (name,) + tuple(ax), axes)
+
+
+def model_dim(spec: Spec) -> Optional[int]:
+    """The dim that ``spec`` splits over the model axis, None for a leaf
+    whole on every rank of a model group; a leaf split over the model
+    axis on two dims, or with another axis, raises.
+
+    >>> model_dim((None, "model")), model_dim((None, None))
+    (1, None)
+    """
+    named = [(d, ax) for d, ax in enumerate(spec) if ax is not None]
+    dims = [d for d, ax in named if ax == MODEL_AXIS]
+    if not dims:
+        return None
+    if len(named) > 1:
+        raise ValueError(f"spec {spec}: a rank's block is split along one "
+                         "dim, over the model axis alone")
+    return dims[0]
+
+
+def shard_params(params, specs, shard: int, M: int):
+    """Model shard ``shard``'s block of every leaf of ``params`` (whole
+    leaves) that ``specs`` splits over a model axis of ``M``: the
+    contiguous slice ``shard`` of ``M`` along the split dim, in its own
+    storage (so the whole tree can be let go); a whole leaf stays as it
+    is.
+
+    >>> x = torch.arange(8.).reshape(2, 4)
+    >>> shard_params({"w": x}, {"w": (None, "model")}, 1, 2)["w"].tolist()
+    [[2.0, 3.0], [6.0, 7.0]]
+    """
+
+    def one(x, spec):
+        d = model_dim(spec)
+        if d is None or M == 1:
+            return x
+        n = x.shape[d] // M
+        return x.narrow(d, shard * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+    return tree_map(one, params, specs)
+
+
+def unshard_params(params, specs, group, M: int):
+    """:func:`shard_params` undone across the ranks of a model ``group``
+    of ``M``: each split leaf's blocks gathered in shard order and
+    concatenated along its split dim, on every rank, in bits; a whole
+    leaf stays as it is."""
+    from repro_torch.comm.collectives import _gather
+
+    def one(x, spec):
+        d = model_dim(spec)
+        if d is None or M == 1:
+            return x
+        parts = _gather(x[None], (group,))
+        return torch.cat(parts.unbind(0), dim=d)
+
+    return tree_map(one, params, specs)

@@ -13,6 +13,13 @@ the learning rate up linearly over ``warmup_steps``; Adam alone applies
 ``weight_decay`` (decoupled, ``lr * wd * p``) and keeps its moments in
 ``moment_dtype``.
 
+On a rank that holds its model shard's block of some leaves (tensor
+parallelism, ``core.distributed``), every update is elementwise, so it
+runs on the blocks as they are and equals the JAX package's sharded
+update element by element; only the clip's norm needs the whole tree:
+``make_optimizer(cfg, split=(group, flags))`` sums the squares of the
+flagged leaves over the model ``group`` and counts each whole leaf once.
+
 The arithmetic is the jitted JAX update's, rounding for rounding:
 
 * the warmup's ``(step + 1) / warmup_steps`` divides by a constant, so it
@@ -81,14 +88,25 @@ def _lr_at(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return lr
 
 
-def _clip(grads, max_norm: Optional[float]):
+def _clip(grads, max_norm: Optional[float], split=None):
     """``grads`` scaled by ``min(1, max_norm / max(||grads||, 1e-9))``,
-    the global f32 norm summed leaf by leaf in tree order."""
+    the global f32 norm summed leaf by leaf in tree order. ``split``
+    ``(group, flags)`` flags, in tree order, the leaves that are this
+    rank's blocks: their sums of squares are summed over the model
+    ``group`` (one all-reduce), a whole leaf's taken once."""
     if max_norm is None:
         return grads
+    sums = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
+    if split is not None:
+        from repro_torch.comm.collectives import _psum
+
+        group, flags = split
+        local = torch.stack(sums)
+        mine = torch.tensor(flags, device=local.device)
+        total = _psum(torch.where(mine, local, 0.0), (group,))
+        sums = torch.where(mine, total, local).unbind(0)
     sq = None
-    for g in tree_leaves(grads):
-        s = torch.sum(torch.square(g.float()))
+    for s in sums:
         sq = s if sq is None else sq + s
     gn = torch.sqrt(sq)
     scale = torch.clamp(
@@ -101,13 +119,13 @@ def _step0(params) -> torch.Tensor:
                        device=tree_leaves(params)[0].device)
 
 
-def sgd(cfg: OptConfig) -> Optimizer:
+def sgd(cfg: OptConfig, split=None) -> Optimizer:
     def init(params):
         return {"step": _step0(params)}
 
     @torch.no_grad()
     def update(grads, state, params):
-        grads = _clip(grads, cfg.grad_clip)
+        grads = _clip(grads, cfg.grad_clip, split)
         lr = _lr_at(cfg, state["step"])
         new_params = tree_map(lambda p, g: _fma(-lr, g.float(), p), params, grads)
         return new_params, {"step": state["step"] + 1}
@@ -115,7 +133,7 @@ def sgd(cfg: OptConfig) -> Optimizer:
     return Optimizer(init, update)
 
 
-def sgd_momentum(cfg: OptConfig) -> Optimizer:
+def sgd_momentum(cfg: OptConfig, split=None) -> Optimizer:
     def init(params):
         return {"step": _step0(params),
                 "mom": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
@@ -123,7 +141,7 @@ def sgd_momentum(cfg: OptConfig) -> Optimizer:
 
     @torch.no_grad()
     def update(grads, state, params):
-        grads = _clip(grads, cfg.grad_clip)
+        grads = _clip(grads, cfg.grad_clip, split)
         lr = _lr_at(cfg, state["step"])
         mom = tree_map(lambda m, g: _fma(m, cfg.momentum, g.float()),
                        state["mom"], grads)
@@ -146,7 +164,7 @@ def _moment(prev: torch.Tensor, beta: float, x: torch.Tensor) -> torch.Tensor:
     return _fma(x, 1 - beta, beta * prev.float()).to(prev.dtype)
 
 
-def adam(cfg: OptConfig) -> Optimizer:
+def adam(cfg: OptConfig, split=None) -> Optimizer:
     # any name but "bfloat16" keeps f32 moments, as in the JAX package
     mdt = _MOMENT_DTYPES.get(cfg.moment_dtype, torch.float32)
 
@@ -159,7 +177,7 @@ def adam(cfg: OptConfig) -> Optimizer:
 
     @torch.no_grad()
     def update(grads, state, params):
-        grads = _clip(grads, cfg.grad_clip)
+        grads = _clip(grads, cfg.grad_clip, split)
         step = state["step"] + 1
         stepf = step.float()
         lr = _lr_at(cfg, state["step"])
@@ -187,9 +205,11 @@ def adam(cfg: OptConfig) -> Optimizer:
 _KINDS = {"sgd": sgd, "momentum": sgd_momentum, "adam": adam}
 
 
-def make_optimizer(cfg: OptConfig) -> Optimizer:
+def make_optimizer(cfg: OptConfig, split=None) -> Optimizer:
+    """The optimizer of ``cfg.kind``; ``split`` ``(model group, flags in
+    tree order)`` on a rank that holds blocks of the flagged leaves."""
     try:
-        return _KINDS[cfg.kind](cfg)
+        return _KINDS[cfg.kind](cfg, split)
     except KeyError:
         raise ValueError(
             f"unknown optimizer {cfg.kind!r}; available: {sorted(_KINDS)}"

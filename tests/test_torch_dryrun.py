@@ -116,11 +116,53 @@ def test_arguments_match_jax_with_a_model_axis(jax_runs, monkeypatch):
     assert lay.W == 4 and lay.rows == 64
     assert rec["mem"]["argument_bytes"] - int64_extra(lay) == (
         jax_runs[CASES[1]]["argument_bytes"])
-    # the model axis of 2 splits the sparsify stage only: its rank holds
-    # the whole parameters and Adam state and gathers the split leaves'
-    # aggregates
+    # the model axis of 2 shards the dense decoder's forward, params and
+    # Adam (tensor parallelism): the rank holds its blocks, with Adam's
+    # moments whole over dp where ZeRO-1 splits JAX's; the model group
+    # all-reduces activations and gathers the logits, and no aggregate
+    # is gathered
+    from repro_torch.models import lm
+    from repro_torch.nn.sharding import shard_params
+    from repro_torch.tree import tree_map
+
+    specs = tree_map(lambda p: p.spec, lay.plan)
+    local = shard_params(lay.params, specs, 0, 2)
+    # bf16 params, f32 moments and an f32 gradient an element
+    per = 2 + 4 + 4 + 4
+    n_local = sum(x.numel() for x in tree_leaves(local))
+    n_whole = sum(x.numel() for x in tree_leaves(lay.params))
+    assert (lay.cfg.dtype, lay.dist.optimizer.moment_dtype,
+            lay.dist.state_dtype) == ("bfloat16", "float32", "float32")
     assert rec["rank_bytes"] > rec["mem"]["argument_bytes"]
-    assert rec["rank_collective_bytes"]["all-gather:model"] > 0
+    assert rec["rank_bytes"] - per * n_local == (  # and Adam's step
+        dryrun._tree_bytes(input_specs_batch(lay)) + rows_bytes(lay) + 4)
+    coll = rec["rank_collective_bytes"]
+    assert coll["all-reduce:model"] > 0 and coll["all-gather:model"] > 0
+    # the peak is the sharded trainer's: below the whole forward's, which
+    # a family without tensor parallelism would run at this layout
+    monkeypatch.setattr(lm, "TENSOR_PARALLEL", frozenset())
+    whole, _ = port_case(monkeypatch, CASES[1])
+    assert "all-reduce:model" not in whole["rank_collective_bytes"]
+    assert whole["rank_bytes"] - rec["rank_bytes"] == per * (n_whole - n_local)
+    assert rec["mem"]["peak_bytes"] < whole["mem"]["peak_bytes"]
+    assert rec["flops"] < whole["flops"]
+
+
+def input_specs_batch(lay):
+    """A worker's batch rows on the meta device, as the dry run counts
+    them."""
+    from repro_torch.models import input_specs
+
+    return dryrun._meta_batch(input_specs(lay.cfg, lay.rows, lay.seq,
+                                          kind="train"))
+
+
+def rows_bytes(lay) -> int:
+    """The rank's own (worker, shard) sparsifier-state rows."""
+    from repro_torch.core import distributed as td
+
+    return dryrun._tree_bytes(td.init_sparsifier_state(
+        lay.plan, 1, "meta", lay.dist.resolved_state_dtype(), shards=1))
 
 
 @pytest.mark.parametrize("case", CASES[2:], ids=["prefill_32k", "decode_32k"])

@@ -21,16 +21,25 @@ The port runs each case from the JAX weights on one card (``mesh=None``:
 W = devices / M workers, W x M rows a leaf; the dense case with the
 fastpath off and on, which must agree in f32 bits) and across 4 gloo
 ranks (one spawn, a file store under ``tmp_path``, every wait <= 120 s;
-``launch.mesh.make_host_groups(model=M)``). Each must match the JAX run:
+``launch.mesh.make_host_groups(model=M)``). Across the ranks the dense
+cases are tensor parallel: each rank holds, computes and updates its
+blocks of the split leaves (``nn.sharding.shard_params``), as GSPMD
+partitions the JAX trainer; the MoE and SSM cases run a whole forward on
+every rank and split the sparsify stage alone. Each must match the JAX
+run:
 losses and parameters to rtol 1e-5 with a floor of 1e-5 of a leaf's
 largest magnitude, ``eps`` the same (1e-4 on the SSD's ``A_log`` and
 ``dt_bias``, whose gradients agree to that at one shard already,
 ``tests/test_torch_model.py``), ``sent_idx`` per (worker, shard) as
 sets (two scores one ulp apart may list in either order), round counters
 exactly, and the controller's per-leaf k exactly and its floats to rtol
-1e-5. The port's forward is whole where GSPMD partitions JAX's, so the
-gradients differ in their last bits and the losses are not compared in
-bits. The ranks' parameters must also equal each other in bits.
+1e-5. On one card, and for the MoE and SSM cases across ranks, the
+port's forward is whole where GSPMD partitions JAX's; across ranks the
+dense cases' row-parallel sums are the gloo all-reduce's where JAX's are
+XLA's. Either way the gradients differ in their last bits, and the
+losses are not compared in bits. Across the ranks a tensor-parallel rank
+must hold exactly its blocks of the split leaves, each whole leaf must
+be equal in bits on every rank, and the gathered parameters too.
 
 Also: a 4-rank ``--model-parallel 2`` checkpoint resumes in one process,
 the trainer's CLI at ``--workers 4 --model-parallel 2`` prints the losses
@@ -38,6 +47,7 @@ of ``run(args)``, and the layouts it cannot build are refused before
 anything is allocated. This file imports ``jax`` only inside the tests
 and the subprocess, so a spawned rank loads no JAX.
 """
+import math
 import os
 import subprocess
 import sys
@@ -211,16 +221,20 @@ def _dist(fields, fastpath="off"):
         **fields)
 
 
-def _port_run(name, p0, mesh=None, fastpath="off"):
+def _port_run(name, p0, mesh=None, fastpath="off", blocks=None):
     """Three steps of case ``name`` from the weights ``p0`` ({path:
-    numpy}): on one card, or this rank's of ``mesh``. Returns (losses,
-    params, the whole state in the JAX layout (gathered across ranks),
-    the controller tree or None, plan)."""
+    numpy}): on one card, or this rank's of ``mesh`` (for a tensor-
+    parallel case from its blocks of ``p0``, which it puts in the dict
+    ``blocks`` when given). Returns (losses, params (whole, gathered over
+    the model group), the whole state in the JAX layout (gathered across
+    ranks), the controller tree or None, plan)."""
     from repro_torch import convert
     from repro_torch.core import distributed as td
     from repro_torch.launch import train
     from repro_torch.models import param_axes
+    from repro_torch.nn.sharding import shard_params, unshard_params
     from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_map
 
     arch, (W, M), fields = CASES[name]
     cfg = _cfg("repro_torch", arch)
@@ -228,6 +242,11 @@ def _port_run(name, p0, mesh=None, fastpath="off"):
     params = convert.params_from_jax(_nest(p0), device="cpu")
     plan = td.build_plan(params, SPARSITY, dist, axes=param_axes(cfg),
                          mesh={"data": W, "model": M})
+    specs = tree_map(lambda p: p.spec, plan)
+    shard = None if mesh is None else td.model_shard(
+        cfg, plan, mesh.model_group, mesh.shard)
+    if shard is not None:
+        params = shard_params(params, specs, mesh.shard, M)
     step = td.make_train_step(cfg, dist, plan, W, mesh=mesh)
     opt_state = make_optimizer(dist.optimizer).init(params)
     sp = td.init_sparsifier_state(plan, W if mesh is None else 1, "cpu",
@@ -241,6 +260,10 @@ def _port_run(name, p0, mesh=None, fastpath="off"):
         losses.append(float(m["loss"]))
     cp, ctrl = sp if isinstance(sp, tuple) else (sp, None)
     whole = train._all_workers(cp, mesh)
+    if shard is not None:
+        if blocks is not None:
+            blocks.update(params=params, split=shard.split)
+        params = unshard_params(params, specs, mesh.model_group, M)
     return losses, params, convert.trainer_state_to_jax(whole, plan), ctrl, plan
 
 
@@ -330,8 +353,9 @@ def _rank(rank, world, store, out_dir, p0s):
     the results, every rank its params' digest."""
     import torch.distributed as dist
 
+    from repro_torch.core import distributed as td
     from repro_torch.launch import mesh, train
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_items, tree_leaves
 
     mesh.init_file_store(store, rank, world, "gloo")
     try:
@@ -340,12 +364,21 @@ def _rank(rank, world, store, out_dir, p0s):
             M = CASES[name][1][1]
             groups = mesh.make_host_groups(model=M)
             assert (groups.rank, groups.shard) == (rank // M, rank % M)
-            losses, params, state, ctrl, _ = _port_run(name, p0s[name], groups)
+            blocks = {}
+            losses, params, state, ctrl, plan = _port_run(
+                name, p0s[name], groups, blocks=blocks)
             out[name] = {"losses": losses, "params": params, "state": state,
-                         "ctrl": ctrl,
-                         "digest": b"".join(x.contiguous().view(torch.int32)
-                                            .numpy().tobytes()
-                                            for x in tree_leaves(params))}
+                         "ctrl": ctrl, "digest": _digest(tree_leaves(params)),
+                         "tensor_parallel": bool(blocks)}
+            if blocks:  # each leaf's block shape, and the whole leaves' bits
+                pl = tree_items(plan)
+                local = tree_leaves(blocks["params"])
+                out[name]["block_shapes"] = [
+                    (tuple(x.shape), p.local_shape, p.global_shape)
+                    for x, (_, p) in zip(local, pl, strict=True)]
+                out[name]["whole_digest"] = _digest(
+                    x for x, (_, p) in zip(local, pl, strict=True)
+                    if td.split_dim(p) is None)
         train.run(train.parse_args([*CKPT_FLAGS, "--steps", "2",
                                     "--checkpoint", f"{out_dir}/ckpt"]),
                   mesh=mesh.make_host_groups(model=2))
@@ -357,12 +390,19 @@ def _rank(rank, world, store, out_dir, p0s):
                       "wires": [(p.codec, p.collective, p.fused)
                                 for p in tree_leaves(res.plan)],
                       "losses": res.losses}
-        torch.save({**(out if rank == 0 else {n: {"digest": o["digest"]}
-                                             for n, o in out.items()}),
+        mine = ("digest", "tensor_parallel", "block_shapes", "whole_digest")
+        torch.save({**(out if rank == 0 else {
+                        n: {k: v for k, v in o.items() if k in mine}
+                        for n, o in out.items()}),
                     "calibrated": calibrated},
                    f"{out_dir}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def _digest(leaves):
+    return b"".join(x.contiguous().view(torch.int32).numpy().tobytes()
+                    for x in leaves)
 
 
 @pytest.fixture(scope="module")
@@ -383,6 +423,17 @@ def test_four_ranks_match_jax(jax_runs, ranks_out, name):
     _, outs = ranks_out
     first = outs[0][name]
     assert all(o[name]["digest"] == first["digest"] for o in outs)
+    # the dense cases train tensor parallel, the MoE and SSM cases do not
+    assert first["tensor_parallel"] == (CASES[name][0] == "tiny"), name
+    if first["tensor_parallel"]:
+        M = CASES[name][1][1]
+        for o in outs:
+            shapes = o[name]["block_shapes"]
+            assert all(got == local for got, local, _ in shapes), name
+            assert any(local != whole for _, local, whole in shapes), name
+            assert sum(math.prod(got) for got, _, _ in shapes) < sum(
+                math.prod(whole) for _, _, whole in shapes), (name, M)
+            assert o[name]["whole_digest"] == first["whole_digest"], name
     _matches_jax((first["losses"], first["params"], first["state"],
                   first["ctrl"], None), jax_runs[name], name)
 

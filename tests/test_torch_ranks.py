@@ -522,3 +522,18 @@ def test_trainer_checks_workers_against_the_layout():
     with pytest.raises(ValueError, match="W is the number of ranks"):
         td.make_sparsify_aggregate(
             plan, dcfg, 4, mesh=DpGroups(("pod", "data"), (2, 1), (None, None), 0))
+
+
+def _failing_rank(rank, world):
+    if rank == 1:
+        raise ValueError("rank one fails")
+
+
+def test_spawn_names_each_failed_ranks_exception():
+    """A rank that raises fails the spawn, and the error names that rank's
+    exception (its peers, in a real run, only see a collective fail)."""
+    from repro_torch.launch import mesh
+
+    with pytest.raises(RuntimeError, match=r"\{1: 1\}\n  rank 1 raised "
+                       r"ValueError: rank one fails"):
+        mesh.spawn(_failing_rank, 2, timeout=120)
