@@ -175,13 +175,14 @@ Phases, each raising on failure (the script then exits non-zero):
               the card against the same runs on the CPU, losses within
               1e-4 relative.
 14. serving — launch/serve.py and each family's prefill, init_cache and
-              decode_step, whole models at published widths in float32
-              (TF32 off), weights from the port's seeded init: qwen2.5-3b
-              (36 layers, batch 8, max_len 2048), zamba2-7b (81, batch 8,
-              2048), mamba2-780m (48, batch 8), whisper-tiny (4 + 4, batch
-              8, max_len 448 over 1500 frames) and deepseek-moe-16b (4 of
-              its 28 layers, batch 4, 1024: the whole model's host init
-              takes ~160 s). Each: prefill (chunked attention, blocks of
+              decode_step, models at published widths in float32 (TF32
+              off), weights from the port's seeded init: qwen2.5-3b (18 of
+              its 36 layers, batch 8, max_len 2048), zamba2-7b (81, batch
+              8, 2048), mamba2-780m (48, batch 8), whisper-tiny (4 + 4,
+              batch 8, max_len 448 over 1500 frames) and deepseek-moe-16b
+              (2 of its 28 layers, batch 4, 1024: the whole model's host
+              init takes ~160 s); the depths cut for the script's time
+              limit. Each: prefill (chunked attention, blocks of
               1024) over 2 x 1536 tokens (448 for whisper-tiny) against
               forward(mode="dense"); 32 teacher-forced decode steps against
               forward over the same tokens (the MoE forward dropless), both
@@ -230,13 +231,27 @@ Phases, each raising on failure (the script then exits non-zero):
               state bytes; (c) tensor parallel at published widths on 4
               gloo ranks, 3 steps, after each config's one-card twin:
               qwen2.5-3b at (1, 4), 12 of 36 layers (its kv heads whole,
-              its query heads split), batch 4 x 512, and internvl2-1b
-              whole at (2, 2), batch 8 x 512, held against the twin as in
-              (b), fastpath on == off in bits on every rank, whole leaves
-              bit-equal across the ranks, each rank's blocks, kernel 1
-              once per fused leaf a step on every rank; the step time,
-              each rank's peak and their sum beside tp_prediction, the
-              model group's collectives a step under the profiler; (d)
+              its query heads split), batch 4 x 512, internvl2-1b at 12
+              of 24 layers at (2, 2), batch 8 x 512 (cut for the script's
+              time limit), and deepseek-moe-16b at (1, 4), 1
+              of 28 layers, batch 4 x 512 (W = 1: one group of 2048
+              tokens, capacity 240), in both MoE layouts (each expert's
+              width split, or 16 of the 64 experts a rank), held against
+              the twin as in (b), fastpath on == off in bits on every
+              rank (the expert layout with the fastpath on only), whole
+              leaves (the router, the norms) bit-equal across the ranks,
+              each rank's blocks, kernel 1 once per fused leaf a step on
+              every rank; the step time, each rank's peak and their sum
+              beside tp_prediction, the model group's collectives a step
+              under the profiler, and each MoE run's routing flips a step
+              against its twin: a token routed to other experts fails
+              unless the twin's top-6 gap there is within 1e-5 (a
+              near-tie, as in phase 14; 1e-4 after the first step with a
+              flip, whose Adam steps move the weights further apart),
+              and it moves that token's loss,
+              so the losses are held to rtol 1e-5 before the first step
+              with a flipped token and to 5e-4 from it on, the params by
+              _param_diff's rule, the router also on its own; (d)
               --mesh production at a world size of 4 exits non-zero with
               its message.
 16. dry run — launch/dryrun.py on the meta device, which makes no CUDA
@@ -2956,17 +2971,20 @@ def phase_families(smi: str) -> dict:
     return out
 
 
-# phase 14: serving whole models at published widths. Each run: the serve
-# loop's batch and max_len.
+# phase 14: serving models at published widths. Each run: the serve
+# loop's batch and max_len, and its depth where the host's weight draw
+# (~10 ns a float from one generator) is cut to keep the script inside
+# its time limit.
 SERVE_RUNS = {
-    "qwen2.5-3b": dict(batch=8, max_len=2048),
+    # 18 of 36 layers (the whole model's draw took 30.7 s)
+    "qwen2.5-3b": dict(batch=8, max_len=2048, layers=18),
     "zamba2-7b": dict(batch=8, max_len=2048),
     "mamba2-780m": dict(batch=8, max_len=2048),
     # Whisper's text context over its 1500 encoder frames
     "whisper-tiny": dict(batch=8, max_len=448),
-    # 4 of 28 layers: the whole model's host init (16.7 billion draws from
+    # 2 of 28 layers: the whole model's host init (16.7 billion draws from
     # one generator, ~160 s) takes longer than the rest of the phase
-    "deepseek-moe-16b": dict(batch=4, max_len=1024, layers=4),
+    "deepseek-moe-16b": dict(batch=4, max_len=1024, layers=2),
 }
 SERVE_PREFILL = (2, 1536)  # two KV blocks of 1024, the last one padded
 SERVE_FORCED = 32  # teacher-forced decode steps held against forward
@@ -3118,14 +3136,14 @@ def _per_layer(maps: list, layers: int, tokens: int) -> torch.Tensor:
 
 
 def _route_flips(a: torch.Tensor, b: torch.Tensor, probs: torch.Tensor,
-                 top_k: int, label: str) -> tuple:
+                 top_k: int, label: str, tie: float = ROUTE_TIE) -> tuple:
     """Per row, the first position whose routing differs in any layer
     between two runs' maps ``[layers, rows, positions, experts]`` (the
     position count where none does), and the top-k gaps there. A flip
     is excused only as a near-tie: at the lowest layer that differs, the
     two runs choose different experts and the reference run's k-th and
     (k+1)-th probabilities (``probs``, laid out as ``b``) are within
-    ``ROUTE_TIE``. Any other difference is a fault, and raises."""
+    ``tie``. Any other difference is a fault, and raises."""
     a, b, probs = a.cpu(), b.cpu(), probs.cpu()
     bad = (a != b).any(-1)  # [layers, rows, positions]
     n_pos = bad.shape[2]
@@ -3143,10 +3161,10 @@ def _route_flips(a: torch.Tensor, b: torch.Tensor, probs: torch.Tensor,
         if torch.equal(a[layer, r, n] > 0, b[layer, r, n] > 0):
             raise AssertionError(f"{where}: the same experts chosen, kept "
                                  "or dropped differently")
-        if gap > ROUTE_TIE:
+        if gap > tie:
             raise AssertionError(f"{where}: other experts chosen at a top-"
                                  f"{top_k} probability gap of {gap:.3e} "
-                                 f"(a near-tie is within {ROUTE_TIE})")
+                                 f"(a near-tie is within {tie})")
         flips.append(n)
         gaps.append(gap)
     return torch.tensor(flips), gaps
@@ -3747,24 +3765,96 @@ def model_parallel_ranks(smi: str, device=None) -> dict:
     return out
 
 
-# (c): each config's depth (None: whole), (data, model) layout and global
-# batch of FAMILY_SEQ tokens; qwen2.5-3b at the deepest depth whose 4
-# allocators' reserve leaves the card a margin (PERF.md: 14 layers
-# reserved 78.9-80.9 GB of 85.0, and one run of the script failed there)
+# (c): each run's config, depth (None: whole), (data, model) layout and
+# global batch of FAMILY_SEQ tokens, the config's fields replaced and
+# whether it also runs with the fastpath off; qwen2.5-3b at the deepest
+# depth whose 4 allocators' reserve leaves the card a margin (PERF.md: 14
+# layers reserved 78.9-80.9 GB of 85.0, and one run of the script failed
+# there); internvl2-1b at half its depth and deepseek-moe-16b's expert
+# layout with the fastpath on only, to keep the script inside its time
+# limit; deepseek-moe-16b at W = 1, so a worker routes one group of 2048
+# tokens (capacity 240), in both MoE layouts (the expert one 16 experts a
+# rank)
 TP_RUNS = {
-    "qwen2.5-3b": dict(layers=12, data=1, model=4, batch=4),
-    "internvl2-1b": dict(layers=None, data=2, model=2, batch=8),
+    "qwen2.5-3b": dict(arch="qwen2.5-3b", layers=12, data=1, model=4,
+                       batch=4),
+    "internvl2-1b": dict(arch="internvl2-1b", layers=12, data=2, model=2,
+                         batch=8),
+    "deepseek-moe-16b:tensor": dict(
+        arch="deepseek-moe-16b", layers=1, data=1, model=4, batch=4,
+        fields={"moe_parallelism": "tensor"}),
+    "deepseek-moe-16b:expert": dict(
+        arch="deepseek-moe-16b", layers=1, data=1, model=4, batch=4,
+        fields={"moe_parallelism": "expert"}, off=False),
 }
 TP_STEPS = 3
+# an MoE run against its twin: a flipped token's top-k gap in the twin up
+# to the first step with a flipped token (the weights apart by last-ulp
+# sums) and after it (apart by Adam steps of up to 2 lr), and a loss's
+# relative difference from that first step on (my chip runs at published
+# widths: gaps at most 1.8e-7 and 6.4e-5, losses 6.6e-5 apart)
+TP_ROUTE_TIE = ROUTE_TIE
+TP_DRIFT_TIE = 1e-4
+TP_FLIP_LOSS_RTOL = 5e-4
 TP_SORT_BYTES = 32  # the dense fallback's sort, a byte count an element
 TP_TIMEOUT = 900.0  # seconds for the 4 ranks of every config
 
 
-def _tp_config(arch: str):
+def _tp_config(name: str):
     from repro_torch import configs
 
-    cfg, layers = configs.get_config(arch), TP_RUNS[arch]["layers"]
-    return cfg if layers is None else cfg.replace(n_layers=layers)
+    run = TP_RUNS[name]
+    cfg = configs.get_config(run["arch"]).replace(**run.get("fields", {}))
+    return cfg if run["layers"] is None else cfg.replace(n_layers=run["layers"])
+
+
+def _step_flips(got: dict, want: dict, steps: int, forwards: int,
+                top_k: int, label: str) -> dict:
+    """Two training runs' MoE routings (``_Routes``' ``maps`` and
+    ``probs``, ``steps`` equal runs of calls, the first ``forwards`` of
+    each the step's forward; remat routes each layer again, the same way,
+    in the backward) compared step by step. Every token whose chosen
+    experts differ is held by ``_route_flips``' near-tie rule against
+    ``want``'s probabilities, within ``TP_ROUTE_TIE`` up to the first step
+    with a flipped token and ``TP_DRIFT_TIE`` after it; a token that
+    chose alike but is kept or dropped differently is excused only after
+    a flipped token of its group (its slots come after that token's),
+    and raises otherwise. Per step: the (token, choice) routings to an
+    expert ``want``'s token did not choose, the flipped tokens' top-k gaps
+    in ``want``, the largest difference of their probabilities between
+    the runs, and the tokens kept or dropped differently."""
+    if len(got["maps"]) != len(want["maps"]) or len(want["maps"]) % steps:
+        raise AssertionError(f"{label}: routings of {len(got['maps'])} and "
+                             f"{len(want['maps'])} calls over {steps} steps")
+    per = len(want["maps"]) // steps
+    out = {"flips": [], "tie_gaps": [], "prob_diffs": [], "kept_apart": []}
+    for t in range(steps):
+        calls = slice(t * per, t * per + forwards)
+        (a, pa), (b, pb) = ((torch.stack(r["maps"][calls]).cpu(),
+                             torch.stack(r["probs"][calls]).cpu())
+                            for r in (got, want))  # [calls, tokens, experts]
+        ca, cb = a > 0, b > 0
+        E = a.shape[-1]
+        # each (call, token) a row of one position
+        tie = TP_DRIFT_TIE if any(out["flips"]) else TP_ROUTE_TIE
+        rows, gaps = _route_flips(*(x.reshape(1, -1, 1, E) for x in
+                                    (ca.to(torch.int8), cb.to(torch.int8), pb)),
+                                  top_k, f"{label}, step {t}", tie=tie)
+        flipped = (rows == 0).reshape(a.shape[:2])
+        apart = (a != b).any(-1) & ~flipped
+        for c in range(a.shape[0]):
+            hit, first = apart[c].nonzero(), flipped[c].nonzero()
+            if len(hit) and (not len(first) or hit[0, 0] <= first[0, 0]):
+                raise AssertionError(
+                    f"{label}, step {t}, call {c}: token {int(hit[0, 0])} "
+                    "chose the same experts, kept or dropped differently, "
+                    "with no flipped token before it in its group")
+        out["flips"].append(int((ca & ~cb).sum()))
+        out["tie_gaps"].append(gaps)
+        out["prob_diffs"].append(
+            (pa - pb).abs().amax(-1)[flipped].tolist())
+        out["kept_apart"].append(int(apart.sum()))
+    return out
 
 
 def _tp_dist(fastpath: str):
@@ -3778,7 +3868,7 @@ def _tp_dist(fastpath: str):
         fastpath=fastpath)
 
 
-def tp_prediction(arch: str) -> dict:
+def tp_prediction(name: str) -> dict:
     """Phase 15 (c)'s memory, predicted on the meta device (no CUDA call):
     one rank's tensor-parallel step traced by ``launch.dryrun.count_layout``
     at the run's layout, batch and float32 (the round with the fastpath
@@ -3787,11 +3877,11 @@ def tp_prediction(arch: str) -> dict:
     fallback's sort (a library op's workspace, which the trace cannot
     see); times the ranks for the card's sum. On any machine: ``python -c
     'import chip_smoke as c; print(c.tp_prediction("qwen2.5-3b"))'`` with
-    ``PYTHONPATH=src``."""
+    ``PYTHONPATH=src`` (a ``TP_RUNS`` name)."""
     from repro_torch.launch import dryrun
     from repro_torch.tree import tree_leaves
 
-    run, cfg = TP_RUNS[arch], _tp_config(arch)
+    run, cfg = TP_RUNS[name], _tp_config(name)
     W, M = run["data"], run["model"]
     lay = dryrun.layout_of(cfg, _tp_dist("off"), {"data": W, "model": M},
                            run["batch"], FAMILY_SEQ)
@@ -3840,10 +3930,10 @@ def _tp_profile(rank: int, comm: dict, model_group):
         collectives._psum, collectives._gather = plain
 
 
-def _tp_arch(rank: int, device: str, arch: str, out_dir: str) -> dict:
-    """One config of phase 15 (c) on this gloo rank (see ``_tp_rank_body``):
+def _tp_arch(rank: int, device: str, name: str, out_dir: str) -> dict:
+    """One run of phase 15 (c) on this gloo rank (see ``_tp_rank_body``):
     its numbers, the on == off comparison and the difference from the
-    twin."""
+    twin; rank 0 also saves the MoE routings of the fastpath-on run."""
     import hashlib
 
     import torch.distributed as dist
@@ -3859,15 +3949,16 @@ def _tp_arch(rank: int, device: str, arch: str, out_dir: str) -> dict:
     from repro_torch.tree import tree_items, tree_leaves, tree_map
 
     t_start = time.perf_counter()
-    run = TP_RUNS[arch]
+    run = TP_RUNS[name]
     W, M = run["data"], run["model"]
     groups = mesh.make_host_groups(model=M)
-    cfg = _tp_config(arch)
-    saved = torch.load(f"{out_dir}/{arch}.pt", mmap=True)
-    p0 = _nested(saved["p0"])
+    cfg = _tp_config(name)
+    saved = torch.load(f"{out_dir}/{name}.pt", mmap=True)
+    p0 = _nested(torch.load(f"{out_dir}/{run['arch']}.p0.pt", mmap=True))
+    fastpaths = ("on", "off") if run.get("off", True) else ("on",)
     plans = {fastpath: td.build_plan(
         p0, FAMILY_SPARSITY, _tp_dist(fastpath), axes=param_axes(cfg),
-        mesh={"data": W, "model": M}) for fastpath in ("on", "off")}
+        mesh={"data": W, "model": M}) for fastpath in fastpaths}
     specs = tree_map(lambda p: p.spec, plans["on"])
     blocks0 = shard_params(p0, specs, groups.shard, M)
     split = {path: td.split_dim(p) is not None
@@ -3889,19 +3980,27 @@ def _tp_arch(rank: int, device: str, arch: str, out_dir: str) -> dict:
         torch.cuda.synchronize()
         dist.barrier()
         losses, times, comm, prof = [], [], {}, None
-        for t in range(TP_STEPS):
-            # the off run's last step under the profiler: the model group
-            # moves what it moves with the fastpath on, and no step is added
-            profiled = fastpath == "off" and t == TP_STEPS - 1
-            t0 = time.perf_counter()
-            with (_tp_profile(rank, comm, groups.model_group) if profiled
-                  else contextlib.nullcontext()) as got_prof:
-                params, opt_state, sp, m = step(params, opt_state, sp,
-                                                pipe.batch_at(t))
-                losses.append(float(m["loss"]))
-                torch.cuda.synchronize()
-            prof = got_prof if profiled else prof
-            times.append(time.perf_counter() - t0)
+        with (_Routes() if cfg.is_moe and fastpath == "on"
+              else contextlib.nullcontext()) as routes:
+            for t in range(TP_STEPS):
+                # the last run's last step under the profiler (the off
+                # run's where there is one): the model group moves what it
+                # moves with the fastpath on, and no step is added
+                profiled = fastpath == fastpaths[-1] and t == TP_STEPS - 1
+                t0 = time.perf_counter()
+                with (_tp_profile(rank, comm, groups.model_group) if profiled
+                      else contextlib.nullcontext()) as got_prof:
+                    params, opt_state, sp, m = step(params, opt_state, sp,
+                                                    pipe.batch_at(t))
+                    losses.append(float(m["loss"]))
+                    torch.cuda.synchronize()
+                prof = got_prof if profiled else prof
+                times.append(time.perf_counter() - t0)
+        if routes is not None and rank == 0:
+            torch.save({"maps": [x.cpu() for x in routes.maps],
+                        "probs": [x.cpu() for x in routes.probs]},
+                       f"{out_dir}/{name}.routes.pt")
+        del routes
         row = {"losses": losses, "launches": fe.fused_candidates.launches,
                "step_s": times, "hit_rate": counts.hit_rate,
                "peak_bytes": torch.cuda.max_memory_allocated(),
@@ -3911,7 +4010,7 @@ def _tp_arch(rank: int, device: str, arch: str, out_dir: str) -> dict:
                "card_free_bytes": torch.cuda.mem_get_info()[0],
                "fused_leaves": sum(p.fused for p in tree_leaves(plan))}
         stages[fastpath] = time.perf_counter() - t_run
-        if fastpath == "off":
+        if fastpath == fastpaths[-1]:
             row["comm_s"] = comm
             if rank == 0:
                 evs = prof.key_averages()
@@ -3922,7 +4021,7 @@ def _tp_arch(rank: int, device: str, arch: str, out_dir: str) -> dict:
                     ev.key: [ev.count, ev.cpu_time_total / 1e3] for ev in evs
                     if any(w in ev.key.replace("_", "") for w in
                            ("allreduce", "allgather"))}
-        else:
+        if fastpath == "on":
             t_check = time.perf_counter()
             h = hashlib.sha256()
             for path, x in tree_items(params):
@@ -3937,15 +4036,21 @@ def _tp_arch(rank: int, device: str, arch: str, out_dir: str) -> dict:
                                 groups.shard, M)
             got = {k: x for k, x in tree_items(params)
                    if split[k] or rank == 0}
-            row["vs_twin"] = _param_diff(
-                got, {k: mine[k].to(device) for k in got},
-                2 * FAMILY_LR * TP_STEPS, floors=saved["floors"])
-            del mine, got
+            want = {k: mine[k].to(device) for k in got}
+            row["vs_twin"] = _param_diff(got, want, 2 * FAMILY_LR * TP_STEPS,
+                                         floors=saved["floors"])
+            # the router, a whole leaf, also on its own
+            router = [k for k in got if k.endswith("router")]
+            if router:
+                row["router_vs_twin"] = _param_diff(
+                    {k: got[k] for k in router}, {k: want[k] for k in router},
+                    2 * FAMILY_LR * TP_STEPS, floors=saved["floors"])
+            del mine, got, want
             stages["checked"] = time.perf_counter() - t_check
-        if fastpath == "on":  # kept on the host while the off run runs
+        if fastpath == "on" and len(fastpaths) > 1:  # kept on the host
             on = (tree_map(lambda x: x.cpu(), params),
                   [[x.cpu() for x in st] for st in tree_leaves(sp)], losses)
-        else:  # compared on the card, one leaf at a time
+        elif fastpath == "off":  # compared on the card, one leaf at a time
             out["on_off_param_mismatches"] = sum(
                 _bit_mismatches(x.to(device), y) for (_, x), (_, y) in
                 zip(tree_items(on[0]), tree_items(params), strict=True))
@@ -3976,17 +4081,19 @@ def _nested(flat: dict) -> dict:
 
 def _tp_rank_body(rank: int, world: int, store: str, out_dir: str,
                   device: str) -> None:
-    """One of phase 15 (c)'s 4 gloo ranks on ``device``: each config of
+    """One of phase 15 (c)'s 4 gloo ranks on ``device``: each run of
     ``TP_RUNS`` in turn, trained tensor parallel from the rank's blocks of
-    the weights the parent drew (``out_dir/<arch>.pt``: ``p0``, the
-    one-card twin's trained params ``twin`` and each leaf's largest
-    magnitude ``floors``), ``TP_STEPS`` steps with the fastpath on
-    (kernel 1's launches counted), then the same steps with the fastpath
-    off, the last of them with the model group's collectives timed and,
-    on rank 0, under the profiler. Each rank writes, per config, its numbers, the on
-    == off comparison in bits, its blocks' difference from the twin's
-    params (rank 0 also the whole leaves) and the digest of its whole
-    leaves to ``out_dir/rank{rank}.json``."""
+    the weights the parent drew (``out_dir/<arch>.p0.pt``) and held
+    against the parent's one-card twin (``out_dir/<run>.pt``: its trained
+    params ``twin`` and each leaf's largest magnitude ``floors``),
+    ``TP_STEPS`` steps with the fastpath on (kernel 1's launches counted,
+    an MoE run's routings logged), then, unless the run says ``off=False``,
+    the same steps with the fastpath off; the last step of the last of
+    them with the model group's collectives timed and, on rank 0, under
+    the profiler. Each rank writes, per run, its numbers, the on == off
+    comparison in bits, its blocks' difference from the twin's params
+    (rank 0 also the whole leaves) and the digest of its whole leaves to
+    ``out_dir/rank{rank}.json``."""
     import torch.distributed as dist
 
     from repro_torch.launch import mesh
@@ -3994,7 +4101,7 @@ def _tp_rank_body(rank: int, world: int, store: str, out_dir: str,
     torch.cuda.set_device(device)
     mesh.init_file_store(store, rank, world, "gloo")
     try:
-        out = {arch: _tp_arch(rank, device, arch, out_dir) for arch in TP_RUNS}
+        out = {name: _tp_arch(rank, device, name, out_dir) for name in TP_RUNS}
         Path(f"{out_dir}/rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
@@ -4003,17 +4110,33 @@ def _tp_rank_body(rank: int, world: int, store: str, out_dir: str,
 def model_parallel_tp(smi: str, device=None) -> dict:
     """Phase 15 (c): tensor parallelism at published widths across 4 gloo
     ranks sharing the card, fastpath on, RegTop-k at S = 0.01, Adam, 3
-    steps, float32: each ``TP_RUNS`` config after its one-card twin
+    steps, float32: each ``TP_RUNS`` run after its one-card twin
     (``mesh=None`` at the same layout, run first, its weights and result
     handed to the ranks), held against it (losses to rtol 1e-5, params by
-    ``_param_diff``'s rule), fastpath on == off in bits on every rank,
-    every whole leaf equal in bits across the ranks, each rank holding
-    its blocks, kernel 1 once per fused leaf a step on every rank; the
-    step time beside the twin's, each rank's peak and their sum beside
-    ``tp_prediction``, the card's free bytes before the spawn and after
-    the steps, each stage's seconds, and the model group's collectives a
-    step (host clock, rank 0, the card synchronised around each) under
-    the profiler. One spawn runs every config."""
+    ``_param_diff``'s rule), fastpath on == off in bits on every rank
+    (deepseek-moe-16b's expert layout runs with the fastpath on only, to
+    save the script's time), every whole leaf equal in bits across the
+    ranks, each rank holding its blocks, kernel 1 once per fused leaf a
+    step on every rank; the step time beside the twin's, each rank's peak
+    and their sum beside ``tp_prediction``, the card's free bytes before
+    the spawn and after the steps, each stage's seconds, and the model
+    group's collectives a step (host clock, rank 0, the card synchronised
+    around each) under the profiler. For an MoE run, rank 0's routings of
+    each step's forward against the twin's (``_Routes``, ``_step_flips``):
+    a last-ulp difference between the row-parallel sums and the twin's
+    whole ones can flip a near-tied top-k choice, which moves its token's
+    output by the gate times the difference of two experts' outputs, so
+    its loss. A token that chose other experts fails unless the twin's
+    top-k gap there is within ``TP_ROUTE_TIE`` (``TP_DRIFT_TIE`` after the
+    first step with a flipped token, whose Adam steps move the weights
+    apart by more than last ulps), a token kept or dropped
+    differently fails unless a flipped token of its group came before it,
+    and the (token, choice) routings that differ are counted a step. The
+    losses are held to rtol 1e-5 at every step before the first step with
+    a flipped token and to ``TP_FLIP_LOSS_RTOL`` from it on; the params by
+    ``_param_diff``'s rule, and the router, a whole leaf, by the same rule
+    on its own. Every number is printed before a failed comparison with
+    the twin raises. One spawn runs every run."""
     import tempfile
 
     from repro_torch.launch import mesh
@@ -4026,33 +4149,45 @@ def model_parallel_tp(smi: str, device=None) -> dict:
     if len(world) != 1:
         raise ValueError(f"phase 15 (c) runs every config on one world: {world}")
     with tempfile.TemporaryDirectory() as d:
-        for arch, run in TP_RUNS.items():
-            cfg = _tp_config(arch)
+        drawn = {}  # arch -> its seeded weights, drawn once for its runs
+        for name, run in TP_RUNS.items():
+            cfg = _tp_config(name)
             t0 = time.perf_counter()
-            params0 = get_family(cfg).init(cfg, seed=0, device="cpu")
+            arch = run["arch"]
+            if arch not in drawn:
+                drawn.clear()
+                drawn[arch] = get_family(cfg).init(cfg, seed=0, device="cpu")
+                torch.save(dict(tree_items(drawn[arch])), f"{d}/{arch}.p0.pt")
+            params0 = drawn[arch]
             stages = {"init": time.perf_counter() - t0}
-            params, _, plan, losses, n, seconds, peak = _mp_train(
-                cfg, params0, run["data"], run["model"], "on",
-                batch=run["batch"])
+            with (_Routes() if cfg.is_moe
+                  else contextlib.nullcontext()) as routes:
+                params, _, plan, losses, n, seconds, peak = _mp_train(
+                    cfg, params0, run["data"], run["model"], "on",
+                    batch=run["batch"])
+            if routes is not None:
+                routes = {"maps": [x.cpu() for x in routes.maps],
+                          "probs": [x.cpu() for x in routes.probs]}
             twin = {k: x.cpu() for k, x in tree_items(params)}
             del params, _
             torch.cuda.empty_cache()
             stages["twin"] = time.perf_counter() - t0 - stages["init"]
             t0 = time.perf_counter()
-            torch.save({"p0": dict(tree_items(params0)), "twin": twin,
+            torch.save({"twin": twin,
                         "floors": {k: float(x.abs().max())
                                    for k, x in twin.items()}},
-                       f"{d}/{arch}.pt")
+                       f"{d}/{name}.pt")
             del params0, twin
             stages["save"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            prediction = tp_prediction(arch)
+            prediction = tp_prediction(name)
             stages["predict"] = time.perf_counter() - t0
             launches += n
-            twins[arch] = {"plan": plan, "losses": losses, "launches": n,
+            twins[name] = {"plan": plan, "losses": losses, "launches": n,
                            "seconds": seconds, "peak": peak,
                            "layers": cfg.n_layers, "prediction": prediction,
-                           "stages_s": stages}
+                           "stages_s": stages, "routes": routes}
+        drawn.clear()
         n_ranks = world.pop()
         # what the 4 ranks share: the card's free bytes with this process'
         # context and cache in place
@@ -4070,35 +4205,51 @@ def model_parallel_tp(smi: str, device=None) -> dict:
         spawn_s = time.perf_counter() - t0
         ranks = [json.loads(Path(f"{d}/rank{r}.json").read_text())
                  for r in range(n_ranks)]
+        for name, tw in twins.items():
+            if tw["routes"] is not None:
+                if TP_RUNS[name]["data"] != 1:
+                    raise ValueError(f"phase 15 (c) compares {name}'s rank 0 "
+                                     "routings with the twin's at W = 1 only")
+                tw["flips"] = _step_flips(
+                    torch.load(f"{d}/{name}.routes.pt"), tw["routes"],
+                    TP_STEPS, tw["layers"], _tp_config(name).moe_top_k,
+                    f"tensor parallel {name}")
+                # tokens x top-k
+                tw["routings"] = tw["routes"]["maps"][0].shape[0] * _tp_config(
+                    name).moe_top_k
+            del tw["routes"]
     out = {"spawn_s": spawn_s, "before_spawn": parent}
-    for arch, run in TP_RUNS.items():
+    for name, run in TP_RUNS.items():
         W, M = run["data"], run["model"]
-        tw = twins[arch]
+        tw = twins[name]
         plan, losses, pred = tw["plan"], tw["losses"], tw["prediction"]
-        rks = [rk[arch] for rk in ranks]
+        rks = [rk[name] for rk in ranks]
         on = [rk["on"] for rk in rks]
+        with_off = run.get("off", True)
         n_fused = on[0]["fused_leaves"]
         for r, rk in enumerate(rks):
+            off_launches = rk["off"]["launches"] if with_off else 0
             if (rk["on"]["launches"] != TP_STEPS * n_fused or not n_fused
-                    or rk["off"]["launches"]):
+                    or off_launches):
                 raise AssertionError(
-                    f"tensor parallel {arch}: rank {r} launched kernel 1 "
-                    f"{rk['on']['launches']} times on, {rk['off']['launches']} "
+                    f"tensor parallel {name}: rank {r} launched kernel 1 "
+                    f"{rk['on']['launches']} times on, {off_launches} "
                     f"off, expected {TP_STEPS} x {n_fused}")
-            if (rk["on_off_param_mismatches"] or not rk["on_off_state_equal"]
-                    or not rk["on_off_losses_equal"]):
+            if with_off and (rk["on_off_param_mismatches"]
+                             or not rk["on_off_state_equal"]
+                             or not rk["on_off_losses_equal"]):
                 raise AssertionError(
-                    f"tensor parallel {arch}: rank {r} fastpath on != off: "
+                    f"tensor parallel {name}: rank {r} fastpath on != off: "
                     f"{rk['on_off_param_mismatches']} param bit mismatches, "
                     f"state equal {rk['on_off_state_equal']}")
             if rk["on"]["whole_digest"] != on[0]["whole_digest"]:
-                raise AssertionError(f"tensor parallel {arch}: rank {r}'s whole "
+                raise AssertionError(f"tensor parallel {name}: rank {r}'s whole "
                                      "leaves differ in bits from rank 0's")
             blocks = rk["on"]["block_shapes"]
             for path, p in tree_items(plan):
                 if list(p.local_shape) != blocks[path]:
                     raise AssertionError(
-                        f"tensor parallel {arch}: {path} held as "
+                        f"tensor parallel {name}: {path} held as "
                         f"{blocks[path]}, its block is {p.local_shape}")
         diffs = [o["vs_twin"] for o in on]
         diff = {"mismatches": sum(x["mismatches"] for x in diffs),
@@ -4111,46 +4262,78 @@ def model_parallel_tp(smi: str, device=None) -> dict:
             diff["beyond_rtol"] <= 1e-3 * diff["n"]
             and diff["max_abs_diff"] <= adam_step)
         got = on[0]["losses"]
-        loss_ok = all(abs(g - w) <= 1e-5 * abs(w)
-                      for g, w in zip(got, losses, strict=True))
-        if not (diff["ok"] and loss_ok and all(math.isfinite(x) for x in got)):
-            raise AssertionError(f"tensor parallel {arch}: against the one-card "
-                                 f"twin: losses {got} vs {losses}, params {diff}")
+        route = tw.get("flips")
+        flips = route["flips"] if route else None
+        # a step's loss within rtol 1e-5 of the twin's, or within
+        # TP_FLIP_LOSS_RTOL once a token has flipped in its forward or an
+        # earlier one
+        flipped = [bool(flips) and sum(flips[:t + 1]) > 0
+                   for t in range(TP_STEPS)]
+        loss_tol = [TP_FLIP_LOSS_RTOL if f else 1e-5 for f in flipped]
+        loss_rel = [abs(g - w) / abs(w) for g, w in zip(got, losses, strict=True)]
+        router = on[0].get("router_vs_twin")
+        ok = (diff["ok"] and (router is None or router["ok"])
+              and all(r <= tol for r, tol in zip(loss_rel, loss_tol, strict=True))
+              and all(math.isfinite(x) for x in got))
         peaks = [o["peak_bytes"] for o in on]
         # the first step pays the card's and gloo's warm-up on every rank
         step_ms = statistics.median(1e3 * t for o in on for t in o["step_s"][1:])
-        off0 = rks[0]["off"]  # its last step was the profiled one
-        comm = off0["comm_s"]
+        last = rks[0]["off" if with_off else "on"]  # its last step was profiled
+        comm = last["comm_s"]
         launches += sum(o["launches"] for o in on)
         split = sum(p.local_shape != p.global_shape for _, p in tree_items(plan))
         row = {"layers": tw["layers"], "workers": W, "shards": M,
-               "batch": run["batch"], "losses": got, "twin_losses": losses,
-               "vs_twin": diff, "peaks": peaks,
+               "batch": run["batch"], "fields": run.get("fields", {}),
+               "losses": got, "twin_losses": losses, "loss_rel_diff": loss_rel,
+               "loss_held": [not f for f in flipped],
+               "loss_tol": loss_tol, "vs_twin": diff,
+               "router_vs_twin": router, "route_flips": route,
+               "routings_a_step": tw.get("routings"), "peaks": peaks,
                "reserved": [o["reserved_bytes"] for o in on],
                "peak_sum": sum(peaks), "prediction": pred,
                "twin_peak": tw["peak"],
                "twin_step_ms": 1e3 * tw["seconds"] / FAMILY_STEPS,
                "step_ms": step_ms, "rank_step_s": [o["step_s"] for o in on],
-               "comm_s": comm, "device_ms": off0["device_ms"],
-               "collective_ops": off0["collective_ops"],
+               "comm_s": comm, "device_ms": last["device_ms"],
+               "collective_ops": last["collective_ops"],
                "launches": [o["launches"] for o in on], "fused_leaves": n_fused,
                "split_leaves": split, "hit_rate": on[0]["hit_rate"],
                "card_free": min(o["card_free_bytes"] for o in on),
                "parent_stages_s": tw["stages_s"],
                "rank_stages_s": [rk["stages_s"] for rk in rks]}
-        out[arch] = row
-        log(f"tensor parallel {arch}: {tw['layers']} layers, (data, model) = "
+        out[name] = row
+        log(f"tensor parallel {name}: {tw['layers']} layers, (data, model) = "
             f"({W}, {M}), {W * M} gloo ranks on one card, batch {run['batch']} "
             f"x {FAMILY_SEQ}, {split}/{len(tree_items(plan))} leaves split; "
             f"losses {got[0]:.4f} -> {got[-1]:.4f} (twin {losses[0]:.4f} -> "
-            f"{losses[-1]:.4f}, within rtol 1e-5); params against the twin "
+            f"{losses[-1]:.4f}; relative differences "
+            f"{[float(f'{r:.3g}') for r in loss_rel]}, held to "
+            f"{loss_tol}, {TP_FLIP_LOSS_RTOL} from a step with a flipped "
+            "token on); params against the twin "
             f"{diff['mismatches']} bit mismatches, {diff['beyond_rtol']} of "
             f"{diff['n']} beyond rtol 1e-5 (largest |diff| "
             f"{diff['max_abs_diff']:.3e}, 2 lr a step {adam_step:.1e}); "
-            f"fastpath on == off in bits on every rank; whole leaves equal in "
+            + ("fastpath on == off in bits on every rank; " if with_off
+               else "fastpath on only; ")
+            + "whole leaves equal in "
             f"bits across the ranks; kernel 1 {on[0]['launches']} launches per "
             f"rank ({n_fused} fused leaves, hit rate {on[0]['hit_rate']:.3f})")
-        log(f"tensor parallel {arch}: step {step_ms:.1f} ms (median over ranks "
+        if flips is not None:
+            log(f"tensor parallel {name}: MoE routing flips against the twin, "
+                f"(token, choice) routings to another expert in each step's "
+                f"forward: {flips} of {row['routings_a_step']} a layer-step "
+                f"x {tw['layers']} layers; the flipped tokens' top-"
+                f"{_tp_config(name).moe_top_k} gaps in the twin "
+                f"{[[float(f'{x:.3g}') for x in g] for g in route['tie_gaps']]}"
+                f" (a near-tie is within {TP_ROUTE_TIE}, {TP_DRIFT_TIE} after "
+                "the first step with a flip), their largest "
+                "probability differences from the twin "
+                f"{[[float(f'{x:.3g}') for x in g] for g in route['prob_diffs']]}"
+                f", tokens kept or dropped differently after a flip "
+                f"{route['kept_apart']}; the router against the twin "
+                f"{router['beyond_rtol']} of {router['n']} beyond rtol 1e-5 "
+                f"(largest |diff| {router['max_abs_diff']:.3e})")
+        log(f"tensor parallel {name}: step {step_ms:.1f} ms (median over ranks "
             f"and steps 2-{TP_STEPS}, host clock; twin "
             f"{row['twin_step_ms']:.1f} ms a step over its {FAMILY_STEPS}); "
             f"peak per rank {[round(x / 1e9, 2) for x in peaks]} GB, sum "
@@ -4159,13 +4342,20 @@ def model_parallel_tp(smi: str, device=None) -> dict:
             f"{sum(row['reserved']) / 1e9:.2f}, the card "
             f"{row['card_free'] / 1e9:.2f} GB free after the steps); twin peak "
             f"{tw['peak'] / 1e9:.2f} GB; rank 0's collectives in its profiled "
-            "step (the fastpath-off run's last): " + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in comm.items())
+            f"step (the fastpath-{'off' if with_off else 'on'} run's last): "
+            + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in comm.items())
             + f" of a step with {row['device_ms']:.1f} ms of device time ({smi})")
         r0 = row["rank_stages_s"][0]
-        log(f"tensor parallel {arch}: seconds, this process "
+        log(f"tensor parallel {name}: seconds, this process "
             + ", ".join(f"{k} {v:.1f}" for k, v in tw["stages_s"].items())
             + "; rank 0 " + ", ".join(f"{k} {v:.1f}" for k, v in r0.items()))
-    log(f"tensor parallel: the spawn of both configs took {spawn_s:.1f} s")
+        if not ok:
+            raise AssertionError(
+                f"tensor parallel {name}: against the one-card twin: losses "
+                f"{got} vs {losses} (relative {loss_rel}, held to {loss_tol}),"
+                f" params {diff}, the router {router}, routing flips a step "
+                f"{flips}")
+    log(f"tensor parallel: the spawn of every run took {spawn_s:.1f} s")
     out["launches"] = launches
     return out
 

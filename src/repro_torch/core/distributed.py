@@ -41,9 +41,10 @@ leaf the divisibility guard leaves whole runs M equal rounds on the whole
 leaf. On one card, and across ranks for a family whose forward is not
 sharded (``models.tensor_parallel``), the forward, the parameters and
 Adam stay whole on every worker. Across ranks for a family that shards
-it (the dense and VLM decoders), each rank holds, computes and updates
-its own block of every leaf the spec splits (tensor parallelism,
-:func:`make_train_step`).
+it (the dense, MoE and VLM decoders), each rank holds, computes and
+updates its own block of every leaf the spec splits (tensor parallelism,
+:func:`make_train_step`; the MoE experts in either layout of
+``moe_parallelism``).
 
 A partial-participation schedule (``DistConfig.participation``) draws
 one mask a round, shared by every leaf: participants aggregate with the
@@ -1062,7 +1063,8 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
     element by element.
 
     Across the ranks of ``mesh`` with M > 1, for a family that shards its
-    forward (``models.tensor_parallel``: the dense and VLM decoders), the
+    forward (``models.tensor_parallel``: the dense, MoE and VLM decoders;
+    the MoE experts in either of ``moe_parallelism``'s layouts), the
     step is tensor parallel: ``params`` and the optimizer state are this
     rank's blocks (``nn.sharding.shard_params`` under the plan's specs,
     a leaf the divisibility guard leaves whole whole on every rank), the
@@ -1073,7 +1075,8 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
     the model group. The row-parallel sums are taken by ``all_reduce`` as
     GSPMD takes them, so the result is the one-card run's to rounding, not
     in bits; a whole leaf is equal in bits on the ranks of a model group.
-    For the other families only the sparsify stage is split across ranks:
+    For the other families (the SSM, hybrid and encoder-decoder ones)
+    only the sparsify stage is split across ranks:
     every rank of a model group runs its worker's whole forward and
     backward and holds the whole parameters and Adam state, and each split
     leaf's aggregate is gathered over the model group.

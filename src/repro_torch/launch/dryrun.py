@@ -47,8 +47,8 @@ record has the JAX record's keys and the port's own:
   rank of the port's trainer holds and moves: the parameters, one
   gradient in the state dtype and the Adam state, its own (worker, shard)
   state rows and its worker's batch rows; the dp payloads and every
-  rank's 4 B loss gathered. At M > 1 a dense or VLM decoder trains tensor
-  parallel (``core.distributed.make_train_step``): the parameters, the
+  rank's 4 B loss gathered. At M > 1 a dense, MoE or VLM decoder trains
+  tensor parallel (``core.distributed.make_train_step``): the parameters, the
   gradient and Adam are the rank's blocks (ZeRO-1's dp split of the
   moments is the JAX dry run's layout, not its trainer's, and the port
   keeps the moments whole over dp), and ``all-reduce:model`` and

@@ -28,11 +28,13 @@ model axis fastest):
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
         --smoke --steps 3 --device cpu
 
-With a model axis M > 1 across ranks, a dense or VLM decoder trains
-tensor parallel: each rank holds, computes and updates its model shard's
-block of every leaf that ``nn.sharding`` splits (``core.distributed.
-make_train_step``); the other families run a whole forward on every rank
-of a model group and split the sparsify stage alone. A line after the
+With a model axis M > 1 across ranks, a dense, MoE or VLM decoder
+trains tensor parallel: each rank holds, computes and updates its model
+shard's block of every leaf that ``nn.sharding`` splits
+(``core.distributed.make_train_step``; the MoE experts' width or the
+experts themselves, as ``moe_parallelism`` lays them out); the other
+families run a whole forward on every rank of a model group and split
+the sparsify stage alone. A line after the
 mesh's names the path the model axis takes. ``--checkpoint`` gathers
 each leaf whole before it writes and ``--resume`` cuts the blocks out
 again, so a checkpoint moves between ranks and one process either way.

@@ -28,10 +28,13 @@ each leaf that ``nn.sharding`` splits over the model axis. Each layer
 reads from the shard whether its own logical axis is split (the query
 heads, the kv heads, the MLP's columns, the vocabulary rows), so the
 divisibility guard decides leaf by leaf: qwen2.5-3b at M = 4 splits its
-16 query heads and keeps its 2 kv heads whole. The vision projection
-and the norms stay whole. The vocabulary-parallel logits are gathered
-over the model group before the loss, whose padding rows are masked by
-their global index as before.
+16 query heads and keeps its 2 kv heads whole. The MoE layer splits its
+experts' FFN width or the experts themselves, as ``cfg.moe_parallelism``
+laid them out, and its shared experts' width; its router stays whole
+(``nn.moe``). The vision projection and the norms stay whole. The
+vocabulary-parallel logits are gathered over the model group before the
+loss, whose padding rows are masked by their global index as before.
+Serving runs whole, on one card.
 
 Serving: ``forward(mode="chunked")`` (``prefill``) runs the online-softmax
 attention over KV blocks of ``attn_block`` keys; ``init_cache`` and
@@ -57,8 +60,8 @@ from repro_torch.nn.sharding import prefix_axes
 Params = Dict[str, Any]
 
 # the families of this module whose forward the trainer shards over the
-# model axis; the MoE family keeps a whole forward
-TENSOR_PARALLEL = frozenset({"dense", "vlm"})
+# model axis: all three
+TENSOR_PARALLEL = frozenset({"dense", "moe", "vlm"})
 
 
 def _norm(cfg: ModelConfig):
@@ -188,6 +191,7 @@ def _block(
             lp["mlp"], h, top_k=cfg.moe_top_k,
             capacity_factor=cfg.capacity_factor,
             group_size=cfg.moe_group_size, dispatch=cfg.moe_dispatch,
+            shard=shard,
         )
     else:
         y = L.mlp(lp["mlp"], h, act=cfg.act, shard=shard)

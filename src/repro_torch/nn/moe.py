@@ -19,6 +19,43 @@ The routing follows the JAX package step for step:
   group's tokens and over the groups) are products with the float32
   reciprocal, as XLA computes them under ``jit``
   (``kernels.regtopk_score.const_div``).
+
+Tensor and expert parallelism: under a ``shard``
+(``nn.tensor_parallel.ModelShard``), ``moe_apply`` runs on the rank's
+blocks of the expert leaves, in the layout that ``moe_axes`` gave them:
+
+* ``shard.splits("moe_mlp")`` (``"tensor"``): every expert, and the
+  rank's columns of its FFN width, ``wg``/``wu [E, D, F/M]`` and ``wd
+  [E, F/M, D]``; the expert FFN gives a partial sum over the columns;
+* ``shard.splits("experts_sharded")`` (``"expert"``): the experts ``[e0,
+  e0 + E/M)``, ``e0 = shard.index * E/M``, whole. The ``"einsum"``
+  dispatch builds the rank's ``[g, E/M, cap]`` columns of the dispatch
+  and combine tensors, the ``"gather"`` dispatch the rank's experts'
+  slots (``(gate_idx - e0) * cap + pos``), every other (token, choice)
+  parked in the extra row as a dropped one is;
+* the shared experts under ``shard.splits("mlp")``: the rank's columns
+  in and rows out, as ``nn.layers.mlp``.
+
+The routing stays whole and the same on every rank: the router ``[D,
+E]``, the softmax, ``route``, the capacity, the padded rows, the counts
+and the aux loss, which no collective touches (a sum over the group
+would multiply them by M). The partial outputs, the routed one after the
+combine (``[g, D]`` a group, not ``[E, cap, D]``) and the shared one,
+are added and leave the group together: with both split, a layer's
+forward issues one all-reduce, of ``x``'s shape, and its backward one
+of ``x``'s shape (the gradient of the split branches' input) and one of
+the ``[g, top_k]`` float32 gates a group. Two gradients are kept whole:
+
+* (a) only the split branches' input enters the group (``TP.enter``);
+  the router's input does not, since its gradient is whole on every
+  rank already, and an ``enter`` at the top of the layer (as
+  ``nn.layers.mlp`` places it) would sum that part M times;
+* (b) the gates enter the group before they weight the combine (the
+  ``"gather"`` path's weighted sum, the ``"einsum"`` path's ``comb``):
+  a rank's gradient of a gate covers only its columns or its experts,
+  and the sum over the group is the whole one, the same in bits on
+  every rank (gloo hands every rank the same sum), so the router, a
+  whole leaf, stays equal across the ranks.
 """
 from __future__ import annotations
 
@@ -29,6 +66,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.selectors import topk_stable
 from repro_torch.kernels.regtopk_score import const_div, ordered_mean
+from repro_torch.nn import tensor_parallel as TP
 from repro_torch.nn.layers import _normal
 
 Params = Dict[str, torch.Tensor]
@@ -118,40 +156,50 @@ def route(probs: torch.Tensor, top_k: int, cap: int):
     return gate_vals, gate_idx, pos, pos < cap
 
 
-def _group(p: Params, xs: torch.Tensor, top_k: int, cap: int, dispatch: str):
-    """One group's ``(out [g, D], aux)``."""
+def _group(p: Params, xs: torch.Tensor, xd: torch.Tensor, top_k: int,
+           cap: int, dispatch: str, shard: Optional[TP.ModelShard] = None):
+    """One group's ``(out [g, D], aux)``: ``xs`` routes and ``xd``, the
+    same rows, is dispatched. Under ``shard`` (the experts split) ``xd``
+    has entered the model group, the expert leaves are the rank's blocks
+    and ``out`` is its partial sum (module docstring)."""
     g, D = xs.shape
     E = p["router"].shape[-1]
+    El = p["wg"].shape[0]  # the experts this rank holds
+    e0 = 0 if El == E else shard.index * El
     logits = xs.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx, pos, keep = route(probs, top_k, cap)
+    if shard is not None:  # trap (b): a gate's gradient summed over the group
+        gate_vals = TP.enter(gate_vals, shard)
     if dispatch == "gather":
-        # each kept (token, choice) row written to its unique slot, the
-        # dropped ones parked in one extra row that is cut off
-        slot = torch.where(keep, gate_idx * cap + pos, E * cap).reshape(-1)
+        # each kept (token, choice) of this rank's experts written to its
+        # unique slot, the others parked in one extra row that is cut off
+        mine = keep & (gate_idx >= e0) & (gate_idx < e0 + El)
+        slot = torch.where(mine, (gate_idx - e0) * cap + pos,
+                           El * cap).reshape(-1)
         tok = torch.arange(g, device=xs.device).repeat_interleave(top_k)
-        xe_flat = torch.zeros((E * cap + 1, D), dtype=xs.dtype,
-                              device=xs.device).index_put((slot,), xs[tok])
-        ye = _expert_ffn(p, xe_flat[: E * cap].reshape(E, cap, D))
-        ye_flat = torch.cat([ye.reshape(E * cap, D),
+        xe_flat = torch.zeros((El * cap + 1, D), dtype=xd.dtype,
+                              device=xd.device).index_put((slot,), xd[tok])
+        ye = _expert_ffn(p, xe_flat[: El * cap].reshape(El, cap, D))
+        ye_flat = torch.cat([ye.reshape(El * cap, D),
                              torch.zeros((1, D), dtype=ye.dtype, device=ye.device)])
         picked = ye_flat[slot].reshape(g, top_k, D)
-        out = torch.einsum("gk,gkd->gd", (gate_vals * keep).to(xs.dtype), picked)
+        out = torch.einsum("gk,gkd->gd", (gate_vals * keep).to(xd.dtype), picked)
     elif dispatch == "einsum":
-        # the GShard one-hot [g, E, cap] dispatch and combine tensors; a
-        # slot at or past cap has no one-hot column, as jax.nn.one_hot
-        # gives it none
-        experts = torch.arange(E, device=xs.device)
+        # the GShard one-hot [g, E, cap] dispatch and combine tensors (the
+        # columns of this rank's experts); a slot at or past cap has no
+        # one-hot column, as jax.nn.one_hot gives it none
+        experts = torch.arange(e0, e0 + El, device=xs.device)
         slots = torch.arange(cap, device=xs.device)
-        disp = torch.zeros((g, E, cap), dtype=xs.dtype, device=xs.device)
+        disp = torch.zeros((g, El, cap), dtype=xd.dtype, device=xd.device)
         comb = torch.zeros_like(disp)
         for c in range(top_k):
-            oh = ((gate_idx[:, c, None] == experts).to(xs.dtype)[:, :, None]
-                  * (pos[:, c, None] == slots).to(xs.dtype)[:, None, :])
-            oh = oh * keep[:, c, None, None].to(xs.dtype)
+            oh = ((gate_idx[:, c, None] == experts).to(xd.dtype)[:, :, None]
+                  * (pos[:, c, None] == slots).to(xd.dtype)[:, None, :])
+            oh = oh * keep[:, c, None, None].to(xd.dtype)
             disp = disp + oh
-            comb = comb + oh * gate_vals[:, c, None, None].to(xs.dtype)
-        xe = torch.einsum("tec,td->ecd", disp, xs)
+            comb = comb + oh * gate_vals[:, c, None, None].to(xd.dtype)
+        xe = torch.einsum("tec,td->ecd", disp, xd)
         out = torch.einsum("tec,ecd->td", comb, _expert_ffn(p, xe))
     else:
         raise ValueError(
@@ -172,25 +220,44 @@ def _group(p: Params, xs: torch.Tensor, top_k: int, cap: int, dispatch: str):
 def moe_apply(
     p: Params, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
     group_size: int = 4096, no_drop: bool = False, dispatch: str = "einsum",
+    shard: Optional[TP.ModelShard] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x [B, S, D]`` → ``(y [B, S, D], aux)``, the Switch load-balance
     loss averaged over the groups. ``no_drop`` sets the capacity to the
-    group size (serving never drops a token)."""
+    group size (serving never drops a token). Under ``shard`` the expert
+    leaves are the rank's blocks and ``y`` is whole on every rank (module
+    docstring)."""
     B, S, D = x.shape
     E = p["router"].shape[-1]
+    routed_tp = shard is not None and (shard.splits("moe_mlp")
+                                       or shard.splits("experts_sharded"))
+    shared_tp = shard is not None and "shared" in p and shard.splits("mlp")
+    # trap (a): the split branches' input enters the group, the router's not
+    xe = TP.enter(x, shard) if routed_tp or shared_tp else x
     xt = x.reshape(B * S, D)
+    xd = xe.reshape(B * S, D) if routed_tp else xt
     T = xt.shape[0]
     g = min(group_size, T)
     n_groups = -(-T // g)
     pad = n_groups * g - T
     if pad:
         xt = F.pad(xt, (0, 0, 0, pad))
+        xd = F.pad(xd, (0, 0, 0, pad)) if routed_tp else xt
     cap = capacity(g, top_k, capacity_factor, E, no_drop)
-    outs, auxs = zip(*(_group(p, xt[i * g:(i + 1) * g], top_k, cap, dispatch)
+    outs, auxs = zip(*(_group(p, xt[i * g:(i + 1) * g], xd[i * g:(i + 1) * g],
+                              top_k, cap, dispatch, shard if routed_tp else None)
                        for i in range(n_groups)), strict=True)
     y = torch.cat(outs)[:T].reshape(B, S, D)
+    ys = None
     if "shared" in p:
         sp = p["shared"]
-        h = F.silu(x @ sp["wg"].to(x.dtype)) * (x @ sp["wu"].to(x.dtype))
-        y = y + h @ sp["wd"].to(x.dtype)
+        xs = xe if shared_tp else x
+        h = F.silu(xs @ sp["wg"].to(x.dtype)) * (xs @ sp["wu"].to(x.dtype))
+        ys = h @ sp["wd"].to(x.dtype)
+        if shared_tp == routed_tp:  # both partial sums, or both whole
+            y, ys = y + ys, None
+    if routed_tp:
+        y = TP.leave(y, shard)
+    if ys is not None:
+        y = y + (TP.leave(ys, shard) if shared_tp else ys)
     return y, ordered_mean(torch.stack(auxs))

@@ -9,7 +9,8 @@ that ``nn.sharding`` splits.
   rank's part;
 * :func:`leave`: an all-reduce forward, the identity backward. The
   product over a sharded inner dimension (the attention output over the
-  rank's heads, the MLP's down projection over its columns, the
+  rank's heads, the MLP's down projection over its columns, the MoE
+  layer's combine over the rank's expert columns or experts, the
   vocabulary-parallel lookup) leaves the group through it, whole on every
   rank;
 * :func:`gather_last`: the ranks' blocks of the last dimension
@@ -18,7 +19,8 @@ that ``nn.sharding`` splits.
 
 A :class:`ModelShard` names the rank's place in its model group and the
 logical axes whose leaves are split there (``"heads"``, ``"kv_heads"``,
-``"mlp"``, ``"vocab"``). Each Function adds the bytes its collective
+``"mlp"``, ``"vocab"``, and the MoE experts' ``"moe_mlp"`` or
+``"experts_sharded"``). Each Function adds the bytes its collective
 returns on this rank to ``ModelShard.traffic``. Without a group (the
 dry run on the meta device) the Functions move nothing and only count:
 a meta tensor's all-reduce is its own shape, and its gather the blocks'

@@ -4,9 +4,10 @@ run in a subprocess of 8 host devices:
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
         python tests/_torch_dryrun_jax.py OUT.json CASE...
 
-A case is ``arch:shape:DxM``, or ``layout:arch:MESH`` (below). Each
-``arch:shape:DxM`` case sets ``repro.launch.dryrun``'s
-``CFG_OVERRIDES`` to the config's smoke-variant fields (:func:`overrides`),
+A case is ``arch:shape:DxM[:field=value,...]``, or ``layout:arch:MESH``
+(below). Each ``arch:shape:DxM`` case sets ``repro.launch.dryrun``'s
+``CFG_OVERRIDES`` to the config's smoke-variant fields (:func:`overrides`)
+and the case's own ``field=value`` pairs (:func:`case_overrides`),
 lowers and compiles the combo with ``lower_train`` or ``lower_serve`` on a
 ``(data, model)`` mesh of Auto axes (``repro.compat.make_mesh`` gives
 Explicit axes, which the trainer's ``with_sharding_constraint`` refuses
@@ -50,6 +51,17 @@ def overrides(configs, arch):
             and getattr(smoke, f.name) != getattr(full, f.name)}
 
 
+def case_overrides(configs, case):
+    """``(arch, shape, data, model, CFG_OVERRIDES)`` of an
+    ``arch:shape:DxM[:field=value,...]`` case."""
+    arch, shape, dims, *extra = case.split(":")
+    data, model = (int(x) for x in dims.split("x"))
+    cfg = overrides(configs, arch)
+    for pair in extra:
+        cfg.update(kv.split("=") for kv in pair.split(","))
+    return arch, shape, data, model, cfg
+
+
 def _hide(hlo, pattern, op):
     """``hlo`` with ``op`` renamed on the lines matching ``pattern``, so
     the walker skips it."""
@@ -65,10 +77,9 @@ def run_case(case):
     from repro import configs
     from repro.launch import dryrun, hlo_cost
 
-    arch, shape, dims = case.split(":")
-    data, model = (int(x) for x in dims.split("x"))
+    arch, shape, data, model, cfg = case_overrides(configs, case)
     dryrun.CFG_OVERRIDES.clear()
-    dryrun.CFG_OVERRIDES.update(overrides(configs, arch))
+    dryrun.CFG_OVERRIDES.update(cfg)
     mesh = jax.make_mesh((data, model), ("data", "model"),
                          axis_types=(AxisType.Auto, AxisType.Auto),
                          devices=jax.devices()[:data * model])

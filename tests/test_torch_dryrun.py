@@ -66,11 +66,10 @@ def jax_cases(tmp_path_factory, cases):
 
 
 def port_case(monkeypatch, case):
-    """``(record, layout or None)`` of the port's count of ``case``."""
-    arch, shape, dims = case.split(":")
-    data, model = (int(x) for x in dims.split("x"))
-    monkeypatch.setattr(dryrun, "CFG_OVERRIDES",
-                        jside.overrides(configs, arch))
+    """``(record, layout or None)`` of the port's count of ``case``
+    (``arch:shape:DxM[:field=value,...]``)."""
+    arch, shape, data, model, cfg = jside.case_overrides(configs, case)
+    monkeypatch.setattr(dryrun, "CFG_OVERRIDES", cfg)
     mesh = {"data": data, "model": model}
     if configs.INPUT_SHAPES[shape][2] != "train":
         return dryrun.count_serve(arch, shape, mesh), None
