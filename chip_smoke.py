@@ -153,17 +153,18 @@ Phases, each raising on failure (the script then exits non-zero):
               --collective dense_allreduce.
 13. families — the model families at published widths, RegTop-k at
               S = 0.01 with the fastpath on, 3 steps each: internvl2-1b
-              (all 24 layers, through train.run's flags; W = 4, batch 8 x
+              (12 of 24 layers; W = 4, batch 8 x
               512 behind a 256-patch prefix), qwen2.5-3b (6 of 36 layers;
               W = 2, batch 4 x 512), deepseek-moe-16b (1 of 28 layers;
               W = 2, batch 4 x 512), whisper-tiny (all 4 + 4 layers,
               through train.run's flags; W = 8, batch 16 x 448 decoder
-              tokens over 1500 encoder frames), mamba2-780m (all 48
-              layers, through train.run's flags; W = 2, batch 4 x 512) and
+              tokens over 1500 encoder frames), mamba2-780m (24 of 48
+              layers; W = 2, batch 4 x 512) and
               zamba2-7b (8 of 81 layers: one group of five mamba blocks and
               the shared attention block, then two trailing blocks; W = 2,
               batch 4 x 512), the depth cut where the card's 80 GB forces
-              it, the cut configs driven through build_plan and
+              it (internvl2-1b's and mamba2-780m's for the script's time
+              limit), the cut configs driven through build_plan and
               make_train_step: finite losses, kernel 1's launches = steps
               x fused leaves, the certificate hit rate, the peak device
               memory beside the reckoned one, one more step from the
@@ -176,12 +177,12 @@ Phases, each raising on failure (the script then exits non-zero):
               1e-4 relative.
 14. serving — launch/serve.py and each family's prefill, init_cache and
               decode_step, models at published widths in float32 (TF32
-              off), weights from the port's seeded init: qwen2.5-3b (18 of
-              its 36 layers, batch 8, max_len 2048), zamba2-7b (81, batch
-              8, 2048), mamba2-780m (48, batch 8), whisper-tiny (4 + 4,
-              batch 8, max_len 448 over 1500 frames) and deepseek-moe-16b
-              (2 of its 28 layers, batch 4, 1024: the whole model's host
-              init takes ~160 s); the depths cut for the script's time
+              off), weights from the port's seeded init: qwen2.5-3b (9 of
+              its 36 layers, batch 8, max_len 2048), zamba2-7b (27 of 81,
+              batch 8, 2048), mamba2-780m (24 of 48, batch 8), whisper-tiny (4 +
+              4, batch 8, max_len 448 over 1500 frames) and
+              deepseek-moe-16b (1 of its 28 layers, batch 4, 1024: the
+              whole model's host init takes ~160 s); the depths cut for the script's time
               limit. Each: prefill (chunked attention, blocks of
               1024) over 2 x 1536 tokens (448 for whisper-tiny) against
               forward(mode="dense"); 32 teacher-forced decode steps against
@@ -209,7 +210,7 @@ Phases, each raising on failure (the script then exits non-zero):
 15. model parallel — the model axis (one RegTop-k round per (worker,
               model shard), each shard's block of a leaf flattened on its
               own with its own k): (a) on one card, where the forward, the
-              params and Adam stay whole, qwen2.5-3b at 6 of 36 layers (W
+              params and Adam stay whole, qwen2.5-3b at 3 of 36 layers (W
               = 2 per layout's data axis, batch 4 x 512, RegTop-k at S =
               0.01, Adam, 3 steps) on the host meshes of --workers 4 with
               --model-parallel 2 ((data, model) = (2, 2)) and 4 ((1, 4),
@@ -230,14 +231,20 @@ Phases, each raising on failure (the script then exits non-zero):
               to step 6 against the unbroken run in bits, each rank's
               state bytes; (c) tensor parallel at published widths on 4
               gloo ranks, 3 steps, after each config's one-card twin:
-              qwen2.5-3b at (1, 4), 12 of 36 layers (its kv heads whole,
-              its query heads split), batch 4 x 512, internvl2-1b at 12
-              of 24 layers at (2, 2), batch 8 x 512 (cut for the script's
-              time limit), and deepseek-moe-16b at (1, 4), 1
+              qwen2.5-3b at (1, 4), 3 of 36 layers (its kv heads whole,
+              its query heads split), batch 4 x 512, internvl2-1b at 6
+              of 24 layers at (2, 2), batch 8 x 512 (both cut for the
+              script's time limit), deepseek-moe-16b at (1, 4), 1
               of 28 layers, batch 4 x 512 (W = 1: one group of 2048
               tokens, capacity 240), in both MoE layouts (each expert's
-              width split, or 16 of the 64 experts a rank), held against
-              the twin as in (b), fastpath on == off in bits on every
+              width split, or 16 of the 64 experts a rank), and
+              zamba2-7b at (1, 4), 8 of 81 layers (one group of 5 mamba
+              blocks and the shared attention block, then 2 trailing
+              blocks; the SSD mixer on each rank's channels and heads,
+              its in_proj, conv_w and conv_b gathered whole), batch 4 x
+              512, held against
+              the twin as in (b) (the SSD's A_log and dt_bias at rtol
+              1e-4), fastpath on == off in bits on every
               rank (the expert layout with the fastpath on only), whole
               leaves (the router, the norms) bit-equal across the ranks,
               each rank's blocks, kernel 1 once per fused leaf a step on
@@ -1866,10 +1873,10 @@ def _flat(tree) -> dict:
 
 
 def _param_diff(got: dict, want: dict, adam_step: float = 0.0,
-                floors=None) -> dict:
+                floors=None, rtol: float = 1e-5) -> dict:
     """Two parameter trees: bit mismatches, the largest difference relative
-    to ``|want| + max|leaf of want|``, and the elements beyond rtol 1e-5
-    with a floor of 1e-5 of their leaf's largest magnitude
+    to ``|want| + max|leaf of want|``, and the elements beyond ``rtol``
+    (1e-5) with a floor of ``rtol`` of their leaf's largest magnitude
     (``tests/test_torch_train.py``'s tolerance). ``ok`` when there are
     none; or, given ``adam_step`` (the most that flipped Adam steps can
     move an element), when at most 0.1% are beyond and by no more than
@@ -1885,7 +1892,7 @@ def _param_diff(got: dict, want: dict, adam_step: float = 0.0,
         floor = float(w.abs().max()) if floors is None else floors[path]
         diff = (g - w).abs()
         worst = max(worst, float((diff / (w.abs() + floor)).max()))
-        beyond += int((diff > 1e-5 * w.abs() + 1e-5 * floor).sum())
+        beyond += int((diff > rtol * w.abs() + rtol * floor).sum())
         max_abs, n = max(max_abs, float(diff.max())), n + w.numel()
     ok = beyond == 0 or (beyond <= 1e-3 * n and max_abs <= adam_step)
     return {"mismatches": mismatches, "largest_rel_diff": worst,
@@ -2740,17 +2747,19 @@ def phase_options(smi: str, ckpt_dir=None) -> dict:
 # phase 13: the model families at published widths. Each run: the layers
 # it runs (None: all, through train.run's flags; else build_plan and
 # make_train_step on the depth-cut config), W, the global batch and the
-# sequence (FAMILY_SEQ unless given). The depth is cut only where the
-# card's 80 GB forces it.
+# sequence (FAMILY_SEQ unless given). The depth is cut where the card's
+# 80 GB forces it, and internvl2-1b's and mamba2-780m's to half for the
+# script's time limit (whole through train.run's flags until phase 15
+# (c) trained zamba2-7b: 24 and 48 layers, 51.42 and 74.48 GB peaks).
 FAMILY_STEPS = 3
 FAMILY_SEQ = 512
 FAMILY_RUNS = {
-    "internvl2-1b": dict(layers=None, workers=4, batch=8),
+    "internvl2-1b": dict(layers=12, workers=4, batch=8),
     "qwen2.5-3b": dict(layers=6, workers=2, batch=4),
     "deepseek-moe-16b": dict(layers=1, workers=2, batch=4),
     # Whisper's text context: 448 decoder tokens over 1500 encoder frames
     "whisper-tiny": dict(layers=None, workers=8, batch=16, seq=448),
-    "mamba2-780m": dict(layers=None, workers=2, batch=4),
+    "mamba2-780m": dict(layers=24, workers=2, batch=4),
     # one group (five mamba blocks and the shared attention block), then
     # two trailing blocks
     "zamba2-7b": dict(layers=8, workers=2, batch=4),
@@ -2976,15 +2985,20 @@ def phase_families(smi: str) -> dict:
 # (~10 ns a float from one generator) is cut to keep the script inside
 # its time limit.
 SERVE_RUNS = {
-    # 18 of 36 layers (the whole model's draw took 30.7 s)
-    "qwen2.5-3b": dict(batch=8, max_len=2048, layers=18),
-    "zamba2-7b": dict(batch=8, max_len=2048),
-    "mamba2-780m": dict(batch=8, max_len=2048),
+    # 9 of 36 layers (the whole model's draw took 30.7 s, 18 layers' 14.8)
+    "qwen2.5-3b": dict(batch=8, max_len=2048, layers=9),
+    # 27 of 81 layers: four groups of five mamba blocks and the shared
+    # block, then the three trailing blocks (the whole model's host init
+    # took 48.8 s)
+    "zamba2-7b": dict(batch=8, max_len=2048, layers=27),
+    # 24 of 48 layers (the whole model's host init took 7.0 s)
+    "mamba2-780m": dict(batch=8, max_len=2048, layers=24),
     # Whisper's text context over its 1500 encoder frames
     "whisper-tiny": dict(batch=8, max_len=448),
-    # 2 of 28 layers: the whole model's host init (16.7 billion draws from
-    # one generator, ~160 s) takes longer than the rest of the phase
-    "deepseek-moe-16b": dict(batch=4, max_len=1024, layers=2),
+    # 1 of 28 layers: the whole model's host init (16.7 billion draws from
+    # one generator, ~160 s) takes longer than the rest of the phase (2
+    # layers' 12.0 s)
+    "deepseek-moe-16b": dict(batch=4, max_len=1024, layers=1),
 }
 SERVE_PREFILL = (2, 1536)  # two KV blocks of 1024, the last one padded
 SERVE_FORCED = 32  # teacher-forced decode steps held against forward
@@ -3429,11 +3443,13 @@ def phase_serving(smi: str) -> dict:
     return out
 
 
-# phase 15: the model axis. (a) qwen2.5-3b at phase 13's depth and batch on
-# the host meshes of --workers 4 with a model axis of 2 and of 4; (b) four
+# phase 15: the model axis. (a) qwen2.5-3b at phase 13's batch and half its
+# depth (for the script's time limit; 6 layers until phase 15 (c) trained
+# zamba2-7b) on the host meshes of --workers 4 with a model axis of 2 and
+# of 4; (b) four
 # gloo ranks at (data, model) = (2, 2) on paper-resnet-proxy, tensor
 # parallel; (c) four gloo ranks, tensor parallel at published widths.
-MP_ARCH, MP_LAYERS, MP_BATCH, MP_DEVICES = "qwen2.5-3b", 6, 4, 4
+MP_ARCH, MP_LAYERS, MP_BATCH, MP_DEVICES = "qwen2.5-3b", 3, 4, 4
 MP_MODELS = (2, 4)
 MP_RANK_STEPS, MP_RANK_CKPT = 6, 3
 MP_RANK_RUNS = {"sparse_allgather": [],
@@ -3495,7 +3511,7 @@ def _to_host(params, sp):
 
 
 def model_parallel_card(smi: str) -> dict:
-    """Phase 15 (a): qwen2.5-3b at 6 of 36 layers, batch 4 x 512, on the
+    """Phase 15 (a): qwen2.5-3b at 3 of 36 layers, batch 4 x 512, on the
     host meshes of 4 devices with a model axis of 2 (W = 2) and of 4 (W
     = 1), fastpath on against off: params and every sparsifier-state
     field in bits, kernel 1 once per fused leaf per step (the W x M rows
@@ -3767,18 +3783,19 @@ def model_parallel_ranks(smi: str, device=None) -> dict:
 
 # (c): each run's config, depth (None: whole), (data, model) layout and
 # global batch of FAMILY_SEQ tokens, the config's fields replaced and
-# whether it also runs with the fastpath off; qwen2.5-3b at the deepest
-# depth whose 4 allocators' reserve leaves the card a margin (PERF.md: 14
-# layers reserved 78.9-80.9 GB of 85.0, and one run of the script failed
-# there); internvl2-1b at half its depth and deepseek-moe-16b's expert
-# layout with the fastpath on only, to keep the script inside its time
-# limit; deepseek-moe-16b at W = 1, so a worker routes one group of 2048
-# tokens (capacity 240), in both MoE layouts (the expert one 16 experts a
-# rank)
+# whether it also runs with the fastpath off. Depths cut to keep the
+# script inside its time limit: qwen2.5-3b at 3 of 36 layers and
+# internvl2-1b at 6 of 24 (12 and 12 until zamba2-7b came; qwen2.5-3b's
+# 14 layers reserved 78.9-80.9 GB of 85.0, PERF.md), deepseek-moe-16b's
+# expert layout with the fastpath on only; deepseek-moe-16b at W = 1, so a
+# worker routes one group of 2048 tokens (capacity 240), in both MoE
+# layouts (the expert one 16 experts a rank); zamba2-7b at 8 of 81
+# layers, one group of 5 mamba blocks and the shared block, then 2
+# trailing blocks (tp_prediction: 47.7 GB summed; 14 layers 77.5 GB)
 TP_RUNS = {
-    "qwen2.5-3b": dict(arch="qwen2.5-3b", layers=12, data=1, model=4,
+    "qwen2.5-3b": dict(arch="qwen2.5-3b", layers=3, data=1, model=4,
                        batch=4),
-    "internvl2-1b": dict(arch="internvl2-1b", layers=12, data=2, model=2,
+    "internvl2-1b": dict(arch="internvl2-1b", layers=6, data=2, model=2,
                          batch=8),
     "deepseek-moe-16b:tensor": dict(
         arch="deepseek-moe-16b", layers=1, data=1, model=4, batch=4,
@@ -3786,6 +3803,7 @@ TP_RUNS = {
     "deepseek-moe-16b:expert": dict(
         arch="deepseek-moe-16b", layers=1, data=1, model=4, batch=4,
         fields={"moe_parallelism": "expert"}, off=False),
+    "zamba2-7b": dict(arch="zamba2-7b", layers=8, data=1, model=4, batch=4),
 }
 TP_STEPS = 3
 # an MoE run against its twin: a flipped token's top-k gap in the twin up
@@ -3797,6 +3815,10 @@ TP_ROUTE_TIE = ROUTE_TIE
 TP_DRIFT_TIE = 1e-4
 TP_FLIP_LOSS_RTOL = 5e-4
 TP_SORT_BYTES = 32  # the dense fallback's sort, a byte count an element
+# the SSD's decay leaves, held to the twin at rtol 1e-4: their gradients
+# carry a float32 spread of that size (tests/test_torch_ssd.py)
+TP_DECAY_LEAVES = ("mixer.A_log", "mixer.dt_bias")
+TP_DECAY_RTOL = 1e-4
 TP_TIMEOUT = 900.0  # seconds for the 4 ranks of every config
 
 
@@ -3891,6 +3913,20 @@ def tp_prediction(name: str) -> dict:
     return {"layers": cfg.n_layers, "rank_bytes": per_rank,
             "sum_bytes": W * M * per_rank,
             "rank_collective_bytes": rank["collectives"][1]}
+
+
+def _tp_pooled(diffs: list, adam_step: float) -> dict:
+    """The ranks' ``_param_diff`` results pooled, with ``_param_diff``'s
+    ``ok`` rule over the pool."""
+    pool = {"mismatches": sum(x["mismatches"] for x in diffs),
+            "largest_rel_diff": max(x["largest_rel_diff"] for x in diffs),
+            "beyond_rtol": sum(x["beyond_rtol"] for x in diffs),
+            "max_abs_diff": max(x["max_abs_diff"] for x in diffs),
+            "n": sum(x["n"] for x in diffs)}
+    pool["ok"] = pool["beyond_rtol"] == 0 or (
+        pool["beyond_rtol"] <= 1e-3 * pool["n"]
+        and pool["max_abs_diff"] <= adam_step)
+    return pool
 
 
 def _tp_timed(fn, times: dict, model_group):
@@ -4037,8 +4073,16 @@ def _tp_arch(rank: int, device: str, name: str, out_dir: str) -> dict:
             got = {k: x for k, x in tree_items(params)
                    if split[k] or rank == 0}
             want = {k: mine[k].to(device) for k in got}
-            row["vs_twin"] = _param_diff(got, want, 2 * FAMILY_LR * TP_STEPS,
-                                         floors=saved["floors"])
+            decay = {k for k in got if k.endswith(TP_DECAY_LEAVES)}
+            row["vs_twin"] = _param_diff(
+                {k: x for k, x in got.items() if k not in decay},
+                {k: x for k, x in want.items() if k not in decay},
+                2 * FAMILY_LR * TP_STEPS, floors=saved["floors"])
+            if decay:  # the SSD's A_log and dt_bias at TP_DECAY_RTOL
+                row["decay_vs_twin"] = _param_diff(
+                    {k: got[k] for k in decay}, {k: want[k] for k in decay},
+                    2 * FAMILY_LR * TP_STEPS, floors=saved["floors"],
+                    rtol=TP_DECAY_RTOL)
             # the router, a whole leaf, also on its own
             router = [k for k in got if k.endswith("router")]
             if router:
@@ -4251,16 +4295,10 @@ def model_parallel_tp(smi: str, device=None) -> dict:
                     raise AssertionError(
                         f"tensor parallel {name}: {path} held as "
                         f"{blocks[path]}, its block is {p.local_shape}")
-        diffs = [o["vs_twin"] for o in on]
-        diff = {"mismatches": sum(x["mismatches"] for x in diffs),
-                "largest_rel_diff": max(x["largest_rel_diff"] for x in diffs),
-                "beyond_rtol": sum(x["beyond_rtol"] for x in diffs),
-                "max_abs_diff": max(x["max_abs_diff"] for x in diffs),
-                "n": sum(x["n"] for x in diffs)}
         adam_step = 2 * FAMILY_LR * TP_STEPS
-        diff["ok"] = diff["beyond_rtol"] == 0 or (
-            diff["beyond_rtol"] <= 1e-3 * diff["n"]
-            and diff["max_abs_diff"] <= adam_step)
+        diff = _tp_pooled([o["vs_twin"] for o in on], adam_step)
+        decays = [o["decay_vs_twin"] for o in on if "decay_vs_twin" in o]
+        decay = _tp_pooled(decays, adam_step) if decays else None
         got = on[0]["losses"]
         route = tw.get("flips")
         flips = route["flips"] if route else None
@@ -4273,6 +4311,7 @@ def model_parallel_tp(smi: str, device=None) -> dict:
         loss_rel = [abs(g - w) / abs(w) for g, w in zip(got, losses, strict=True)]
         router = on[0].get("router_vs_twin")
         ok = (diff["ok"] and (router is None or router["ok"])
+              and (decay is None or decay["ok"])
               and all(r <= tol for r, tol in zip(loss_rel, loss_tol, strict=True))
               and all(math.isfinite(x) for x in got))
         peaks = [o["peak_bytes"] for o in on]
@@ -4286,7 +4325,7 @@ def model_parallel_tp(smi: str, device=None) -> dict:
                "batch": run["batch"], "fields": run.get("fields", {}),
                "losses": got, "twin_losses": losses, "loss_rel_diff": loss_rel,
                "loss_held": [not f for f in flipped],
-               "loss_tol": loss_tol, "vs_twin": diff,
+               "loss_tol": loss_tol, "vs_twin": diff, "decay_vs_twin": decay,
                "router_vs_twin": router, "route_flips": route,
                "routings_a_step": tw.get("routings"), "peaks": peaks,
                "reserved": [o["reserved_bytes"] for o in on],
@@ -4313,6 +4352,10 @@ def model_parallel_tp(smi: str, device=None) -> dict:
             f"{diff['mismatches']} bit mismatches, {diff['beyond_rtol']} of "
             f"{diff['n']} beyond rtol 1e-5 (largest |diff| "
             f"{diff['max_abs_diff']:.3e}, 2 lr a step {adam_step:.1e}); "
+            + ("" if decay is None else
+               f"the SSD's A_log and dt_bias {decay['beyond_rtol']} of "
+               f"{decay['n']} beyond rtol {TP_DECAY_RTOL} (largest |diff| "
+               f"{decay['max_abs_diff']:.3e}); ")
             + ("fastpath on == off in bits on every rank; " if with_off
                else "fastpath on only; ")
             + "whole leaves equal in "
@@ -4344,7 +4387,12 @@ def model_parallel_tp(smi: str, device=None) -> dict:
             f"{tw['peak'] / 1e9:.2f} GB; rank 0's collectives in its profiled "
             f"step (the fastpath-{'off' if with_off else 'on'} run's last): "
             + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in comm.items())
-            + f" of a step with {row['device_ms']:.1f} ms of device time ({smi})")
+            + f" of a step with {row['device_ms']:.1f} ms of device time; "
+            "the model group's bytes a rank a step (tp_prediction): "
+            f"{pred['rank_collective_bytes'].get('all-reduce:model', 0) / 1e9:.3f}"
+            " GB all-reduced, "
+            f"{pred['rank_collective_bytes'].get('all-gather:model', 0) / 1e9:.3f}"
+            f" GB gathered ({smi})")
         r0 = row["rank_stages_s"][0]
         log(f"tensor parallel {name}: seconds, this process "
             + ", ".join(f"{k} {v:.1f}" for k, v in tw["stages_s"].items())
@@ -4354,7 +4402,7 @@ def model_parallel_tp(smi: str, device=None) -> dict:
                 f"tensor parallel {name}: against the one-card twin: losses "
                 f"{got} vs {losses} (relative {loss_rel}, held to {loss_tol}),"
                 f" params {diff}, the router {router}, routing flips a step "
-                f"{flips}")
+                f"{flips}, the SSD's decay leaves {decay}")
     log(f"tensor parallel: the spawn of every run took {spawn_s:.1f} s")
     out["launches"] = launches
     return out

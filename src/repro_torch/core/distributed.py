@@ -41,10 +41,11 @@ leaf the divisibility guard leaves whole runs M equal rounds on the whole
 leaf. On one card, and across ranks for a family whose forward is not
 sharded (``models.tensor_parallel``), the forward, the parameters and
 Adam stay whole on every worker. Across ranks for a family that shards
-it (the dense, MoE and VLM decoders), each rank holds, computes and
-updates its own block of every leaf the spec splits (tensor parallelism,
-:func:`make_train_step`; the MoE experts in either layout of
-``moe_parallelism``).
+it (the dense, MoE and VLM decoders, the SSM and hybrid models), each
+rank holds, computes and updates its own block of every leaf the spec
+splits (tensor parallelism, :func:`make_train_step`; the MoE experts in
+either layout of ``moe_parallelism``; the SSD mixer on its channels and
+heads).
 
 A partial-participation schedule (``DistConfig.participation``) draws
 one mask a round, shared by every leaf: participants aggregate with the
@@ -985,7 +986,9 @@ def model_shard(cfg: ModelConfig, plan, group, index: int
     the meta device: counted, not moved) when the trainer shards ``cfg``'s
     forward: a plan of M > 1 model shards for a family of
     ``models.tensor_parallel``. None otherwise: the forward stays whole.
-    Its split axes are those of the plan's specs."""
+    Its split axes are those of the plan's specs; the kv heads split with
+    the query heads whole, or one of the SSD's channels (``"d_inner"``) and
+    heads (``"ssm_heads"``) split without the other, raises."""
     M = tree_leaves(plan)[0].shards
     if M == 1 or not tensor_parallel(cfg):
         return None
@@ -993,6 +996,13 @@ def model_shard(cfg: ModelConfig, plan, group, index: int
     if "kv_heads" in split and "heads" not in split:
         raise ValueError("the kv heads are split over the model axis but the "
                          "query heads are whole")
+    if ("d_inner" in split) != ("ssm_heads" in split):
+        one, other = (("d_inner", "ssm_heads") if "d_inner" in split
+                      else ("ssm_heads", "d_inner"))
+        raise ValueError(
+            f"{cfg.name}: the SSD's {one!r} is split over the model axis of "
+            f"{M} but its {other!r} is whole; the mixer splits both or "
+            "neither")
     return ModelShard(group, index, M, split)
 
 
@@ -1063,8 +1073,9 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
     element by element.
 
     Across the ranks of ``mesh`` with M > 1, for a family that shards its
-    forward (``models.tensor_parallel``: the dense, MoE and VLM decoders;
-    the MoE experts in either of ``moe_parallelism``'s layouts), the
+    forward (``models.tensor_parallel``: the dense, MoE and VLM decoders,
+    the MoE experts in either of ``moe_parallelism``'s layouts; the SSM
+    and hybrid models, the SSD mixer on its channels and heads), the
     step is tensor parallel: ``params`` and the optimizer state are this
     rank's blocks (``nn.sharding.shard_params`` under the plan's specs,
     a leaf the divisibility guard leaves whole whole on every rank), the
@@ -1075,8 +1086,8 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
     the model group. The row-parallel sums are taken by ``all_reduce`` as
     GSPMD takes them, so the result is the one-card run's to rounding, not
     in bits; a whole leaf is equal in bits on the ranks of a model group.
-    For the other families (the SSM, hybrid and encoder-decoder ones)
-    only the sparsify stage is split across ranks:
+    For the other family (the encoder-decoder one) only the sparsify
+    stage is split across ranks:
     every rank of a model group runs its worker's whole forward and
     backward and holds the whole parameters and Adam state, and each split
     leaf's aggregate is gathered over the model group.

@@ -44,9 +44,10 @@ def get_family(cfg: ModelConfig) -> ModuleType:
 def tensor_parallel(cfg: ModelConfig) -> bool:
     """Whether the trainer shards ``cfg``'s forward, parameters and Adam
     over the model axis: its family module lists the family in its
-    ``TENSOR_PARALLEL`` (``models.lm``'s dense, MoE and VLM decoders; a
-    family without it, the SSM, hybrid and encoder-decoder ones, keeps a
-    whole forward, and the model axis splits its sparsify stage alone)."""
+    ``TENSOR_PARALLEL`` (``models.lm``'s dense, MoE and VLM decoders,
+    ``models.ssm``'s SSM and hybrid models; a family without it, the
+    encoder-decoder one, keeps a whole forward, and the model axis splits
+    its sparsify stage alone)."""
     return cfg.family in getattr(get_family(cfg), "TENSOR_PARALLEL", ())
 
 

@@ -14,6 +14,18 @@ applications. ``remat`` recomputes each mamba block and, separately, each
 application of the shared block in the backward pass
 (``torch.utils.checkpoint``).
 
+Tensor parallelism (the families of ``TENSOR_PARALLEL``: both):
+``loss_fn``, ``forward`` and the blocks take a ``shard``
+(``nn.tensor_parallel.ModelShard``) when the trainer's rank holds its
+model shard's block of each leaf that ``nn.sharding`` splits over the
+model axis. The mamba mixer runs on the rank's ``"d_inner"`` channels
+and ``"ssm_heads"`` (``nn.ssd``); the shared block's attention and MLP on
+its heads and columns, as ``models.lm``'s blocks (its gradient the sum
+of the rank's blocks over its ``n_groups`` applications); the embedding
+and the unembedding on its vocabulary rows, the logits gathered over the
+model group before the loss. The norms stay whole. Serving runs whole,
+on one card.
+
 Serving: the decode cache holds each mamba block's conv window and SSM
 state (``grouped.*`` on ``[n_groups, per_group, ...]``, ``trailing.*`` on
 ``[n_trailing, ...]``) and one KV cache per application of the shared
@@ -35,6 +47,10 @@ from repro_torch.nn import ssd
 from repro_torch.nn.sharding import prefix_axes
 
 Params = Dict[str, Any]
+
+# the families of this module whose forward the trainer shards over the
+# model axis: both
+TENSOR_PARALLEL = frozenset({"ssm", "hybrid"})
 
 
 def _plan(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -121,59 +137,65 @@ def param_axes(cfg: ModelConfig) -> Params:
     return axes
 
 
-def _mamba_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, cache=None):
+def _mamba_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, cache=None,
+                 shard=None):
     """``(x, new_cache)``: the chunked scan without a cache (new_cache
-    None), one decode step with one."""
+    None), one decode step with one; ``shard`` the rank's model shard
+    (module docstring)."""
     h = L.rmsnorm(lp["norm"], x, eps=cfg.norm_eps)
     y, new_cache = ssd.ssd_block_apply(
         lp["mixer"], h, d_inner=cfg.d_inner, headdim=cfg.ssm_headdim,
         d_state=cfg.ssm_state, chunk=cfg.ssm_chunk, cache=cache,
-        norm_eps=cfg.norm_eps)
+        norm_eps=cfg.norm_eps, shard=shard)
     return x + y, new_cache
 
 
-def _mamba_x(lp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return _mamba_block(lp, x, cfg)[0]
+def _mamba_x(lp: Params, x: torch.Tensor, cfg: ModelConfig, shard=None
+             ) -> torch.Tensor:
+    return _mamba_block(lp, x, cfg, shard=shard)[0]
 
 
 def _attn_block(lp: Params, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor, mode: str = "dense") -> torch.Tensor:
+                positions: torch.Tensor, mode: str = "dense", shard=None
+                ) -> torch.Tensor:
     h = L.rmsnorm(lp["norm1"], x, eps=cfg.norm_eps)
-    q, k, v = L.attn_qkv(lp["attn"], h)
+    q, k, v = L.attn_qkv(lp["attn"], h, shard=shard)
     q = L.rope(q, positions, base=cfg.rope_base)
     k = L.rope(k, positions, base=cfg.rope_base)
     ctx = attend(q, k, v, cfg, mode, causal=True)
-    x = x + L.attn_out(lp["attn"], ctx)
+    x = x + L.attn_out(lp["attn"], ctx, shard=shard)
     h = L.rmsnorm(lp["norm2"], x, eps=cfg.norm_eps)
-    return x + L.mlp(lp["mlp"], h, act=cfg.act)
+    return x + L.mlp(lp["mlp"], h, act=cfg.act, shard=shard)
 
 
-def forward(params: Params, cfg: ModelConfig, batch, *, mode: str = "dense"
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Params, cfg: ModelConfig, batch, *, mode: str = "dense",
+            shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(logits [B, S, padded_vocab], aux)``, aux 0 (no aux loss);
-    ``mode`` is the shared block's attention, "dense" or "chunked"."""
-    x = L.embed(params["embed"], batch["tokens"], cfg.torch_dtype)
+    ``mode`` is the shared block's attention, "dense" or "chunked"; under
+    ``shard`` the rank's blocks, the logits whole."""
+    x = L.embed(params["embed"], batch["tokens"], cfg.torch_dtype, shard)
     positions = torch.arange(x.shape[1], device=x.device)
     n_groups, per_group, trailing = _plan(cfg)
     if n_groups:
         shared = params["shared_attn"]
         for group in _unstack(params["grouped"], n_groups):
             for lp in _unstack(group, per_group):
-                x = run_block(_mamba_x, lp, x, cfg, remat=cfg.remat)
-            x = run_block(_attn_block, shared, x, cfg, positions, mode,
+                x = run_block(_mamba_x, lp, x, cfg, shard, remat=cfg.remat)
+            x = run_block(_attn_block, shared, x, cfg, positions, mode, shard,
                           remat=cfg.remat)
     if trailing:
         for lp in _unstack(params["trailing"], trailing):
-            x = run_block(_mamba_x, lp, x, cfg, remat=cfg.remat)
+            x = run_block(_mamba_x, lp, x, cfg, shard, remat=cfg.remat)
     x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return L.unembed(params["embed"], x), aux
+    return L.unembed(params["embed"], x, shard), aux
 
 
-def loss_fn(params: Params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
+def loss_fn(params: Params, cfg: ModelConfig, batch, shard=None
+            ) -> Tuple[torch.Tensor, Dict]:
     """Mean next-token cross-entropy, with no aux term; metrics ``{"nll",
-    "aux"}``."""
-    logits, aux = forward(params, cfg, batch)
+    "aux"}``. ``shard``: the rank's model shard (module docstring)."""
+    logits, aux = forward(params, cfg, batch, shard=shard)
     nll = token_nll(logits, cfg, batch["labels"])
     return nll, {"nll": nll, "aux": aux}
 

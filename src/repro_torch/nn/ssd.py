@@ -12,6 +12,27 @@ Every three-operand ``einsum`` of the JAX module is written as two
 explicit two-operand steps, so the contraction order is the same on every
 machine (``torch.einsum`` picks it through ``opt_einsum`` where that is
 installed).
+
+Tensor parallelism: under a ``shard`` (``nn.tensor_parallel.ModelShard``)
+that splits ``"d_inner"`` and ``"ssm_heads"``, ``ssd_block_apply`` runs
+rank r of M on its channels ``[r d_inner/M, (r+1) d_inner/M)`` of ``z``
+and ``x``, its H/M heads and all of ``B`` and ``C``. ``A_log``, ``D``,
+``dt_bias``, ``norm`` and ``out_proj``'s rows are its blocks of those
+channels and heads. ``in_proj`` (``z | x | B | C | dt``) and ``conv_w``,
+``conv_b`` (``x | B | C``) are split on ``"d_inner"`` too, but their
+contiguous blocks cut across the parts (zamba2-7b at M = 4: rank 1 holds
+the end of ``z`` and the start of ``x``, rank 3 the end of ``x`` and all
+of ``B``, ``C``, ``dt``), so the mixer gathers them whole
+(``tensor_parallel.gather_leaf``) and takes the rank's columns. The
+depthwise conv is per channel, so it runs on the rank's channels alone;
+``B`` and ``C`` are computed on every rank. The gated RMSNorm's sum of
+squares is summed over the group, so every rank divides by the same
+whole-width mean; ``out_proj``'s product over the rank's rows leaves the
+group summed. A layer's collectives, forward: all-gathers of the whole
+``in_proj``, ``conv_w`` and ``conv_b``, and all-reduces of the squares'
+sum ``[B, S, 1]`` and of the output ``[B, S, E]``; backward: all-reduces
+of those three leaves' whole gradients, of the input's gradient ``[B, S,
+E]`` and of the squares' ``[B, S, 1]``. The decode step runs whole.
 """
 from __future__ import annotations
 
@@ -21,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.regtopk_score import const_div
+from repro_torch.nn import tensor_parallel as TP
 from repro_torch.nn.layers import _normal
 
 Params = Dict[str, torch.Tensor]
@@ -168,6 +190,32 @@ def ssd_decode_step(
     return y, h_new
 
 
+def _rank_mixer(p: Params, d_inner: int, headdim: int, d_state: int,
+                shard: TP.ModelShard) -> Params:
+    """The mixer's weights for rank ``shard.index``: ``in_proj``,
+    ``conv_w`` and ``conv_b`` gathered whole and cut to the rank's columns
+    of ``z``, ``x``, ``dt`` and all of ``B``, ``C`` (``[z_r | x_r | B | C |
+    dt_r]`` and ``[x_r | B | C]``); the other leaves are the rank's blocks
+    already."""
+    M, r = shard.size, shard.index
+    width, heads = d_inner // M, d_inner // headdim // M
+    w = TP.gather_leaf(p["in_proj"], shard)
+    xbc = 2 * d_inner  # where B | C starts in in_proj
+    dt0 = xbc + 2 * d_state + r * heads
+    in_proj = torch.cat([w[:, r * width:(r + 1) * width],
+                         w[:, d_inner + r * width:d_inner + (r + 1) * width],
+                         w[:, xbc:xbc + 2 * d_state], w[:, dt0:dt0 + heads]],
+                        dim=-1)
+
+    def conv_cols(x):
+        x = TP.gather_leaf(x, shard)
+        return torch.cat([x[..., r * width:(r + 1) * width],
+                          x[..., d_inner:]], dim=-1)
+
+    return {**p, "in_proj": in_proj, "conv_w": conv_cols(p["conv_w"]),
+            "conv_b": conv_cols(p["conv_b"])}
+
+
 def ssd_block_apply(
     p: Params,
     x: torch.Tensor,  # [B, S, E]
@@ -178,9 +226,20 @@ def ssd_block_apply(
     chunk: int = 256,
     cache: Optional[Dict[str, torch.Tensor]] = None,
     norm_eps: float = 1e-6,
+    shard: Optional[TP.ModelShard] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full mamba2 mixer. If ``cache`` is given, runs one decode step
-    (S must be 1) and returns the updated cache."""
+    (S must be 1) and returns the updated cache. Under a ``shard`` that
+    splits ``"d_inner"`` the weights are the rank's blocks and the output
+    whole (module docstring)."""
+    full = d_inner
+    tp = shard is not None and shard.splits("d_inner")
+    if tp:
+        if cache is not None:
+            raise ValueError("the SSD decode step runs whole, on one card")
+        p = _rank_mixer(p, d_inner, headdim, d_state, shard)
+        x = TP.enter(x, shard)
+        d_inner //= shard.size
     H = d_inner // headdim
     zxbcdt = x @ p["in_proj"].to(x.dtype)
     z, xbc, dt = torch.split(
@@ -214,12 +273,16 @@ def ssd_block_apply(
         new_cache = {"conv": win[:, 1:], "ssm": h_new}
 
     # gated RMSNorm (the mean as the jitted reference takes it: the sum
-    # times fl(1/d_inner)), then the out-projection
+    # times fl(1/d_inner), the sum over the whole width), then the
+    # out-projection
     y = y * F.silu(z)
-    var = const_div(y.float().square().sum(-1, keepdim=True), float(d_inner))
+    sq = y.float().square().sum(-1, keepdim=True)
+    if tp:
+        sq = TP.enter(TP.leave(sq, shard), shard)
+    var = const_div(sq, float(full))
     y = (y * torch.rsqrt(var + norm_eps).to(y.dtype)) * p["norm"].to(y.dtype)
     out = y @ p["out_proj"].to(x.dtype)
-    return out, new_cache
+    return (TP.leave(out, shard) if tp else out), new_cache
 
 
 def ssd_init_cache(batch: int, d_inner: int, headdim: int, d_state: int,

@@ -15,16 +15,28 @@ that ``nn.sharding`` splits.
   rank;
 * :func:`gather_last`: the ranks' blocks of the last dimension
   concatenated in shard order (the logits over the rank's vocabulary
-  rows), and back the rank's own slice of the gradient.
+  rows), and back the rank's own slice of the gradient. Right only where
+  every rank's consumer computes the same thing from the whole (the
+  loss from the logits);
+* :func:`gather_leaf`: the ranks' blocks of a parameter leaf's last
+  dimension concatenated in shard order, forward; backward, the
+  gradient of the whole leaf summed over the group (an all-reduce) and
+  this rank's block of the sum. A leaf whose contiguous blocks do not
+  line up with what each rank computes from it (the SSD mixer's
+  ``in_proj``, ``conv_w`` and ``conv_b``, split on ``"d_inner"`` across
+  their ``z | x | B | C | dt`` parts) is gathered whole and each rank
+  takes its own columns: each rank's gradient then holds its own
+  columns' part, and the sum is the whole gradient.
 
 A :class:`ModelShard` names the rank's place in its model group and the
 logical axes whose leaves are split there (``"heads"``, ``"kv_heads"``,
-``"mlp"``, ``"vocab"``, and the MoE experts' ``"moe_mlp"`` or
-``"experts_sharded"``). Each Function adds the bytes its collective
-returns on this rank to ``ModelShard.traffic``. Without a group (the
-dry run on the meta device) the Functions move nothing and only count:
-a meta tensor's all-reduce is its own shape, and its gather the blocks'
-shape.
+``"mlp"``, ``"vocab"``, the MoE experts' ``"moe_mlp"`` or
+``"experts_sharded"``, and the SSD mixer's ``"d_inner"`` and
+``"ssm_heads"``). Each Function adds the bytes its collective returns
+on this rank to ``ModelShard.traffic``: an all-reduce the tensor's
+bytes, an all-gather the whole result's. Without a group (the dry run
+on the meta device) the Functions move nothing and only count: a meta
+tensor's all-reduce is its own shape, and its gather the blocks' shape.
 
 The collectives are ``comm.collectives``' ``_psum`` and ``_gather`` over
 the one model group; under gloo a CUDA tensor is staged through the host
@@ -116,6 +128,11 @@ class _Leave(torch.autograd.Function):
         return g, None
 
 
+def _own_block(g: torch.Tensor, shard: ModelShard) -> torch.Tensor:
+    n = g.shape[-1] // shard.size
+    return g[..., shard.index * n:(shard.index + 1) * n]
+
+
 class _GatherLast(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, shard):
@@ -131,8 +148,13 @@ class _GatherLast(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        n = g.shape[-1] // ctx.shard.size
-        return g[..., ctx.shard.index * n:(ctx.shard.index + 1) * n], None
+        return _own_block(g, ctx.shard), None
+
+
+class _GatherLeaf(_GatherLast):
+    @staticmethod
+    def backward(ctx, g):
+        return _own_block(_all_reduce(g, ctx.shard), ctx.shard).contiguous(), None
 
 
 def enter(x: torch.Tensor, shard: ModelShard) -> torch.Tensor:
@@ -149,3 +171,10 @@ def gather_last(x: torch.Tensor, shard: ModelShard) -> torch.Tensor:
     """The model group's blocks of ``x``'s last dim, in shard order; the
     gradient of this rank's block is its slice."""
     return _GatherLast.apply(x, shard)
+
+
+def gather_leaf(x: torch.Tensor, shard: ModelShard) -> torch.Tensor:
+    """The model group's blocks of ``x``'s last dim, in shard order; the
+    gradient of this rank's block is its slice of the whole gradient
+    summed over the group."""
+    return _GatherLeaf.apply(x, shard)

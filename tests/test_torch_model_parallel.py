@@ -21,23 +21,21 @@ The port runs each case from the JAX weights on one card (``mesh=None``:
 W = devices / M workers, W x M rows a leaf; the dense case with the
 fastpath off and on, which must agree in f32 bits) and across 4 gloo
 ranks (one spawn, a file store under ``tmp_path``, every wait <= 120 s;
-``launch.mesh.make_host_groups(model=M)``). Across the ranks the dense
-and MoE cases are tensor parallel (``models.tensor_parallel``; the MoE
-case's experts split in the expert layout): each rank holds, computes
-and updates its blocks of the split leaves (``nn.sharding.shard_params``),
-as GSPMD partitions the JAX trainer; the SSM case runs a whole forward on
-every rank and splits the sparsify stage alone. Each must match the JAX
-run:
+``launch.mesh.make_host_groups(model=M)``). Across the ranks every
+case is tensor parallel (``models.tensor_parallel``; the MoE case's
+experts split in the expert layout, the SSM case's mixer on its channels
+and heads): each rank holds, computes and updates its blocks of the
+split leaves (``nn.sharding.shard_params``), as GSPMD partitions the JAX
+trainer. Each must match the JAX run:
 losses and parameters to rtol 1e-5 with a floor of 1e-5 of a leaf's
 largest magnitude, ``eps`` the same (1e-4 on the SSD's ``A_log`` and
 ``dt_bias``, whose gradients agree to that at one shard already,
 ``tests/test_torch_model.py``), ``sent_idx`` per (worker, shard) as
 sets (two scores one ulp apart may list in either order), round counters
 exactly, and the controller's per-leaf k exactly and its floats to rtol
-1e-5. On one card, and for the SSM case across ranks, the port's
-forward is whole where GSPMD partitions JAX's; across ranks the dense and
-MoE cases' row-parallel sums are the gloo all-reduce's where JAX's are
-XLA's. Either way the gradients differ in their last bits, and the
+1e-5. On one card the port's forward is whole where GSPMD partitions
+JAX's; across ranks the row-parallel sums are the gloo all-reduce's
+where JAX's are XLA's. Either way the gradients differ in their last bits, and the
 losses are not compared in bits. Across the ranks a tensor-parallel rank
 must hold exactly its blocks of the split leaves, each whole leaf must
 be equal in bits on every rank, and the gathered parameters too.
@@ -424,12 +422,12 @@ def test_four_ranks_match_jax(jax_runs, ranks_out, name):
     _, outs = ranks_out
     first = outs[0][name]
     assert all(o[name]["digest"] == first["digest"] for o in outs)
-    # the dense and MoE cases train tensor parallel, the SSM case does not
+    # every case trains tensor parallel: the dense, MoE and SSM families
     from repro_torch import models
 
     cfg = _cfg("repro_torch", CASES[name][0])
     assert first["tensor_parallel"] == models.tensor_parallel(cfg), name
-    assert first["tensor_parallel"] == (cfg.family != "ssm"), name
+    assert first["tensor_parallel"], name
     if first["tensor_parallel"]:
         M = CASES[name][1][1]
         for o in outs:
