@@ -242,7 +242,11 @@ Phases, each raising on failure (the script then exits non-zero):
               blocks and the shared attention block, then 2 trailing
               blocks; the SSD mixer on each rank's channels and heads,
               its in_proj, conv_w and conv_b gathered whole), batch 4 x
-              512, held against
+              512, and whisper-tiny at (2, 2), all 4 + 4 layers (3
+              heads a rank; the encoder, the decoder's self- and
+              cross-attention and the MLPs split, the encoder output
+              entering the model group in each decoder layer), batch 8
+              x 448 over 1500 frames, held against
               the twin as in (b) (the SSD's A_log and dt_bias at rtol
               1e-4), fastpath on == off in bits on every
               rank (the expert layout with the fastpath on only), whole
@@ -3459,11 +3463,12 @@ MP_RANK_OFF = {"fastpath_off": ["--fastpath", "off"]}
 
 
 def _mp_train(cfg, params0, W: int, M: int, fastpath: str,
-              batch: int = MP_BATCH):
+              batch: int = MP_BATCH, seq: int = FAMILY_SEQ):
     """``FAMILY_STEPS`` steps of ``cfg`` on the host mesh ``(data, model) =
     (W, M)`` of one card, from a copy of ``params0`` on the card (which
     may lie on the host), RegTop-k at ``FAMILY_SPARSITY``: one round per
-    (worker, model shard), a global batch of ``batch`` rows. Returns
+    (worker, model shard), a global batch of ``batch`` rows of ``seq``
+    tokens. Returns
     (params, sparsifier state, plan, losses, kernel 1 launches, seconds,
     peak bytes)."""
     from repro_torch.comm.fastpath import FastpathCounts
@@ -3485,7 +3490,7 @@ def _mp_train(cfg, params0, W: int, M: int, fastpath: str,
     step = td.make_train_step(cfg, dist, plan, W, FastpathCounts())
     opt_state = make_optimizer(dist.optimizer).init(params)
     sp = td.init_sparsifier_state(plan, W, DEVICE)
-    pipe = TokenPipeline(cfg, batch, FAMILY_SEQ, 0, DEVICE)
+    pipe = TokenPipeline(cfg, batch, seq, 0, DEVICE)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fe.fused_candidates.launches = 0
@@ -3782,8 +3787,9 @@ def model_parallel_ranks(smi: str, device=None) -> dict:
 
 
 # (c): each run's config, depth (None: whole), (data, model) layout and
-# global batch of FAMILY_SEQ tokens, the config's fields replaced and
-# whether it also runs with the fastpath off. Depths cut to keep the
+# global batch of rows of seq tokens (FAMILY_SEQ unless given), the
+# config's fields replaced and whether it also runs with the fastpath
+# off. Depths cut to keep the
 # script inside its time limit: qwen2.5-3b at 3 of 36 layers and
 # internvl2-1b at 6 of 24 (12 and 12 until zamba2-7b came; qwen2.5-3b's
 # 14 layers reserved 78.9-80.9 GB of 85.0, PERF.md), deepseek-moe-16b's
@@ -3791,7 +3797,8 @@ def model_parallel_ranks(smi: str, device=None) -> dict:
 # worker routes one group of 2048 tokens (capacity 240), in both MoE
 # layouts (the expert one 16 experts a rank); zamba2-7b at 8 of 81
 # layers, one group of 5 mamba blocks and the shared block, then 2
-# trailing blocks (tp_prediction: 47.7 GB summed; 14 layers 77.5 GB)
+# trailing blocks (tp_prediction: 47.7 GB summed; 14 layers 77.5 GB);
+# whisper-tiny whole at Whisper's decoder context of 448 tokens (phase 13's)
 TP_RUNS = {
     "qwen2.5-3b": dict(arch="qwen2.5-3b", layers=3, data=1, model=4,
                        batch=4),
@@ -3804,6 +3811,8 @@ TP_RUNS = {
         arch="deepseek-moe-16b", layers=1, data=1, model=4, batch=4,
         fields={"moe_parallelism": "expert"}, off=False),
     "zamba2-7b": dict(arch="zamba2-7b", layers=8, data=1, model=4, batch=4),
+    "whisper-tiny": dict(arch="whisper-tiny", layers=None, data=2, model=2,
+                         batch=8, seq=448),
 }
 TP_STEPS = 3
 # an MoE run against its twin: a flipped token's top-k gap in the twin up
@@ -3906,7 +3915,7 @@ def tp_prediction(name: str) -> dict:
     run, cfg = TP_RUNS[name], _tp_config(name)
     W, M = run["data"], run["model"]
     lay = dryrun.layout_of(cfg, _tp_dist("off"), {"data": W, "model": M},
-                           run["batch"], FAMILY_SEQ)
+                           run["batch"], run.get("seq", FAMILY_SEQ))
     rank = dryrun.count_layout(lay)
     big = max(p.local_len for p in tree_leaves(lay.plan))
     per_rank = rank["resident"] + rank["cost"]["peak_bytes"] + TP_SORT_BYTES * big
@@ -4009,7 +4018,8 @@ def _tp_arch(rank: int, device: str, name: str, out_dir: str) -> dict:
         step = td.make_train_step(cfg, dcfg, plan, W, counts, groups)
         opt_state = make_optimizer(dcfg.optimizer).init(params)
         sp = td.init_sparsifier_state(plan, 1, device, shards=1)
-        pipe = TokenPipeline(cfg, run["batch"], FAMILY_SEQ, 0, device)
+        pipe = TokenPipeline(cfg, run["batch"], run.get("seq", FAMILY_SEQ),
+                             0, device)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         fe.fused_candidates.launches = 0
@@ -4208,7 +4218,7 @@ def model_parallel_tp(smi: str, device=None) -> dict:
                   else contextlib.nullcontext()) as routes:
                 params, _, plan, losses, n, seconds, peak = _mp_train(
                     cfg, params0, run["data"], run["model"], "on",
-                    batch=run["batch"])
+                    batch=run["batch"], seq=run.get("seq", FAMILY_SEQ))
             if routes is not None:
                 routes = {"maps": [x.cpu() for x in routes.maps],
                           "probs": [x.cpu() for x in routes.probs]}
@@ -4322,7 +4332,8 @@ def model_parallel_tp(smi: str, device=None) -> dict:
         launches += sum(o["launches"] for o in on)
         split = sum(p.local_shape != p.global_shape for _, p in tree_items(plan))
         row = {"layers": tw["layers"], "workers": W, "shards": M,
-               "batch": run["batch"], "fields": run.get("fields", {}),
+               "batch": run["batch"], "seq": run.get("seq", FAMILY_SEQ),
+               "fields": run.get("fields", {}),
                "losses": got, "twin_losses": losses, "loss_rel_diff": loss_rel,
                "loss_held": [not f for f in flipped],
                "loss_tol": loss_tol, "vs_twin": diff, "decay_vs_twin": decay,
@@ -4341,9 +4352,12 @@ def model_parallel_tp(smi: str, device=None) -> dict:
                "parent_stages_s": tw["stages_s"],
                "rank_stages_s": [rk["stages_s"] for rk in rks]}
         out[name] = row
+        cfg = _tp_config(name)
+        frames = f" over {cfg.enc_seq} frames" if cfg.family == "encdec" else ""
         log(f"tensor parallel {name}: {tw['layers']} layers, (data, model) = "
             f"({W}, {M}), {W * M} gloo ranks on one card, batch {run['batch']} "
-            f"x {FAMILY_SEQ}, {split}/{len(tree_items(plan))} leaves split; "
+            f"x {run.get('seq', FAMILY_SEQ)}{frames}, {split}/"
+            f"{len(tree_items(plan))} leaves split; "
             f"losses {got[0]:.4f} -> {got[-1]:.4f} (twin {losses[0]:.4f} -> "
             f"{losses[-1]:.4f}; relative differences "
             f"{[float(f'{r:.3g}') for r in loss_rel]}, held to "

@@ -38,14 +38,13 @@ the round runs per (worker, model shard), as the JAX runtime's
 own and gets its own ``k = sparsity_to_k(local_len, S)``, the state holds
 a row per (worker, shard), and ``sent_idx`` holds block-local indices. A
 leaf the divisibility guard leaves whole runs M equal rounds on the whole
-leaf. On one card, and across ranks for a family whose forward is not
-sharded (``models.tensor_parallel``), the forward, the parameters and
-Adam stay whole on every worker. Across ranks for a family that shards
-it (the dense, MoE and VLM decoders, the SSM and hybrid models), each
-rank holds, computes and updates its own block of every leaf the spec
-splits (tensor parallelism, :func:`make_train_step`; the MoE experts in
-either layout of ``moe_parallelism``; the SSD mixer on its channels and
-heads).
+leaf. On one card the forward, the parameters and Adam stay whole on
+every worker. Across ranks every family shards them
+(``models.tensor_parallel``: the dense, MoE and VLM decoders, the SSM
+and hybrid models, the encoder-decoder model): each rank holds, computes
+and updates its own block of every leaf the spec splits (tensor
+parallelism, :func:`make_train_step`; the MoE experts in either layout
+of ``moe_parallelism``; the SSD mixer on its channels and heads).
 
 A partial-participation schedule (``DistConfig.participation``) draws
 one mask a round, shared by every leaf: participants aggregate with the
@@ -985,7 +984,10 @@ def model_shard(cfg: ModelConfig, plan, group, index: int
     """Shard ``index``'s ``ModelShard`` over the model ``group`` (None on
     the meta device: counted, not moved) when the trainer shards ``cfg``'s
     forward: a plan of M > 1 model shards for a family of
-    ``models.tensor_parallel``. None otherwise: the forward stays whole.
+    ``models.tensor_parallel`` (every family). None otherwise: the forward
+    stays whole; across ranks that is reached only through a family
+    module whose ``TENSOR_PARALLEL`` was emptied, as the dry run's tests
+    do to count the whole forward.
     Its split axes are those of the plan's specs; the kv heads split with
     the query heads whole, or one of the SSD's channels (``"d_inner"``) and
     heads (``"ssm_heads"``) split without the other, raises."""
@@ -1073,11 +1075,13 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
     element by element.
 
     Across the ranks of ``mesh`` with M > 1, for a family that shards its
-    forward (``models.tensor_parallel``: the dense, MoE and VLM decoders,
-    the MoE experts in either of ``moe_parallelism``'s layouts; the SSM
-    and hybrid models, the SSD mixer on its channels and heads), the
-    step is tensor parallel: ``params`` and the optimizer state are this
-    rank's blocks (``nn.sharding.shard_params`` under the plan's specs,
+    forward (``models.tensor_parallel``, every family: the dense, MoE and
+    VLM decoders, the MoE experts in either of ``moe_parallelism``'s
+    layouts; the SSM and hybrid models, the SSD mixer on its channels and
+    heads; the encoder-decoder model, its encoder, self- and
+    cross-attention and MLPs), the step is tensor parallel: ``params``
+    and the optimizer state are this rank's blocks
+    (``nn.sharding.shard_params`` under the plan's specs,
     a leaf the divisibility guard leaves whole whole on every rank), the
     forward and backward run on them with the model group's collectives
     (``nn.tensor_parallel``), each split leaf's gradient is its round's
@@ -1086,11 +1090,13 @@ def make_train_step(cfg: ModelConfig, dist: DistConfig, plan, n_workers: int,
     the model group. The row-parallel sums are taken by ``all_reduce`` as
     GSPMD takes them, so the result is the one-card run's to rounding, not
     in bits; a whole leaf is equal in bits on the ranks of a model group.
-    For the other family (the encoder-decoder one) only the sparsify
-    stage is split across ranks:
-    every rank of a model group runs its worker's whole forward and
-    backward and holds the whole parameters and Adam state, and each split
-    leaf's aggregate is gathered over the model group.
+    For a family left out of ``models.tensor_parallel`` only the sparsify
+    stage is split across ranks: every rank of a model group runs its
+    worker's whole forward and backward and holds the whole parameters
+    and Adam state, and each split leaf's aggregate is gathered over the
+    model group. No family is left out; the path stays for a family
+    module whose ``TENSOR_PARALLEL`` is emptied (the dry run's tests count
+    the whole forward that way).
 
     Under ``dist.microbatches`` each worker's shard splits into that many
     contiguous chunks, their gradients accumulated in

@@ -47,21 +47,21 @@ record has the JAX record's keys and the port's own:
   rank of the port's trainer holds and moves: the parameters, one
   gradient in the state dtype and the Adam state, its own (worker, shard)
   state rows and its worker's batch rows; the dp payloads and every
-  rank's 4 B loss gathered. At M > 1 a dense, MoE or VLM decoder, and an
-  SSM or hybrid model, trains tensor parallel
+  rank's 4 B loss gathered. At M > 1 every config trains tensor parallel
   (``core.distributed.make_train_step``): the parameters, the
   gradient and Adam are the rank's blocks (ZeRO-1's dp split of the
   moments is the JAX dry run's layout, not its trainer's, and the port
   keeps the moments whole over dp), and ``all-reduce:model`` and
   ``all-gather:model`` are the model group's activation all-reduces and
   the logits' vocabulary gather (and the SSD mixer's gathered ``in_proj``,
-  ``conv_w`` and ``conv_b`` and their summed gradients), counted as the
-  traced step issues them (``nn.tensor_parallel``; remat's recompute
-  included). The encoder-decoder family holds the whole parameters and
-  Adam state on every rank, and
-  ``all-gather:model`` is the model group's gather of each split leaf's
-  aggregate. For serving, the whole parameters and the cache of the
-  rank's batch rows;
+  ``conv_w`` and ``conv_b`` and their summed gradients, and each encoder-
+  decoder layer's entry of the encoder output into its cross-attention),
+  counted as the traced step issues them (``nn.tensor_parallel``; remat's
+  recompute included). A family module whose ``TENSOR_PARALLEL`` is
+  emptied (the tests do it) holds the whole parameters and Adam state on
+  every rank, and ``all-gather:model`` is then the model group's gather
+  of each split leaf's aggregate. For serving, the whole parameters and
+  the cache of the rank's batch rows;
 * ``fits``: whether ``peak_bytes`` fits one card's ``HBM_BYTES``.
 
 A combo that ``build_plan`` refuses (a block past the int32 wire's

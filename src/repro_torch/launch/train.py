@@ -28,16 +28,16 @@ model axis fastest):
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
         --smoke --steps 3 --device cpu
 
-With a model axis M > 1 across ranks, a dense, MoE or VLM decoder
-trains tensor parallel: each rank holds, computes and updates its model
-shard's block of every leaf that ``nn.sharding`` splits
+With a model axis M > 1 across ranks, every config trains tensor
+parallel: each rank holds, computes and updates its model shard's block
+of every leaf that ``nn.sharding`` splits
 (``core.distributed.make_train_step``; the MoE experts' width or the
-experts themselves, as ``moe_parallelism`` lays them out); the other
-families run a whole forward on every rank of a model group and split
-the sparsify stage alone. A line after the
-mesh's names the path the model axis takes. ``--checkpoint`` gathers
-each leaf whole before it writes and ``--resume`` cuts the blocks out
-again, so a checkpoint moves between ranks and one process either way.
+experts themselves, as ``moe_parallelism`` lays them out; the SSD
+mixer's channels and heads; the encoder-decoder's encoder, self- and
+cross-attention and MLPs). A line after the mesh's names the path the
+model axis takes. ``--checkpoint`` gathers each leaf whole before it
+writes and ``--resume`` cuts the blocks out again, so a checkpoint moves
+between ranks and one process either way.
 
 ``--device cuda`` puts rank r on ``cuda:LOCAL_RANK`` over ``nccl``; an
 explicit ``cuda:i`` is taken as given; ``--device cpu`` runs over

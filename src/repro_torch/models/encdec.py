@@ -13,6 +13,25 @@ The tree is the JAX package's: ``enc_layers.*`` stacked on
 ``final_norm``. ``remat`` recomputes each encoder and each decoder block
 in the backward pass (``torch.utils.checkpoint``).
 
+Tensor parallelism (the family is in ``TENSOR_PARALLEL``): ``loss_fn``,
+``forward`` and the blocks take a ``shard`` (``nn.tensor_parallel.
+ModelShard``) when the trainer's rank holds its model shard's block of
+each leaf that ``nn.sharding`` splits, as ``models.lm``'s decoders do.
+The encoder's attention and MLP, the decoder's self-attention, its
+cross-attention and its MLP each read from the shard whether their own
+logical axis is split (the query heads, the kv heads, the MLP's columns),
+so at whisper-tiny's 6 heads a model axis of 4 keeps the heads whole and
+splits the MLPs. The cross-attention's keys and values come from the
+encoder output, which enters the model group inside each decoder layer's
+``attn_qkv`` and nowhere else: each layer's share of its gradient is
+summed over the group once. The embedding and the unembedding are
+vocabulary parallel, the logits gathered over the model group before the
+loss. The LayerNorms stay whole, equal in bits on every rank of a group.
+Under ``remat`` a block's forward collectives up to its last saved
+tensor run again in the backward, in the same order on every rank. Serving (``prefill``,
+``build_cross_cache``, ``init_cache``, ``decode_step``) runs whole, on
+one card.
+
 Serving: ``build_cross_cache`` runs the encoder once and projects every
 decoder layer's cross-attention keys and values; the decode cache holds
 those (``ck``, ``cv`` over ``enc_seq``) beside the self-attention KV
@@ -33,6 +52,10 @@ from repro_torch.nn import layers as L
 from repro_torch.nn.sharding import prefix_axes
 
 Params = Dict[str, Any]
+
+# the family of this module whose forward the trainer shards over the
+# model axis
+TENSOR_PARALLEL = frozenset({"encdec"})
 
 
 def _attn_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
@@ -98,68 +121,74 @@ def param_axes(cfg: ModelConfig) -> Params:
 
 
 def _enc_block(lp: Params, x: torch.Tensor, cfg: ModelConfig,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor, shard=None) -> torch.Tensor:
     _, norm = _norm(cfg)
     h = norm(lp["norm1"], x)
-    q, k, v = L.attn_qkv(lp["attn"], h)
+    q, k, v = L.attn_qkv(lp["attn"], h, shard=shard)
     q = L.rope(q, positions, base=cfg.rope_base)
     k = L.rope(k, positions, base=cfg.rope_base)
     ctx = L.attention_dense(q, k, v, causal=False)
-    x = x + L.attn_out(lp["attn"], ctx)
+    x = x + L.attn_out(lp["attn"], ctx, shard=shard)
     h = norm(lp["norm2"], x)
-    return x + L.mlp(lp["mlp"], h, act=cfg.act)
+    return x + L.mlp(lp["mlp"], h, act=cfg.act, shard=shard)
 
 
-def _encode(params: Params, cfg: ModelConfig, frames: torch.Tensor
-            ) -> torch.Tensor:
-    """frames: [B, enc_seq, d_model] from the frontend stub."""
+def _encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+            shard=None) -> torch.Tensor:
+    """frames: [B, enc_seq, d_model] from the frontend stub; ``shard``
+    the rank's model shard (module docstring)."""
     _, norm = _norm(cfg)
     x = frames.to(cfg.torch_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in _unstack(params["enc_layers"], cfg.n_enc_layers):
-        x = run_block(_enc_block, lp, x, cfg, positions, remat=cfg.remat)
+        x = run_block(_enc_block, lp, x, cfg, positions, shard,
+                      remat=cfg.remat)
     return norm(params["enc_norm"], x)
 
 
 def _dec_block(lp: Params, x: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor, enc_out: torch.Tensor,
-               mode: str = "dense") -> torch.Tensor:
+               mode: str = "dense", shard=None) -> torch.Tensor:
     _, norm = _norm(cfg)
     h = norm(lp["norm1"], x)
-    q, k, v = L.attn_qkv(lp["self"], h)
+    q, k, v = L.attn_qkv(lp["self"], h, shard=shard)
     q = L.rope(q, positions, base=cfg.rope_base)
     k = L.rope(k, positions, base=cfg.rope_base)
     ctx = attend(q, k, v, cfg, mode, causal=True)
-    x = x + L.attn_out(lp["self"], ctx)
+    x = x + L.attn_out(lp["self"], ctx, shard=shard)
     h = norm(lp["norm2"], x)
-    q, ck, cv = L.attn_qkv(lp["cross"], h, xkv=enc_out)
+    # enc_out enters the model group here, once a layer (module docstring)
+    q, ck, cv = L.attn_qkv(lp["cross"], h, xkv=enc_out, shard=shard)
     ctx = L.attention_dense(q, ck, cv, causal=False)
-    x = x + L.attn_out(lp["cross"], ctx)
+    x = x + L.attn_out(lp["cross"], ctx, shard=shard)
     h = norm(lp["norm3"], x)
-    return x + L.mlp(lp["mlp"], h, act=cfg.act)
+    return x + L.mlp(lp["mlp"], h, act=cfg.act, shard=shard)
 
 
-def forward(params: Params, cfg: ModelConfig, batch, *, mode: str = "dense"
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Params, cfg: ModelConfig, batch, *, mode: str = "dense",
+            shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(logits [B, S, padded_vocab], aux)``, aux 0 (no aux loss);
     ``mode`` is the decoder's self-attention, "dense" or "chunked" (the
-    encoder and the cross-attention stay dense, as in the JAX package)."""
-    enc_out = _encode(params, cfg, batch["frames"])
-    x = L.embed(params["embed"], batch["tokens"], cfg.torch_dtype)
+    encoder and the cross-attention stay dense, as in the JAX package);
+    under ``shard`` the rank's blocks, the logits whole."""
+    enc_out = _encode(params, cfg, batch["frames"], shard)
+    x = L.embed(params["embed"], batch["tokens"], cfg.torch_dtype, shard)
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in _unstack(params["dec_layers"], cfg.n_layers):
-        x = run_block(_dec_block, lp, x, cfg, positions, enc_out, mode,
+        x = run_block(_dec_block, lp, x, cfg, positions, enc_out, mode, shard,
                       remat=cfg.remat)
     _, norm = _norm(cfg)
     x = norm(params["final_norm"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return L.unembed(params["embed"], x), aux
+    return L.unembed(params["embed"], x, shard), aux
 
 
-def loss_fn(params: Params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
+def loss_fn(params: Params, cfg: ModelConfig, batch, shard=None
+            ) -> Tuple[torch.Tensor, Dict]:
     """Mean next-token cross-entropy over the decoder tokens, with no aux
-    term; metrics ``{"nll", "aux"}``."""
-    logits, aux = forward(params, cfg, batch)
+    term; metrics ``{"nll", "aux"}``. ``shard``: the rank's model shard
+    (module docstring)."""
+    logits, aux = forward(params, cfg, batch, shard=shard)
     nll = token_nll(logits, cfg, batch["labels"])
     return nll, {"nll": nll, "aux": aux}
 

@@ -45,9 +45,12 @@ def tensor_parallel(cfg: ModelConfig) -> bool:
     """Whether the trainer shards ``cfg``'s forward, parameters and Adam
     over the model axis: its family module lists the family in its
     ``TENSOR_PARALLEL`` (``models.lm``'s dense, MoE and VLM decoders,
-    ``models.ssm``'s SSM and hybrid models; a family without it, the
-    encoder-decoder one, keeps a whole forward, and the model axis splits
-    its sparsify stage alone)."""
+    ``models.ssm``'s SSM and hybrid models, ``models.encdec``'s
+    encoder-decoder: every family). A family left out of it keeps a whole
+    forward, and the model axis splits its sparsify stage alone; no
+    family is left out, but the mechanism stays, and the dry run's tests
+    empty a module's ``TENSOR_PARALLEL`` to count that whole forward
+    beside the sharded one."""
     return cfg.family in getattr(get_family(cfg), "TENSOR_PARALLEL", ())
 
 

@@ -6,7 +6,9 @@ the trainer's tensor-parallel path in ``core/distributed.py``).
   ``gather_last``), through the layers that use it (the MLP's columns in
   and rows out, the vocabulary-parallel lookup and logits, the attention
   over a rank's query heads with the kv heads split and whole), runs on
-  2 gloo CPU ranks against the same computation whole in one process,
+  2 gloo CPU ranks against the same computation whole in one process
+  (the attention also as a cross-attention over a source of another
+  length, as the encoder-decoder's decoder layers run it),
   forward and backward (rtol 1e-5; the lookup in bits). The dry run's
   ``ModelShard`` without a group counts the same bytes on meta tensors.
 * ``shard_params`` and ``unshard_params`` round-trip in bits, and each
@@ -287,7 +289,9 @@ def _inputs():
             "wk1": torch.randn(E, 1, DH, generator=g) / 4,
             "wv": torch.randn(E, 2, DH, generator=g) / 4,
             "wv1": torch.randn(E, 1, DH, generator=g) / 4,
-            "wo": torch.randn(H, DH, E, generator=g) / 4}
+            "wo": torch.randn(H, DH, E, generator=g) / 4,
+            # a cross-attention source of another length than x's 5
+            "xkv": torch.randn(2, 7, E, generator=g)}
 
 
 def _layer_fns():
@@ -296,11 +300,12 @@ def _layer_fns():
     ``shard`` is None and on the rank's blocks otherwise."""
     from repro_torch.nn import layers as L
 
-    def attention(kv):
+    def attention(kv, cross=False):
         def fn(w, shard):
             p = {"wq": w["wq"], "wk": w[f"wk{kv}"], "wv": w[f"wv{kv}"],
                  "wo": w["wo"]}
-            q, k, v = L.attn_qkv(p, w["x"], shard=shard)
+            q, k, v = L.attn_qkv(p, w["x"], xkv=w["xkv"] if cross else None,
+                                 shard=shard)
             return L.attn_out(p, L.attention_dense(q, k, v), shard=shard)
         return fn
 
@@ -318,6 +323,16 @@ def _layer_fns():
         "attention-kv-whole": (attention("1"), {"wq": 1, "wk1": None,
                                                 "wv1": None, "wo": 0},
                                {"heads"}),
+        # the same over a source of 7 positions against x's 5 (the
+        # encoder-decoder's cross-attention), the source whole on every rank
+        "cross-attention-kv-split": (
+            attention("", cross=True),
+            {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "xkv": None},
+            {"heads", "kv_heads"}),
+        "cross-attention-kv-whole": (
+            attention("1", cross=True),
+            {"wq": 1, "wk1": None, "wv1": None, "wo": 0, "xkv": None},
+            {"heads"}),
     }
 
 
