@@ -178,7 +178,7 @@ Phases, each raising on failure (the script then exits non-zero):
 14. serving — launch/serve.py and each family's prefill, init_cache and
               decode_step, models at published widths in float32 (TF32
               off), weights from the port's seeded init: qwen2.5-3b (9 of
-              its 36 layers, batch 8, max_len 2048), zamba2-7b (27 of 81,
+              its 36 layers, batch 8, max_len 2048), zamba2-7b (15 of 81,
               batch 8, 2048), mamba2-780m (24 of 48, batch 8), whisper-tiny (4 +
               4, batch 8, max_len 448 over 1500 frames) and
               deepseek-moe-16b (1 of its 28 layers, batch 4, 1024: the
@@ -200,7 +200,11 @@ Phases, each raising on failure (the script then exits non-zero):
               and the masked attention read (every expert, every slot),
               weights and cache bytes, peak memory, host init seconds and
               the device's busy share of a profiled step; no kernel of the
-              five launches.
+              five launches. qwen2.5-3b's and deepseek-moe-16b's greedy
+              runs are recorded and saved (the weights, the served tokens,
+              each step's logits, the final cache and the routings) as the
+              twins of phase 15 (c)'s serving runs, and (c) reads its own
+              qwen2.5-3b and deepseek-moe-16b weights from them.
               Then the smoke variants of phase 13's seven configs through
               serve.run on the card and on the CPU (the same seeded weights
               and first tokens): the logits of the card run's token
@@ -232,15 +236,15 @@ Phases, each raising on failure (the script then exits non-zero):
               state bytes; (c) tensor parallel at published widths on 4
               gloo ranks, 3 steps, after each config's one-card twin:
               qwen2.5-3b at (1, 4), 3 of 36 layers (its kv heads whole,
-              its query heads split), batch 4 x 512, internvl2-1b at 6
+              its query heads split), batch 4 x 512, internvl2-1b at 3
               of 24 layers at (2, 2), batch 8 x 512 (both cut for the
               script's time limit), deepseek-moe-16b at (1, 4), 1
               of 28 layers, batch 4 x 512 (W = 1: one group of 2048
               tokens, capacity 240), in both MoE layouts (each expert's
               width split, or 16 of the 64 experts a rank), and
-              zamba2-7b at (1, 4), 8 of 81 layers (one group of 5 mamba
-              blocks and the shared attention block, then 2 trailing
-              blocks; the SSD mixer on each rank's channels and heads,
+              zamba2-7b at (1, 4), 7 of 81 layers (one group of 5 mamba
+              blocks and the shared attention block, then 1 trailing
+              block; the SSD mixer on each rank's channels and heads,
               its in_proj, conv_w and conv_b gathered whole), batch 4 x
               512, and whisper-tiny at (2, 2), all 4 + 4 layers (3
               heads a rank; the encoder, the decoder's self- and
@@ -262,7 +266,28 @@ Phases, each raising on failure (the script then exits non-zero):
               and it moves that token's loss,
               so the losses are held to rtol 1e-5 before the first step
               with a flipped token and to 5e-4 from it on, the params by
-              _param_diff's rule, the router also on its own; (d)
+              _param_diff's rule, the router also on its own. Then, on
+              the same 4 ranks, serving (TP_SERVE_RUNS): qwen2.5-3b at
+              phase 14's 9 of 36 layers, batch 8, max_len 2048, at (1, 4)
+              (its 2 kv heads whole, the cache's 2048 slots split, 512 a
+              rank, the query heads gathered for the attention, whose
+              partial softmaxes the ranks combine) and at (2, 2) (1 kv
+              head and 4 rows a rank), and deepseek-moe-16b at 1 of 28
+              layers, batch 4, max_len 1024, at (1, 4) (4 of its 16 kv
+              heads a rank, each expert's width split), each through
+              serve.run(..., mesh=) from phase 14's weights and first
+              tokens (8 untimed, 64 timed greedy steps), recorded and held
+              against phase 14's one-card run (its twin): each step's
+              logits within rtol 1e-5 and a floor of 1e-5 of the step's
+              largest, and the final cache block's slots within the same,
+              up to a row's first token apart from the twin's (an MoE row
+              up to its first routing flip, a near-tie within 1e-5), pos
+              72, that first differing token at a near-tie of the twin's
+              top 2 (1e-3) or after a flip, each rank's parameter and
+              cache bytes those launch.dryrun.serve_count predicts; ms a
+              step beside the twin's, the model group's collectives a
+              step (count, bytes, host seconds over the untimed steps)
+              and each rank's peak printed; (d)
               --mesh production at a world size of 4 exits non-zero with
               its message.
 16. dry run — launch/dryrun.py on the meta device, which makes no CUDA
@@ -2991,10 +3016,10 @@ def phase_families(smi: str) -> dict:
 SERVE_RUNS = {
     # 9 of 36 layers (the whole model's draw took 30.7 s, 18 layers' 14.8)
     "qwen2.5-3b": dict(batch=8, max_len=2048, layers=9),
-    # 27 of 81 layers: four groups of five mamba blocks and the shared
-    # block, then the three trailing blocks (the whole model's host init
-    # took 48.8 s)
-    "zamba2-7b": dict(batch=8, max_len=2048, layers=27),
+    # 15 of 81 layers: two groups of five mamba blocks and the shared
+    # block, then the three trailing blocks (27 until phase 15 (c) served;
+    # the whole model's host init took 48.8 s)
+    "zamba2-7b": dict(batch=8, max_len=2048, layers=15),
     # 24 of 48 layers (the whole model's host init took 7.0 s)
     "mamba2-780m": dict(batch=8, max_len=2048, layers=24),
     # Whisper's text context over its 1500 encoder frames
@@ -3278,9 +3303,63 @@ def _serve_checks(mod, cfg, params, gen: torch.Generator, max_len: int) -> dict:
     return out
 
 
-def _serve_published(arch: str, run: dict, smi: str) -> dict:
+class _ServeRecorder:
+    """While active, every ``mod.decode_step`` recorded: each step's
+    logits over the real vocabulary (copied on the device), the cache it
+    returns (the last one kept), its ``shard`` and the bytes of the
+    parameters it reads; the first ``comm_steps`` steps under ``comm``
+    (phase 15 (c)'s ``_TpCounted``)."""
+
+    def __init__(self, mod, vocab: int, comm=None, comm_steps: int = 0):
+        self.mod, self.vocab, self.comm, self.comm_steps = mod, vocab, comm, comm_steps
+        self.logits, self.cache, self.shard, self.param_bytes = [], None, None, 0
+
+    def __enter__(self):
+        self._step = self.mod.decode_step
+
+        def step(params, cfg, cache, tokens, **kw):
+            counted = self.comm is not None and len(self.logits) < self.comm_steps
+            with self.comm if counted else contextlib.nullcontext():
+                logits, cache = self._step(params, cfg, cache, tokens, **kw)
+            self.logits.append(logits[:, 0, :self.vocab].clone())
+            self.cache, self.shard = cache, kw.get("shard")
+            self.param_bytes = _tree_bytes(params)
+            return logits, cache
+
+        self.mod.decode_step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.decode_step = self._step
+
+
+def _serve_twin(arch: str, params, res, rec: "_ServeRecorder", routes,
+                step_ms: float, twin_dir: str) -> dict:
+    """Phase 14's run of ``arch`` saved as the one-card twin of phase 15
+    (c)'s serving runs under ``twin_dir``: the whole weights
+    (``<arch>.serve.p0.pt``) and the served sequence, each step's logits,
+    the final cache and an MoE's routings (``<arch>.serve.twin.pt``), as
+    ``_ServeRecorder`` and ``_Routes`` recorded them in ``serve.run``."""
+    from repro_torch.tree import tree_items
+
+    t0 = time.perf_counter()
+    torch.save({"seq": torch.cat([res.first, res.prompt, res.tokens], 1),
+                "logits": torch.stack(rec.logits, 1).cpu(),
+                "k": rec.cache["k"].cpu(), "v": rec.cache["v"].cpu(),
+                "pos": int(rec.cache["pos"]), "step_ms": step_ms,
+                "routes": None if routes is None else {
+                    "maps": [x.cpu() for x in routes.maps],
+                    "probs": [x.cpu() for x in routes.probs]}},
+               f"{twin_dir}/{arch}.serve.twin.pt")
+    torch.save({k: x.cpu() for k, x in tree_items(params)},
+               f"{twin_dir}/{arch}.serve.p0.pt")
+    return {"steps": len(rec.logits), "seconds": time.perf_counter() - t0}
+
+
+def _serve_published(arch: str, run: dict, smi: str, twin_dir=None) -> dict:
     """One model at its published widths (module docstring, phase 14):
-    all its layers unless ``run`` cuts them."""
+    all its layers unless ``run`` cuts them; saved under ``twin_dir``
+    as a twin of phase 15 (c)'s serving runs where one names it."""
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import get_family
@@ -3308,10 +3387,13 @@ def _serve_published(arch: str, run: dict, smi: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = _all_launches()
-    res = serve.run(serve.parse_args([
-        "--arch", arch, "--batch", str(B), "--prompt-len", str(SERVE_PROMPT),
-        "--new-tokens", str(SERVE_NEW), "--max-len", str(M), "--device", DEVICE]),
-        params=params, cfg=cfg)
+    twin = twin_dir is not None and arch in {r["arch"] for r in TP_SERVE_RUNS.values()}
+    with (_ServeRecorder(mod, cfg.vocab) if twin else contextlib.nullcontext()) as rec, \
+            (_Routes() if twin and cfg.is_moe else contextlib.nullcontext()) as routes:
+        res = serve.run(serve.parse_args([
+            "--arch", arch, "--batch", str(B), "--prompt-len", str(SERVE_PROMPT),
+            "--new-tokens", str(SERVE_NEW), "--max-len", str(M), "--device", DEVICE]),
+            params=params, cfg=cfg)
     if _all_launches() != before:
         raise AssertionError(f"serve {arch}: a kernel of the five launched")
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
@@ -3319,6 +3401,9 @@ def _serve_published(arch: str, run: dict, smi: str) -> dict:
             ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()):
         raise AssertionError(f"serve {arch}: tokens {res.tokens.shape}")
     step_ms = statistics.median(res.step_ms)
+    if twin:
+        out["tp_twin"] = _serve_twin(arch, params, res, rec, routes, step_ms, twin_dir)
+        del rec, routes
     with torch.inference_mode():
         zeros = (torch.zeros((B, cfg.enc_seq, cfg.d_model), dtype=cfg.torch_dtype,
                              device=DEVICE) if cfg.family == "encdec" else None)
@@ -3433,14 +3518,15 @@ def serve_smoke() -> dict:
     return out
 
 
-def phase_serving(smi: str) -> dict:
-    """Phase 14: serving (see the module docstring)."""
+def phase_serving(smi: str, twin_dir=None) -> dict:
+    """Phase 14: serving (see the module docstring); the twins of phase
+    15 (c)'s serving runs saved under ``twin_dir`` where given."""
     from repro_torch.nn import layers
 
     layers.set_fp32_matmul()
     out, t_phase = {}, time.perf_counter()
     for arch, run in SERVE_RUNS.items():
-        out[arch] = _serve_published(arch, run, smi)
+        out[arch] = _serve_published(arch, run, smi, twin_dir)
     out["smoke"] = serve_smoke()
     out["seconds"] = time.perf_counter() - t_phase
     log(f"serving: phase 14 took {out['seconds']:.1f} s")
@@ -3791,18 +3877,19 @@ def model_parallel_ranks(smi: str, device=None) -> dict:
 # config's fields replaced and whether it also runs with the fastpath
 # off. Depths cut to keep the
 # script inside its time limit: qwen2.5-3b at 3 of 36 layers and
-# internvl2-1b at 6 of 24 (12 and 12 until zamba2-7b came; qwen2.5-3b's
-# 14 layers reserved 78.9-80.9 GB of 85.0, PERF.md), deepseek-moe-16b's
-# expert layout with the fastpath on only; deepseek-moe-16b at W = 1, so a
-# worker routes one group of 2048 tokens (capacity 240), in both MoE
-# layouts (the expert one 16 experts a rank); zamba2-7b at 8 of 81
-# layers, one group of 5 mamba blocks and the shared block, then 2
-# trailing blocks (tp_prediction: 47.7 GB summed; 14 layers 77.5 GB);
+# internvl2-1b at 3 of 24 (12 and 12 until zamba2-7b came, internvl2-1b 6
+# until (c) served; qwen2.5-3b's 14 layers reserved 78.9-80.9 GB of 85.0,
+# PERF.md), deepseek-moe-16b's expert layout with the fastpath on only;
+# deepseek-moe-16b at W = 1, so a worker routes one group of 2048 tokens
+# (capacity 240), in both MoE layouts (the expert one 16 experts a rank);
+# zamba2-7b at 7 of 81 layers, one group of 5 mamba blocks and the shared
+# block, then 1 trailing block (8 until (c) served; tp_prediction at 8:
+# 47.7 GB summed; 14 layers 77.5 GB);
 # whisper-tiny whole at Whisper's decoder context of 448 tokens (phase 13's)
 TP_RUNS = {
     "qwen2.5-3b": dict(arch="qwen2.5-3b", layers=3, data=1, model=4,
                        batch=4),
-    "internvl2-1b": dict(arch="internvl2-1b", layers=6, data=2, model=2,
+    "internvl2-1b": dict(arch="internvl2-1b", layers=3, data=2, model=2,
                          batch=8),
     "deepseek-moe-16b:tensor": dict(
         arch="deepseek-moe-16b", layers=1, data=1, model=4, batch=4,
@@ -3810,10 +3897,25 @@ TP_RUNS = {
     "deepseek-moe-16b:expert": dict(
         arch="deepseek-moe-16b", layers=1, data=1, model=4, batch=4,
         fields={"moe_parallelism": "expert"}, off=False),
-    "zamba2-7b": dict(arch="zamba2-7b", layers=8, data=1, model=4, batch=4),
+    "zamba2-7b": dict(arch="zamba2-7b", layers=7, data=1, model=4, batch=4),
     "whisper-tiny": dict(arch="whisper-tiny", layers=None, data=2, model=2,
                          batch=8, seq=448),
 }
+# phase 15 (c)'s serving runs, on the same 4 ranks after the training
+# runs: phase 14's model (its depth, batch and max_len, SERVE_RUNS) on a
+# (data, model) layout, held against phase 14's one-card run of the same
+# weights and first tokens (its twin). qwen2.5-3b's 2 kv heads stay whole
+# at M = 4 (the cache's slots split, 512 a rank) and split at M = 2;
+# deepseek-moe-16b's 16 split 4 a rank, its experts' width split.
+TP_SERVE_RUNS = {
+    "qwen2.5-3b:seq": dict(arch="qwen2.5-3b", data=1, model=4, layout="seq"),
+    "qwen2.5-3b:heads": dict(arch="qwen2.5-3b", data=2, model=2,
+                             layout="heads"),
+    "deepseek-moe-16b": dict(arch="deepseek-moe-16b", data=1, model=4,
+                             layout="heads"),
+}
+TP_SERVE_RTOL = 1e-5  # and a floor of 1e-5 of the step's largest logit
+TP_SERVE_MARGIN = 1e-3  # tests/test_torch_serve.py's near-tie of the top 2
 TP_STEPS = 3
 # an MoE run against its twin: a flipped token's top-k gap in the twin up
 # to the first step with a flipped token (the weights apart by last-ulp
@@ -4121,6 +4223,169 @@ def _tp_arch(rank: int, device: str, name: str, out_dir: str) -> dict:
     return out
 
 
+class _TpCounted:
+    """While active, the model group's collectives (``_psum`` and
+    ``_gather`` over ``model_group``) counted: calls, bytes returned and
+    host seconds, the card synchronised around each."""
+
+    def __init__(self, model_group):
+        self.group, self.calls, self.bytes, self.seconds = model_group, 0, 0, 0.0
+
+    def __enter__(self):
+        from repro_torch.comm import collectives
+
+        self._plain = collectives._psum, collectives._gather
+
+        def counted(fn):
+            def call(x, groups):
+                if tuple(groups) != (self.group,):
+                    return fn(x, groups)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(x, groups)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                self.bytes += out.numel() * out.element_size()
+                return out
+            return call
+
+        collectives._psum, collectives._gather = map(counted, self._plain)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.comm import collectives
+
+        collectives._psum, collectives._gather = self._plain
+
+
+def _tp_serve(rank: int, device: str, name: str, twin_dir: str) -> dict:
+    """One serving run of phase 15 (c) on this gloo rank (see
+    ``model_parallel_tp``): ``serve.run(..., mesh=)`` from the rank's
+    blocks of phase 14's weights, its dp group's rows, recorded
+    (``_ServeRecorder``; the model group's collectives counted over the
+    untimed steps) and held against the twin's recorded run: each step's
+    logits and each slot of the final cache block up to a row's first
+    token that differs from the twin's (the inputs are the twin's up to
+    there) and, for an MoE, before the row's first routing flip (a
+    near-tie, ``_route_flips``, or it raises); ``pos``; and the first
+    differing token at a near-tie of the twin's top 2 or after a flip."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch import mesh, serve
+    from repro_torch.models import get_family
+
+    run = TP_SERVE_RUNS[name]
+    arch, W, M = run["arch"], run["data"], run["model"]
+    srv = SERVE_RUNS[arch]
+    B, max_len = srv["batch"], srv["max_len"]
+    cfg = configs.get_config(arch).replace(n_layers=srv["layers"])
+    mod = get_family(cfg)
+    groups = mesh.make_host_groups(model=M)
+    t0 = time.perf_counter()
+    p0 = _nested(torch.load(f"{twin_dir}/{arch}.serve.p0.pt", mmap=True))
+    twin = torch.load(f"{twin_dir}/{arch}.serve.twin.pt", mmap=True)
+    n = B // W
+    rows = slice(groups.rank * n, (groups.rank + 1) * n)
+    stages = {"load": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    comm = _TpCounted(groups.model_group)
+    with _ServeRecorder(mod, cfg.vocab, comm, SERVE_PROMPT) as rec, \
+            (_Routes() if cfg.is_moe else contextlib.nullcontext()) as routes:
+        res = serve.run(serve.parse_args([
+            "--arch", arch, "--batch", str(B), "--prompt-len", str(SERVE_PROMPT),
+            "--new-tokens", str(SERVE_NEW), "--max-len", str(max_len), "--device",
+            device]), params=p0, cfg=cfg, mesh=groups)
+    peak = torch.cuda.max_memory_allocated()
+    stages["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    del p0
+    shard, cache = rec.shard, rec.cache
+    seq, want = twin["seq"][rows], twin["logits"][rows]
+    T = want.shape[1]
+    served = torch.cat([res.prompt, res.tokens], 1)
+    # each row's first step whose token differs from the twin's (T: none);
+    # up to it the rank's inputs are the twin's
+    first_diff = torch.tensor([
+        int(d[0, 0]) if len(d := (served[r] != seq[r, 1:]).nonzero()) else T
+        for r in range(n)])
+    flips, gaps = torch.full((n,), T), []
+    if routes is not None:
+        L = cfg.n_layers
+        mine, tw, probs = (_per_layer(m, T * L, k).reshape(T, L, k, -1)
+                           [:, :, sl].permute(1, 2, 0, 3)
+                           for m, k, sl in ((routes.maps, n, slice(None)),
+                                            (twin["routes"]["maps"], B, rows),
+                                            (twin["routes"]["probs"], B, rows)))
+        for r in range(n):  # past its first differing token a row's inputs differ
+            mine[:, r, first_diff[r] + 1:] = tw[:, r, first_diff[r] + 1:]
+        flips, gaps = _route_flips(mine, tw, probs, cfg.moe_top_k,
+                                   f"serve tensor parallel {name}")
+    held = ((torch.arange(T)[None, :] <= first_diff[:, None])
+            & (torch.arange(T)[None, :] < flips[:, None]))
+    err = worst = 0.0  # the largest |diff|, and its largest share of the allowed
+    beyond = 0
+    with torch.inference_mode():
+        for t in range(T):
+            got, ref = rec.logits[t], want[:, t].to(device)
+            diff = (got - ref).abs()
+            limit = TP_SERVE_RTOL * (ref.abs() + ref.abs().amax(-1, keepdim=True))
+            keep = held[:, t].to(device)
+            beyond += int(((diff > limit).any(-1) & keep).sum())
+            if bool(keep.any()):
+                err = max(err, diff[keep].max().item())
+                worst = max(worst, (diff / limit)[keep].max().item())
+        # the cache block against the twin's at the slots held (a ring would
+        # put position p at slot p % slots; these runs have none)
+        if cfg.sliding_window:
+            raise ValueError(f"{name}: the cache check reads slots as positions")
+        cache_err, cache_ok = 0.0, True
+        first = groups.shard * cache["k"].shape[2] if shard.splits("kv_seq") else 0
+        for leaf in ("k", "v"):
+            ref = twin[leaf][:, rows]
+            if shard.splits("kv_seq"):
+                ref = ref[:, :, first:first + cache[leaf].shape[2]]
+            if shard.splits("kv_heads"):
+                K = cache[leaf].shape[3]
+                ref = ref[:, :, :, groups.shard * K:(groups.shard + 1) * K]
+            got = cache[leaf].cpu()
+            slot = (first + torch.arange(got.shape[2]))[None, :]
+            keep = (slot <= first_diff[:, None]) & (slot < flips[:, None])
+            keep = keep[None, :, :, None, None].expand_as(got)
+            diff = (got - ref).abs()[keep]
+            limit = TP_SERVE_RTOL * (ref.abs()[keep] + ref.abs().max())
+            cache_ok &= got.shape == ref.shape and bool((diff <= limit).all())
+            cache_err = max(cache_err, float(diff.max()) if diff.numel() else 0.0)
+    # a row's first differing token: at a near-tie of the twin's top 2, or
+    # after a routing flip
+    top2 = want.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    tokens_ok = all(int(t) == T or margin[r, t] < TP_SERVE_MARGIN or t >= flips[r]
+                    for r, t in enumerate(first_diff))
+    stages["check"] = time.perf_counter() - t0
+    return {"split": sorted(shard.split), "rows": [rows.start, rows.stop],
+            "step_ms": statistics.median(res.step_ms),
+            "tokens_per_s": res.tokens_per_s, "peak_bytes": peak,
+            "block_bytes": {"params": rec.param_bytes, "cache": _tree_bytes(cache)},
+            "logits_held": int(held.sum()), "positions": n * T,
+            "logits_beyond": beyond,
+            "max_abs_err": err, "worst_share_of_allowed": worst,
+            "flips": [int(f) for f in flips], "tie_gaps": gaps,
+            "first_token_diffs": [int(t) for t in first_diff],
+            "tokens_ok": tokens_ok,
+            "cache_ok": cache_ok, "cache_max_abs_err": cache_err,
+            "pos": int(cache["pos"]), "steps": T,
+            "comm": {"calls": comm.calls / SERVE_PROMPT,
+                     "bytes": comm.bytes / SERVE_PROMPT,
+                     "seconds": comm.seconds / SERVE_PROMPT},
+            "traffic": {k: v / T for k, v in shard.traffic.items()},
+            "stages_s": stages}
+
+
 def _nested(flat: dict) -> dict:
     """``{dotted path: leaf}`` as the nested tree it came from."""
     out: dict = {}
@@ -4134,7 +4399,7 @@ def _nested(flat: dict) -> dict:
 
 
 def _tp_rank_body(rank: int, world: int, store: str, out_dir: str,
-                  device: str) -> None:
+                  device: str, twin_dir=None) -> None:
     """One of phase 15 (c)'s 4 gloo ranks on ``device``: each run of
     ``TP_RUNS`` in turn, trained tensor parallel from the rank's blocks of
     the weights the parent drew (``out_dir/<arch>.p0.pt``) and held
@@ -4147,7 +4412,8 @@ def _tp_rank_body(rank: int, world: int, store: str, out_dir: str,
     the profiler. Each rank writes, per run, its numbers, the on == off
     comparison in bits, its blocks' difference from the twin's params
     (rank 0 also the whole leaves) and the digest of its whole leaves to
-    ``out_dir/rank{rank}.json``."""
+    ``out_dir/rank{rank}.json``. Then, given phase 14's twins in
+    ``twin_dir``, each serving run of ``TP_SERVE_RUNS`` (``_tp_serve``)."""
     import torch.distributed as dist
 
     from repro_torch.launch import mesh
@@ -4156,12 +4422,36 @@ def _tp_rank_body(rank: int, world: int, store: str, out_dir: str,
     mesh.init_file_store(store, rank, world, "gloo")
     try:
         out = {name: _tp_arch(rank, device, name, out_dir) for name in TP_RUNS}
+        if twin_dir is not None:
+            out["serve"] = {name: _tp_serve(rank, device, name, twin_dir)
+                            for name in TP_SERVE_RUNS}
         Path(f"{out_dir}/rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
 
 
-def model_parallel_tp(smi: str, device=None) -> dict:
+def _tp_weights(arch: str, cfg, twin_dir=None):
+    """``cfg``'s seeded weights on the host: the first ``n_layers`` of
+    phase 14's saved weights of ``arch`` where ``twin_dir`` holds
+    enough of them (``init`` draws the embedding, then the layers one
+    after another from one generator, so a shallower model's draws are a
+    prefix of a deeper one's), else drawn."""
+    from repro_torch.models import get_family
+
+    path = f"{twin_dir}/{arch}.serve.p0.pt"
+    if twin_dir is None or not os.path.exists(path):
+        return get_family(cfg).init(cfg, seed=0, device="cpu")
+    saved = torch.load(path, mmap=True)
+    if saved["final_norm.scale"].shape != (cfg.d_model,) or (
+            saved["layers.norm1.scale"].shape[0] < cfg.n_layers):
+        return get_family(cfg).init(cfg, seed=0, device="cpu")
+    # the layers cut into their own storage: torch.save writes a view's
+    # whole storage
+    return _nested({k: x[:cfg.n_layers].clone() if k.startswith("layers.")
+                    else x for k, x in saved.items()})
+
+
+def model_parallel_tp(smi: str, device=None, twin_dir=None) -> dict:
     """Phase 15 (c): tensor parallelism at published widths across 4 gloo
     ranks sharing the card, fastpath on, RegTop-k at S = 0.01, Adam, 3
     steps, float32: each ``TP_RUNS`` run after its one-card twin
@@ -4199,7 +4489,8 @@ def model_parallel_tp(smi: str, device=None) -> dict:
 
     device = device or f"{DEVICE}:0"
     twins, launches = {}, 0
-    world = {run["data"] * run["model"] for run in TP_RUNS.values()}
+    world = {run["data"] * run["model"] for run in (
+        *TP_RUNS.values(), *(TP_SERVE_RUNS.values() if twin_dir else ()))}
     if len(world) != 1:
         raise ValueError(f"phase 15 (c) runs every config on one world: {world}")
     with tempfile.TemporaryDirectory() as d:
@@ -4210,7 +4501,7 @@ def model_parallel_tp(smi: str, device=None) -> dict:
             arch = run["arch"]
             if arch not in drawn:
                 drawn.clear()
-                drawn[arch] = get_family(cfg).init(cfg, seed=0, device="cpu")
+                drawn[arch] = _tp_weights(arch, cfg, twin_dir)
                 torch.save(dict(tree_items(drawn[arch])), f"{d}/{arch}.p0.pt")
             params0 = drawn[arch]
             stages = {"init": time.perf_counter() - t0}
@@ -4254,7 +4545,7 @@ def model_parallel_tp(smi: str, device=None) -> dict:
             f"{parent['allocated'] / 1e9:.2f} GB allocated, "
             f"{parent['reserved'] / 1e9:.2f} reserved")
         t0 = time.perf_counter()
-        mesh.spawn(_tp_rank_body, n_ranks, (f"{d}/store", d, device),
+        mesh.spawn(_tp_rank_body, n_ranks, (f"{d}/store", d, device, twin_dir),
                    timeout=TP_TIMEOUT)
         spawn_s = time.perf_counter() - t0
         ranks = [json.loads(Path(f"{d}/rank{r}.json").read_text())
@@ -4417,9 +4708,100 @@ def model_parallel_tp(smi: str, device=None) -> dict:
                 f"{got} vs {losses} (relative {loss_rel}, held to {loss_tol}),"
                 f" params {diff}, the router {router}, routing flips a step "
                 f"{flips}, the SSD's decay leaves {decay}")
+    if twin_dir is not None:
+        out["serve"] = {name: _tp_serve_report(name, [rk["serve"][name] for rk in ranks],
+                                               twin_dir, smi)
+                        for name in TP_SERVE_RUNS}
     log(f"tensor parallel: the spawn of every run took {spawn_s:.1f} s")
     out["launches"] = launches
     return out
+
+
+def _tp_serve_report(name: str, rks: list, twin_dir: str, smi: str) -> dict:
+    """Phase 15 (c)'s serving run ``name`` from its ranks' results
+    (``_tp_serve``), beside ``launch.dryrun.serve_count``'s prediction of
+    the rank's blocks and model-group bytes at the run's layout; printed,
+    then held: the layout's split axes, the blocks' bytes as predicted,
+    every held step's logits, the cache blocks, ``pos`` and the greedy
+    tokens as ``_tp_serve`` judged them."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+    run = TP_SERVE_RUNS[name]
+    arch, W, M = run["arch"], run["data"], run["model"]
+    srv = SERVE_RUNS[arch]
+    cfg = configs.get_config(arch).replace(n_layers=srv["layers"])
+    pred = dryrun.serve_count(cfg, "decode", srv["max_len"], srv["batch"],
+                              {"data": W, "model": M})
+    twin_ms = torch.load(f"{twin_dir}/{arch}.serve.twin.pt", mmap=True)["step_ms"]
+    want_split = {"seq": "kv_seq", "heads": "kv_heads"}[run["layout"]]
+    step_ms = statistics.median(rk["step_ms"] for rk in rks)
+    r0 = rks[0]
+    row = {"layers": cfg.n_layers, "workers": W, "shards": M,
+           "batch": srv["batch"], "max_len": srv["max_len"],
+           "layout": run["layout"], "ranks": rks, "step_ms": step_ms,
+           "twin_step_ms": twin_ms,
+           "predicted": {k: pred[k] for k in ("params_bytes", "cache_bytes",
+                                              "rank_collective_bytes")}}
+    coll = pred["rank_collective_bytes"]
+    log(f"tensor parallel serve {name}: {cfg.n_layers} layers, (data, model) = "
+        f"({W}, {M}), {W * M} gloo ranks on one card, split axes {r0['split']}, "
+        f"batch {srv['batch']} ({srv['batch'] // W} rows a rank), max_len "
+        f"{srv['max_len']}; a rank holds {r0['block_bytes']['params'] / 1e9:.4f} GB "
+        f"of parameters and {r0['block_bytes']['cache'] / 1e9:.4f} GB of cache "
+        f"(count_serve: {pred['params_bytes'] / 1e9:.4f} and "
+        f"{pred['cache_bytes'] / 1e9:.4f}); {r0['steps']} served steps against the "
+        f"twin's: logits of {sum(rk['logits_held'] for rk in rks)} of "
+        f"{sum(rk['positions'] for rk in rks)} rank-positions held (up to a "
+        "row's first token apart from the twin's, an MoE row's first routing "
+        "flip), "
+        f"{sum(rk['logits_beyond'] for rk in rks)} beyond rtol {TP_SERVE_RTOL} "
+        f"with a floor of {TP_SERVE_RTOL} of the step's largest (largest "
+        f"|diff| {max(rk['max_abs_err'] for rk in rks):.3e}, at most "
+        f"{max(rk['worst_share_of_allowed'] for rk in rks):.3f} of the allowed), "
+        f"cache blocks {'held' if all(rk['cache_ok'] for rk in rks) else 'APART'} "
+        f"(largest |diff| {max(rk['cache_max_abs_err'] for rk in rks):.3e}), pos "
+        f"{[rk['pos'] for rk in rks]}; greedy tokens' first differences from "
+        f"the twin {[rk['first_token_diffs'] for rk in rks]} of "
+        f"{r0['steps']} steps (a near-tie of the twin's top 2 within "
+        f"{TP_SERVE_MARGIN}, or after a routing flip, excuses one)"
+        + (f"; routing flips at {[rk['flips'] for rk in rks]}, top-"
+           f"{cfg.moe_top_k} gaps {[rk['tie_gaps'] for rk in rks]}"
+           if cfg.is_moe else ""))
+    log(f"tensor parallel serve {name}: {step_ms:.2f} ms a decode step (median "
+        f"over the ranks of each rank's median of {SERVE_NEW}, CUDA events; the "
+        f"one-card twin {twin_ms:.2f} ms); the model group a step, rank 0: "
+        f"{r0['comm']['calls']:.0f} collectives, {r0['comm']['bytes'] / 1e6:.3f} MB "
+        f"returned, {1e3 * r0['comm']['seconds']:.2f} ms of host time with the card "
+        f"synchronised around each (ModelShard counts "
+        f"{r0['traffic']['all-reduce'] / 1e6:.3f} MB all-reduced, "
+        f"{r0['traffic']['all-gather'] / 1e6:.3f} MB gathered; count_serve "
+        f"{coll.get('all-reduce:model', 0) / 1e6:.3f} and "
+        f"{coll.get('all-gather:model', 0) / 1e6:.3f}); peak per rank "
+        f"{[round(rk['peak_bytes'] / 1e9, 3) for rk in rks]} GB; seconds, rank 0 "
+        + ", ".join(f"{k} {v:.1f}" for k, v in r0["stages_s"].items())
+        + f" ({smi})")
+    faults = []
+    for r, rk in enumerate(rks):
+        if want_split not in rk["split"]:
+            faults.append(f"rank {r} splits {rk['split']}, not {want_split}")
+        if (rk["block_bytes"]["params"] != pred["params_bytes"]
+                or rk["block_bytes"]["cache"] != pred["cache_bytes"]):
+            faults.append(f"rank {r} holds {rk['block_bytes']}, count_serve "
+                          "predicts otherwise")
+        if rk["logits_beyond"] or 2 * rk["logits_held"] < rk["positions"]:
+            faults.append(f"rank {r}: {rk['logits_beyond']} steps' logits apart, "
+                          f"{rk['logits_held']} of {rk['positions']} held")
+        if not rk["cache_ok"] or rk["pos"] != rk["steps"]:
+            faults.append(f"rank {r}: cache held {rk['cache_ok']}, pos {rk['pos']}")
+        if not rk["tokens_ok"]:
+            faults.append(f"rank {r}: greedy tokens part from the twin's at "
+                          f"{rk['first_token_diffs']} with a clear margin")
+        if rk["traffic"] != rks[0]["traffic"]:
+            faults.append(f"rank {r} moved other bytes than rank 0")
+    if faults:
+        raise AssertionError(f"tensor parallel serve {name}: " + "; ".join(faults))
+    return row
 
 
 def model_parallel_refusals() -> dict:
@@ -4440,13 +4822,14 @@ def model_parallel_refusals() -> dict:
     return {"returncode": res.returncode, "message": res.stderr.strip()}
 
 
-def phase_model_parallel(smi: str) -> dict:
+def phase_model_parallel(smi: str, twin_dir=None) -> dict:
     """Phase 15: the model axis (see the module docstring); kernel 1's
-    launches counted over (a)'s runs and (b)'s, every rank's summed."""
+    launches counted over (a)'s runs and (b)'s, every rank's summed; (c)
+    also serves against phase 14's twins in ``twin_dir`` where given."""
     t0 = time.perf_counter()
     card = model_parallel_card(smi)
     ranks = model_parallel_ranks(smi)
-    tp = model_parallel_tp(smi)
+    tp = model_parallel_tp(smi, twin_dir=twin_dir)
     refusal = model_parallel_refusals()
     out = {"card": card, "ranks": ranks, "tensor_parallel": tp,
            "refusal": refusal,
@@ -4651,8 +5034,10 @@ def main(argv=None) -> int:
         planners = phase_planners(smi)
         options = phase_options(smi, f"{ckpt_dir}/ranks")
     families = phase_families(smi)
-    serving = phase_serving(smi)
-    model_parallel = phase_model_parallel(smi)
+    # phase 14's twins of phase 15 (c)'s serving runs are saved here
+    with tempfile.TemporaryDirectory() as twin_dir:
+        serving = phase_serving(smi, twin_dir)
+        model_parallel = phase_model_parallel(smi, twin_dir)
     dry = phase_dryrun(smi, families)
     ab = phase_ab(args.parent) if args.parent is not None else None
     per_step = kernels["per_step"]

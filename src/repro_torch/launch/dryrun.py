@@ -60,8 +60,18 @@ record has the JAX record's keys and the port's own:
   recompute included). A family module whose ``TENSOR_PARALLEL`` is
   emptied (the tests do it) holds the whole parameters and Adam state on
   every rank, and ``all-gather:model`` is then the model group's gather
-  of each split leaf's aggregate. For serving, the whole parameters and
-  the cache of the rank's batch rows;
+  of each split leaf's aggregate. For serving (``count_serve``), the
+  rank's blocks of the parameters under ``nn.sharding.serve_rules``, the
+  cache block of its batch rows and its slots or kv heads, and its
+  tokens: what the JAX device's ``argument_size_in_bytes`` counts, but
+  for the int64 tokens' 4 B a row; ``all-reduce:model`` and
+  ``all-gather:model`` are the step's model-group collectives
+  (``models.lm``: per layer the attention output's and the MLP's or
+  MoE's all-reduces, in the sequence layout the query heads' and the
+  partial softmaxes' gathers; the embedding's all-reduce and the logits'
+  gather). A family that serves whole (``models.serve_parallel``), or
+  any family with its module's ``TENSOR_PARALLEL`` emptied, holds the
+  whole parameters and the cache of its rows;
 * ``fits``: whether ``peak_bytes`` fits one card's ``HBM_BYTES``.
 
 A combo that ``build_plan`` refuses (a block past the int32 wire's
@@ -88,6 +98,7 @@ from repro_torch.core.compact import CompactState
 from repro_torch.core.sparsify import SparsifierConfig
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import op_cost
+from repro_torch.launch.serve import serve_layout
 from repro_torch.models import get_family, input_specs, param_axes
 from repro_torch.nn.sharding import shard_params, tree_specs
 from repro_torch.optim import OptConfig, make_optimizer
@@ -461,35 +472,51 @@ def count_layout(lay: TrainLayout) -> Dict[str, Any]:
                 lay, None if shard is None else shard.traffic)}
 
 
-def serve_rules(cfg, M: int) -> Dict[str, Optional[str]]:
-    """Shard the KV heads where the model axis divides them, else the
-    cache's sequence."""
-    if cfg.n_heads and cfg.n_kv_heads % M == 0:
-        return {"kv_seq": None}
-    return {"kv_seq": meshlib.MODEL_AXIS, "kv_heads": None}
-
-
 def count_serve(arch: str, shape_name: str, mesh_shape: Mapping[str, int],
                 tag: str = ""):
     """The record of one prefill or decode step of ``arch`` on one rank
-    of ``mesh_shape`` (the counterpart of ``lower_serve``): the batch
-    split over the dp axes where they divide it, else whole on every
-    rank."""
+    of ``mesh_shape`` (the counterpart of ``lower_serve``; the count is
+    :func:`serve_count`'s)."""
     t0 = time.perf_counter()
-    mesh = dict(mesh_shape)
     cfg = _apply_overrides(cfglib.get_config(arch).replace(dtype="bfloat16"))
     seq, global_batch, kind = cfglib.INPUT_SHAPES[shape_name]
+    c = serve_count(cfg, kind, seq, global_batch, mesh_shape)
+    return _record(arch, shape_name, dict(mesh_shape), kind, tag, c["lower_s"],
+                   c["cost"], c["argument_bytes"], c["rank_bytes"],
+                   c["rank_bytes"], {"total": 0.0}, c["rank_collective_bytes"],
+                   time.perf_counter() - t0 - c["lower_s"])
+
+
+def serve_count(cfg, kind: str, seq: int, global_batch: int,
+                mesh_shape: Mapping[str, int]) -> Dict[str, Any]:
+    """One prefill (``kind`` "prefill": ``global_batch`` prompts of ``seq``
+    tokens) or decode step (a cache of ``seq`` steps) of ``cfg`` on one
+    rank of ``mesh_shape``, traced on the meta device: the batch split
+    over the dp axes where they divide it, else whole on every rank; the
+    parameters and the cache laid out by ``nn.sharding.serve_rules``,
+    and, for a family of ``models.serve_parallel``, the step run on the
+    rank's blocks. ``argument_bytes`` (every argument's block under its
+    spec), ``params_bytes``, ``cache_bytes`` and ``rank_bytes`` (what the
+    rank holds: its parameters, its cache block or prompt rows and its
+    tokens), ``cost`` (``op_cost.analyze``), ``rank_collective_bytes``
+    and ``lower_s``."""
+    t0 = time.perf_counter()
+    mesh = dict(mesh_shape)
     mod = get_family(cfg)
     dp = meshlib.dp_axes_of(mesh)
-    rules = serve_rules(cfg, mesh[meshlib.MODEL_AXIS])
     params = mod.init(cfg, device="meta")
-    specs = tree_specs(params, param_axes(cfg), mesh, rules, dp)
+    specs, cache_specs, shard = serve_layout(cfg, params, global_batch, seq,
+                                             mesh, dp)
     argument = sum(_nbytes(p.shape, p.dtype, s, mesh) for p, s in zip(
         tree_leaves(params), tree_leaves(specs), strict=True))
     dp_total = math.prod(mesh[a] for a in dp)
     split = global_batch % dp_total == 0
     b_spec = ((dp if len(dp) > 1 else dp[0]),) if split else (None,)
     rows = global_batch // dp_total if split else global_batch
+    kw = {}
+    if shard is not None:
+        params = shard_params(params, specs, 0, shard.size)
+        kw = {"shard": shard}
     if kind == "prefill":
         batch_specs = input_specs(cfg, global_batch, seq, kind="train")
         batch_specs.pop("labels")
@@ -500,23 +527,27 @@ def count_serve(arch: str, shape_name: str, mesh_shape: Mapping[str, int],
         fn, args = mod.prefill, (params, cfg, inputs)
     else:
         cache = mod.init_cache(cfg, global_batch, seq, device="meta")
-        cache_specs = tree_specs(cache, mod.cache_axes(cfg), mesh, rules, dp)
         argument += sum(_nbytes(c.shape, c.dtype, s, mesh) for c, s in zip(
             tree_leaves(cache), tree_leaves(cache_specs), strict=True))
         (tok_shape, tok_dt), = input_specs(cfg, global_batch, seq,
                                            kind="decode").values()
         argument += _nbytes(tok_shape, tok_dt, b_spec, mesh)
-        cache = mod.init_cache(cfg, rows, seq, device="meta")
+        cache = mod.init_cache(cfg, rows, seq, device="meta", **kw)
         inputs = {"cache": cache, "tokens": torch.empty(
             (rows, 1), dtype=tok_dt, device="meta")}
         fn, args = mod.decode_step, (params, cfg, cache, inputs["tokens"])
-    rank_bytes = _tree_bytes(params) + _tree_bytes(inputs)
     lower_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cost = op_cost.analyze(fn, *args)
-    return _record(arch, shape_name, mesh, kind, tag, lower_s, cost, argument,
-                   rank_bytes, rank_bytes, {"total": 0.0}, {"total": 0.0},
-                   time.perf_counter() - t0)
+    cost = op_cost.analyze(fn, *args, **kw)
+    rank_coll = {"total": 0.0}
+    if shard is not None:
+        rank_coll = {"all-reduce:model": float(shard.traffic["all-reduce"]),
+                     "all-gather:model": float(shard.traffic["all-gather"])}
+        rank_coll["total"] = sum(rank_coll.values())
+    return {"argument_bytes": argument, "params_bytes": _tree_bytes(params),
+            "cache_bytes": _tree_bytes(inputs.get("cache", {})),
+            "rank_bytes": _tree_bytes(params) + _tree_bytes(inputs),
+            "cost": cost, "rank_collective_bytes": rank_coll,
+            "lower_s": lower_s}
 
 
 def run_combo(arch: str, shape_name: str, *, multi_pod: bool,

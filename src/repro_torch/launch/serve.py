@@ -21,6 +21,16 @@ A cache without a ring (``lm`` without a sliding window, the hybrid's
 refuses a request of more steps before its first step: past the last slot
 the JAX package's ``dynamic_update_slice`` clamps each write into that
 slot, overwriting the newest key.
+
+Across ranks (``run(args, mesh=...)`` in each rank of a
+``launch.mesh.spawn``, or under ``torchrun``), each rank serves its dp
+group's rows of the batch on its blocks of the parameters and the cache,
+laid out as the JAX dry run's ``lower_serve`` lays them out
+(``nn.sharding.serve_rules``): the kv heads split over the model axis
+where it divides them, else the cache's slots. The dense, MoE and VLM
+families serve so (``models.serve_parallel``); the SSM, hybrid and
+encoder-decoder families serve whole, and a model axis above 1 is
+refused for them. No flag chooses the layout, as in the JAX serve CLI.
 """
 from __future__ import annotations
 
@@ -33,8 +43,15 @@ import torch
 
 from repro_torch import checkpoint as ckpt
 from repro_torch import configs as cfglib
-from repro_torch.models import get_family
+from repro_torch.models import get_family, param_axes, serve_parallel
 from repro_torch.models.config import ModelConfig
+from repro_torch.nn.sharding import (
+    serve_rules,
+    serve_shard,
+    shard_params,
+    tree_specs,
+)
+from repro_torch.tree import tree_map
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -56,6 +73,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 class ServeResult(NamedTuple):
+    # across ranks, the rows of this rank's dp group
     first: torch.Tensor  # [B, 1], the first inputs
     prompt: torch.Tensor  # [B, prompt_len], the untimed steps' tokens
     tokens: torch.Tensor  # [B, new_tokens], the timed steps' tokens
@@ -77,13 +95,36 @@ def check_length(cfg: ModelConfig, args: argparse.Namespace) -> None:
             "key")
 
 
+def serve_layout(cfg: ModelConfig, params, batch: int, max_len: int,
+                 mesh_shape, dp_axes=("data",), group=None, index: int = 0):
+    """``(param specs, cache specs, shard)`` of a serving rank, shard
+    ``index`` of its model ``group`` on ``mesh_shape`` (``group`` None:
+    counted on the meta device), for ``batch`` rows and ``max_len`` steps
+    under ``nn.sharding.serve_rules``. The shard is None at a model axis
+    of 1 and for a family that serves whole (``models.serve_parallel``)."""
+    M = mesh_shape["model"]
+    mod = get_family(cfg)
+    rules = serve_rules(cfg, M)
+    axes, cache_axes = param_axes(cfg), mod.cache_axes(cfg)
+    specs = tree_specs(params, axes, mesh_shape, rules, dp_axes)
+    cache_specs = tree_specs(mod.init_cache(cfg, batch, max_len, device="meta"),
+                             cache_axes, mesh_shape, rules, dp_axes)
+    shard = (serve_shard(axes, specs, cache_axes, cache_specs, group, index, M)
+             if serve_parallel(cfg) else None)
+    return specs, cache_specs, shard
+
+
 def run(args: argparse.Namespace, params=None,
-        cfg: Optional[ModelConfig] = None) -> ServeResult:
+        cfg: Optional[ModelConfig] = None, mesh=None) -> ServeResult:
     """Serve as the module docstring says and print the JAX driver's two
     lines. ``cfg`` replaces the config that ``--arch`` and ``--smoke``
     name (a depth-cut one), and ``params`` (of that config, on
     ``args.device``) the seeded init, so a caller that holds the weights
-    does not draw them again."""
+    does not draw them again. ``mesh`` (a ``launch.mesh.DpGroups``)
+    serves across ranks: each rank keeps its blocks of the whole
+    parameters (given on any device) on ``args.device`` and decodes its dp
+    group's rows of the batch, which the dp size must divide; the first
+    tokens are the one-card run's, and global rank 0 prints."""
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise RuntimeError(
             f"--device {args.device} requested but CUDA is not available")
@@ -94,23 +135,42 @@ def run(args: argparse.Namespace, params=None,
     check_length(cfg, args)
     cuda = torch.device(args.device).type == "cuda"
     mod = get_family(cfg)
+    B, rows, shard = args.batch, slice(None), None
+    if mesh is not None:
+        if B % mesh.size:
+            raise ValueError(f"--batch {B} does not divide over {mesh.size} "
+                             "dp groups")
+        if mesh.model > 1 and not serve_parallel(cfg):
+            raise ValueError(f"{cfg.name}: the {cfg.family} family serves "
+                             "whole, on one rank, not over a model axis of "
+                             f"{mesh.model}")
+        n = B // mesh.size
+        rows = slice(mesh.rank * n, (mesh.rank + 1) * n)
+        specs, _, shard = serve_layout(
+            cfg, mod.init(cfg, device="meta"), B, args.max_len,
+            mesh.mesh_shape, mesh.axis_names, mesh.model_group, mesh.shard)
     if params is None:
         params = mod.init(cfg, seed=0, device=args.device)
     if args.restore:
         params = ckpt.restore(f"{args.restore}/params", params)
-    B = args.batch
+    kw = {} if shard is None else {"shard": shard}
+    if mesh is not None:
+        if shard is not None:
+            params = shard_params(params, specs, mesh.shard, mesh.model)
+        params = tree_map(lambda x: x.to(args.device), params)
     with torch.inference_mode():
-        cache = mod.init_cache(cfg, B, args.max_len, device=args.device)
+        first = torch.randint(0, cfg.vocab, (B, 1),
+                              generator=torch.Generator().manual_seed(1))[rows]
+        B = first.shape[0]
+        cache = mod.init_cache(cfg, B, args.max_len, device=args.device, **kw)
         if cfg.family == "encdec":
             frames = torch.zeros((B, cfg.enc_seq, cfg.d_model),
                                  dtype=cfg.torch_dtype, device=args.device)
             cache["ck"], cache["cv"] = mod.build_cross_cache(params, cfg, frames)
-        first = torch.randint(0, cfg.vocab, (B, 1),
-                              generator=torch.Generator().manual_seed(1))
         tokens = first.to(args.device)
         prompt = []
         for _ in range(args.prompt_len):
-            logits, cache = mod.decode_step(params, cfg, cache, tokens)
+            logits, cache = mod.decode_step(params, cfg, cache, tokens, **kw)
             tokens = torch.argmax(logits[:, -1:], dim=-1)
             prompt.append(tokens)
         if cuda:
@@ -121,7 +181,7 @@ def run(args: argparse.Namespace, params=None,
         host = [time.perf_counter()]
         out = []
         for t in range(args.new_tokens):
-            logits, cache = mod.decode_step(params, cfg, cache, tokens)
+            logits, cache = mod.decode_step(params, cfg, cache, tokens, **kw)
             tokens = torch.argmax(logits[:, -1:], dim=-1)
             out.append(tokens)
             if cuda:
@@ -135,10 +195,12 @@ def run(args: argparse.Namespace, params=None,
         step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
     else:
         step_ms = [1e3 * (b - a) for a, b in zip(host, host[1:])]
-    total = args.new_tokens * B
-    print(f"{args.arch}: decoded {total} tokens in {dt:.2f}s "
-          f"({total / dt:.1f} tok/s, batch={B})", flush=True)
-    print("sample token ids:", [int(x[0, 0]) for x in out[:8]], flush=True)
+    total = args.new_tokens * args.batch
+    if mesh is None or mesh.row == 0:
+        print(f"{args.arch}: decoded {total} tokens in {dt:.2f}s "
+              f"({total / dt:.1f} tok/s, batch={args.batch})", flush=True)
+        print("sample token ids:", [int(x[0, 0]) for x in out[:8]],
+              flush=True)
     empty = torch.zeros((B, 0), dtype=torch.int64)
     return ServeResult(
         first=first,

@@ -5,8 +5,9 @@ from repro_torch.models.registry import (
     input_specs,
     make_batch,
     param_axes,
+    serve_parallel,
     tensor_parallel,
 )
 
 __all__ = ["ModelConfig", "encdec", "get_family", "input_specs", "lm",
-           "make_batch", "param_axes", "ssm", "tensor_parallel"]
+           "make_batch", "param_axes", "serve_parallel", "ssm", "tensor_parallel"]

@@ -243,11 +243,15 @@ def cache_axes(cfg: ModelConfig) -> Dict:
 
 @torch.no_grad()
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+                tokens: torch.Tensor, shard=None) -> Tuple[torch.Tensor, Dict]:
     """``tokens [B, 1]`` → ``(logits [B, 1, padded_vocab], cache)``: each
     decoder layer writes slot ``pos`` of its self-attention cache in place
     and attends to it, then its query (no RoPE, no bias) attends to all
-    ``enc_seq`` cross-attention keys."""
+    ``enc_seq`` cross-attention keys. A model ``shard`` is refused: the
+    family serves whole."""
+    if shard is not None:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family serves whole, "
+                         "on one rank; its decode step takes no model shard")
     x = L.embed(params["embed"], tokens, cfg.torch_dtype)
     pos = cache["pos"]
     positions = pos.reshape(1, 1)

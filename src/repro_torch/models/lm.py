@@ -34,7 +34,17 @@ laid them out, and its shared experts' width; its router stays whole
 (``nn.moe``). The vision projection and the norms stay whole. The
 vocabulary-parallel logits are gathered over the model group before the
 loss, whose padding rows are masked by their global index as before.
-Serving runs whole, on one card.
+
+Serving shards too (the families of ``SERVE_PARALLEL``, which are those
+of ``TENSOR_PARALLEL``): ``prefill``, ``init_cache`` and ``decode_step``
+take a serving rank's ``shard`` (``nn.sharding.serve_shard``), its
+parameter blocks and its cache laid out by ``nn.sharding.serve_rules``.
+Where the model axis divides the kv heads, each rank holds its kv heads
+of the cache and attends locally; otherwise each holds its slots of
+every kv head, writes the new token only into the slot it owns, and the
+attention combines the ranks' partial softmaxes (``nn.layers.
+attention_decode``). The embedding, the attention output, the MLP or MoE
+and the logits are those of the forward.
 
 Serving: ``forward(mode="chunked")`` (``prefill``) runs the online-softmax
 attention over KV blocks of ``attn_block`` keys; ``init_cache`` and
@@ -62,6 +72,9 @@ Params = Dict[str, Any]
 # the families of this module whose forward the trainer shards over the
 # model axis: all three
 TENSOR_PARALLEL = frozenset({"dense", "moe", "vlm"})
+# the families whose serve step takes a model shard, where the family is
+# also in TENSOR_PARALLEL (models.registry.serve_parallel)
+SERVE_PARALLEL = frozenset({"dense", "moe", "vlm"})
 
 
 def _norm(cfg: ModelConfig):
@@ -301,10 +314,11 @@ def total_loss(nll: torch.Tensor, aux: torch.Tensor, coef: float) -> torch.Tenso
 # serving: prefill and one-token decode against a KV cache
 # ---------------------------------------------------------------------------
 @torch.no_grad()
-def prefill(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
+def prefill(params: Params, cfg: ModelConfig, batch, shard=None) -> torch.Tensor:
     """Logits of the prompt through the chunked attention (the cache is
-    built by ``init_cache``, not here, as in the JAX package)."""
-    return forward(params, cfg, batch, mode="chunked")[0]
+    built by ``init_cache``, not here, as in the JAX package); under a
+    ``shard`` from the rank's blocks, the logits whole."""
+    return forward(params, cfg, batch, mode="chunked", shard=shard)[0]
 
 
 def ringless_kv(cfg: ModelConfig) -> List[str]:
@@ -317,14 +331,22 @@ def cache_slots(cfg: ModelConfig, max_len: int) -> int:
     return max_len if ringless_kv(cfg) else min(max_len, cfg.sliding_window)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"
-               ) -> Dict:
+def _splits(shard, axis: str) -> int:
+    """The shards ``axis`` is split into: ``shard.size`` where it splits
+    it, else 1."""
+    return shard.size if shard is not None and shard.splits(axis) else 1
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda",
+               shard=None) -> Dict:
     """Zero KV cache ``k``, ``v`` ``[n_layers, B, slots, kv_heads,
     head_dim]`` and ``pos``, a 0-d int32 tensor on ``device`` (the JAX
     tree; ``k`` and ``v`` are two tensors, since the step writes them in
-    place)."""
-    shape = (cfg.n_layers, batch, cache_slots(cfg, max_len), cfg.eff_kv_heads,
-             cfg.hd)
+    place). Under a serving ``shard`` the rank's block: its slots where
+    ``"kv_seq"`` is split, its kv heads where ``"kv_heads"`` is."""
+    shape = (cfg.n_layers, batch,
+             cache_slots(cfg, max_len) // _splits(shard, "kv_seq"),
+             cfg.eff_kv_heads // _splits(shard, "kv_heads"), cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
@@ -336,54 +358,71 @@ def cache_axes(cfg: ModelConfig) -> Dict:
 
 
 def write_kv(cache_k: torch.Tensor, cache_v: torch.Tensor, k: torch.Tensor,
-             v: torch.Tensor, at: torch.Tensor) -> None:
+             v: torch.Tensor, at: torch.Tensor, shard=None) -> None:
     """Write one token's ``k``, ``v`` ``[B, 1, kv_heads, head_dim]`` into
     slot ``at`` (a 0-d device tensor) of one layer's cache ``[B, slots,
     kv_heads, head_dim]``, in place. The slot must exist: the JAX
     package's ``dynamic_update_slice`` clamps a start past the end into
     the last slot, and an index past the end is an error here (on the
     card a device-side assert), so callers keep ``at < slots``
-    (``launch.serve.run`` refuses a request that would not)."""
-    idx = at.reshape(1).long()
-    cache_k.index_copy_(1, idx, k)
-    cache_v.index_copy_(1, idx, v)
+    (``launch.serve.run`` refuses a request that would not).
+
+    Under a ``shard`` that splits ``"kv_seq"`` the cache holds the rank's
+    slots ``[r S, (r + 1) S)`` and ``at`` is global: the rank that owns it
+    writes its local slot, and every other rank writes its slot 0 back
+    unchanged, chosen on the device (nothing is read on the host)."""
+    if shard is None or not shard.splits("kv_seq"):
+        idx = at.reshape(1).long()
+        cache_k.index_copy_(1, idx, k)
+        cache_v.index_copy_(1, idx, v)
+        return
+    local = at.reshape(1).long() - shard.index * cache_k.shape[1]
+    mine = (local >= 0) & (local < cache_k.shape[1])
+    idx = torch.where(mine, local, 0)
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        cache.index_copy_(1, idx, torch.where(mine, new,
+                                              cache.index_select(1, idx)))
 
 
 @torch.no_grad()
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+                tokens: torch.Tensor, shard=None) -> Tuple[torch.Tensor, Dict]:
     """``tokens [B, 1]`` → ``(logits [B, 1, padded_vocab], cache)``, the
     vocabulary padding masked. Writes slot ``pos % slots`` with a window
     (a ring: every filled slot attends, and the keys keep their absolute
     RoPE) and slot ``pos`` without one, in place, and reads nothing on the
     host. The MoE runs with ``no_drop=True`` and the default dispatch, as
-    the JAX step calls it."""
-    x = L.embed(params["embed"], tokens, cfg.torch_dtype)
+    the JAX step calls it. Under a serving ``shard`` the params and the
+    cache are the rank's blocks (module docstring) and the logits whole."""
+    x = L.embed(params["embed"], tokens, cfg.torch_dtype, shard)
     pos = cache["pos"]
-    slots = cache["k"].shape[2]
+    slots = cache["k"].shape[2] * _splits(shard, "kv_seq")
     write_at = pos if ringless_kv(cfg) else pos % slots
     filled = torch.clamp(pos + 1, max=slots)
     positions = pos.reshape(1, 1)
     _, norm = _norm(cfg)
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         h = norm(lp["norm1"], x)
+        # the rank's query heads and its kv heads, or the whole kv heads:
+        # each a local product with the weight's block (entering the model
+        # group is the identity without a backward)
         q, k, v = L.attn_qkv(lp["attn"], h)
         q = L.rope(q, positions, base=cfg.rope_base, fraction=cfg.rope_fraction)
         k = L.rope(k, positions, base=cfg.rope_base, fraction=cfg.rope_fraction)
         kc, vc = cache["k"][i], cache["v"][i]
-        write_kv(kc, vc, k, v, write_at)
-        ctx = L.attention_decode(q, kc, vc, filled, window=None)
-        x = x + L.attn_out(lp["attn"], ctx)
+        write_kv(kc, vc, k, v, write_at, shard)
+        ctx = L.attention_decode(q, kc, vc, filled, window=None, shard=shard)
+        x = x + L.attn_out(lp["attn"], ctx, shard=shard)
         h = norm(lp["norm2"], x)
         if cfg.is_moe:
             y, _ = M.moe_apply(
                 lp["mlp"], h, top_k=cfg.moe_top_k,
                 capacity_factor=cfg.capacity_factor,
-                group_size=cfg.moe_group_size, no_drop=True,
+                group_size=cfg.moe_group_size, no_drop=True, shard=shard,
             )
         else:
-            y = L.mlp(lp["mlp"], h, act=cfg.act)
+            y = L.mlp(lp["mlp"], h, act=cfg.act, shard=shard)
         x = x + y
     x = norm(params["final_norm"], x)
-    logits = mask_pad_logits(L.unembed(params["embed"], x), cfg)
+    logits = mask_pad_logits(L.unembed(params["embed"], x, shard), cfg)
     return logits, {**cache, "pos": pos + 1}

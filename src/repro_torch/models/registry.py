@@ -54,6 +54,17 @@ def tensor_parallel(cfg: ModelConfig) -> bool:
     return cfg.family in getattr(get_family(cfg), "TENSOR_PARALLEL", ())
 
 
+def serve_parallel(cfg: ModelConfig) -> bool:
+    """Whether the serve step (``prefill``, ``init_cache``,
+    ``decode_step``) runs on a rank's blocks over the model axis: the
+    family is in its module's ``SERVE_PARALLEL`` (``models.lm``'s dense,
+    MoE and VLM decoders) and trains tensor parallel
+    (:func:`tensor_parallel`). The SSM, hybrid and encoder-decoder
+    families serve whole, and their decode steps refuse a shard."""
+    return (tensor_parallel(cfg)
+            and cfg.family in getattr(get_family(cfg), "SERVE_PARALLEL", ()))
+
+
 def param_axes(cfg: ModelConfig) -> Dict:
     """The logical axes of ``cfg``'s parameter tree, nothing drawn: the
     tree ``repro.core.distributed.shapes_and_axes`` gives the JAX

@@ -269,12 +269,16 @@ def _mamba_step(lp: Params, x: torch.Tensor, cfg: ModelConfig, conv, ssm_state
 
 @torch.no_grad()
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+                tokens: torch.Tensor, shard=None) -> Tuple[torch.Tensor, Dict]:
     """``tokens [B, 1]`` → ``(logits [B, 1, padded_vocab], cache)``: the
     blocks in the forward's order, each mamba block one step of its
     recurrence, each application of the shared block writing slot ``pos``
     of its KV cache; every cache tensor written in place, and the cache
-    returned with ``pos + 1``."""
+    returned with ``pos + 1``. A model ``shard`` is refused: the family
+    serves whole."""
+    if shard is not None:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family serves whole, "
+                         "on one rank; its decode step takes no model shard")
     x = L.embed(params["embed"], tokens, cfg.torch_dtype)
     pos = cache["pos"]
     positions = pos.reshape(1, 1)

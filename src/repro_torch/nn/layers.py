@@ -270,25 +270,81 @@ def attention_decode(
     cache_len: Union[torch.Tensor, int],  # filled length, the new token's key included
     *,
     window: Optional[int] = None,
+    shard: Optional[TP.ModelShard] = None,
 ) -> torch.Tensor:
     """One query token over the cache's first ``cache_len`` slots (a 0-d
     device tensor, so the step reads no value on the host), the last
     ``window`` of them when given. Each group of ``H / Kh`` query heads
     attends to its KV head of the cache in place (the JAX package repeats
     the KV heads; a repeated cache would be ``H / Kh`` times the cache's
-    bytes each layer and step)."""
+    bytes each layer and step).
+
+    Under a serving ``shard`` (``nn.sharding.serve_rules``), ``q`` holds
+    the rank's query heads where ``"heads"`` is split, and the result its
+    heads' context. Where the kv heads are split, the cache holds the
+    rank's kv heads, whose GQA groups are its query heads: the attention
+    is local. Otherwise the cache's kv heads are whole: the query heads
+    are gathered over the group, and where ``"kv_seq"`` is split the cache
+    holds the rank's slots ``[r S, (r + 1) S)`` of the global ``cache_len``
+    mask. Each rank then computes, in float32 over its slots, the max
+    score ``m``, the sum ``l`` and the unnormalised context ``o``; the ranks'
+    ``(m, l, o)`` are gathered and combined in shard order by the same
+    expression on every rank, so every rank holds the same bits. A rank
+    whose slots are all masked has ``m = NEG_INF`` (finite), so its weight
+    ``exp(m - max m)`` is 0."""
+    if shard is None or shard.splits("kv_heads") or not (
+            shard.splits("heads") or shard.splits("kv_seq")):
+        return _decode_core(q, k_cache, v_cache, cache_len, window)
+    heads = q.shape[-2]
+    if shard.splits("heads"):
+        q = torch.cat(TP.gather(q, shard).unbind(0), dim=-2)
+    if shard.splits("kv_seq"):
+        first = shard.index * k_cache.shape[1]
+        m, l, o = _decode_partial(q, k_cache, v_cache, cache_len, window, first)
+        parts = TP.gather(torch.cat([m, l, o], dim=-1), shard)
+        m, l, o = parts[..., :1], parts[..., 1:2], parts[..., 2:]
+        w = torch.exp(m - m.amax(0))  # 0 for a rank with no filled slot
+        o = (o * w).sum(0) / (l * w).sum(0)  # [B, Kh, G, Sq, Dh]
+        B, Kh, G, Sq, Dh = o.shape
+        ctx = o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Kh * G, Dh).to(q.dtype)
+    else:
+        ctx = _decode_core(q, k_cache, v_cache, cache_len, window)
+    if shard.splits("heads"):
+        ctx = ctx[:, :, shard.index * heads:(shard.index + 1) * heads]
+    return ctx
+
+
+def _decode_scores(q, k_cache, cache_len, window, first: int = 0):
+    """The masked float32 scores ``[B, Kh, H / Kh, Sq, S]`` of the cache's
+    slots ``first ...`` of the global mask."""
     B, Sq, H, Dh = q.shape
     Kh = k_cache.shape[-2]
     qg = q.reshape(B, Sq, Kh, H // Kh, Dh)
     s = attn_scale(torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache), Dh)
-    k_pos = torch.arange(k_cache.shape[1], device=q.device)
+    k_pos = first + torch.arange(k_cache.shape[1], device=q.device)
     ok = k_pos < cache_len
     if window is not None:
         ok = ok & (k_pos >= cache_len - window)
-    s = torch.where(ok, s.float(), NEG_INF)
-    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.where(ok, s.float(), NEG_INF)
+
+
+def _decode_core(q, k_cache, v_cache, cache_len, window) -> torch.Tensor:
+    B, Sq, H, Dh = q.shape
+    p = torch.softmax(_decode_scores(q, k_cache, cache_len, window),
+                      dim=-1).to(q.dtype)
     ctx = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache)
     return ctx.reshape(B, Sq, H, Dh)
+
+
+def _decode_partial(q, k_cache, v_cache, cache_len, window, first: int):
+    """``(m, l, o)`` of the slots ``first ...``: the max ``[B, Kh, G, Sq,
+    1]``, the sum of ``exp(s - m)`` and the context it weights ``[B, Kh,
+    G, Sq, Dh]``, float32."""
+    s = _decode_scores(q, k_cache, cache_len, window, first)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(q.dtype), v_cache).float()
+    return m, p.sum(-1, keepdim=True), o
 
 
 # ---------------------------------------------------------------------------

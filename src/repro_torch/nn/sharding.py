@@ -22,6 +22,11 @@ tree (the port's seeded init, or weights carried across from JAX by
 model group. The block is the contiguous slice along the split dim,
 which flattens row-major exactly as ``core.distributed.shard_blocks``
 flattens a shard's block, so a rank's gradient is its round's row.
+
+Serving lays the parameters and the decode cache out by
+:func:`serve_rules`, the JAX dry run's serve rules: the kv heads split
+where the model axis divides them, else the cache's slots (``kv_seq``).
+:func:`serve_shard` gives a serving rank its ``ModelShard``.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 Spec = Tuple[object, ...]
 MODEL_AXIS = "model"
@@ -184,3 +189,46 @@ def unshard_params(params, specs, group, M: int):
         return torch.cat(parts.unbind(0), dim=d)
 
     return tree_map(one, params, specs)
+
+
+def serve_rules(cfg, M: int) -> Dict[str, Optional[str]]:
+    """The serve step's rules beside :data:`DEFAULT_RULES` on a model axis
+    of ``M``: the kv heads split where ``M`` divides them (the cache's
+    slots whole), else the cache's slots (``"kv_seq"``) split and the kv
+    heads whole, in the parameters and the cache alike. The divisibility
+    guard still applies: slots that ``M`` does not divide stay whole, and
+    every rank then holds the whole cache.
+
+    >>> from types import SimpleNamespace as C
+    >>> serve_rules(C(n_heads=16, n_kv_heads=2), 4)
+    {'kv_seq': 'model', 'kv_heads': None}
+    >>> serve_rules(C(n_heads=16, n_kv_heads=2), 2)
+    {'kv_seq': None}
+    """
+    if cfg.n_heads and cfg.n_kv_heads % M == 0:
+        return {"kv_seq": None}
+    return {"kv_seq": MODEL_AXIS, "kv_heads": None}
+
+
+def serve_shard(axes, specs, cache_axes, cache_specs, group, index: int,
+                M: int):
+    """A serving rank's ``nn.tensor_parallel.ModelShard`` (shard
+    ``index`` of ``M`` over the model ``group``; None counts on the meta
+    device), None at ``M = 1``: the logical axes that the parameter specs
+    (``specs`` beside ``axes``, under :func:`serve_rules`) split, plus
+    ``"kv_seq"`` where the cache specs split the slots. The kv heads
+    split with the query heads whole raises, as the trainer's
+    ``core.distributed.model_shard`` does."""
+    from repro_torch.nn.tensor_parallel import ModelShard, split_axes
+
+    if M == 1:
+        return None
+    split = set(split_axes(axes, specs))
+    for ax, spec in zip(tree_leaves(cache_axes), tree_leaves(cache_specs),
+                        strict=True):
+        if "kv_seq" in ax and spec[tuple(ax).index("kv_seq")] == MODEL_AXIS:
+            split.add("kv_seq")
+    if "kv_heads" in split and "heads" not in split:
+        raise ValueError("the kv heads are split over the model axis but the "
+                         "query heads are whole")
+    return ModelShard(group, index, M, frozenset(split))

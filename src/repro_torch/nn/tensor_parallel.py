@@ -26,7 +26,10 @@ that ``nn.sharding`` splits.
   ``in_proj``, ``conv_w`` and ``conv_b``, split on ``"d_inner"`` across
   their ``z | x | B | C | dt`` parts) is gathered whole and each rank
   takes its own columns: each rank's gradient then holds its own
-  columns' part, and the sum is the whole gradient.
+  columns' part, and the sum is the whole gradient;
+* :func:`gather`: the ranks' tensors stacked in shard order, forward
+  only (serving runs without gradients): the decode step's query heads
+  and each rank's partial attention over its cache slots.
 
 A :class:`ModelShard` names the rank's place in its model group and the
 logical axes whose leaves are split there (``"heads"``, ``"kv_heads"``,
@@ -178,3 +181,15 @@ def gather_leaf(x: torch.Tensor, shard: ModelShard) -> torch.Tensor:
     gradient of this rank's block is its slice of the whole gradient
     summed over the group."""
     return _GatherLeaf.apply(x, shard)
+
+
+def gather(x: torch.Tensor, shard: ModelShard) -> torch.Tensor:
+    """``[size, *x.shape]``: every rank's ``x`` in shard order, the same
+    bits on every rank; forward only, for serving under ``no_grad``."""
+    _check(x, shard)
+    shard.traffic["all-gather"] += shard.size * x.numel() * x.element_size()
+    if shard.group is None:
+        return x[None].expand(shard.size, *x.shape).clone()
+    from repro_torch.comm.collectives import _gather
+
+    return _gather(x.contiguous()[None], (shard.group,))

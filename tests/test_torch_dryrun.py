@@ -21,6 +21,13 @@ and ``_moe.py``):
 * at ``(8, 1)`` the all-gather bytes equal the walker's (W payloads of
   each leaf and the ZeRO-1 gather of each update in f32), and the
   all-reduce is the loss mean's 4 B;
+* the decode step on the model axis, at ``(4, 2)`` (the kv heads split)
+  and ``(2, 4)`` (the cache's slots split): the rank holds what the JAX
+  device's ``argument_size_in_bytes`` counts, but for its int64 tokens'
+  4 B a row, and its model group's all-reduce and all-gather bytes are
+  the count written out from ``launch.dryrun``'s docstring (JAX's
+  collective bytes are not compared: GSPMD replicates the cache to write
+  one slot, which is not the port's traffic);
 * the CLI writes one record with the JAX record's keys, reports it
   ``CACHED`` when run again and ``SKIP``s a ``long_500k`` combo that
   ``shape_applicable`` refuses; and the dry run makes no CUDA call.
@@ -46,6 +53,9 @@ ROOT = Path(__file__).resolve().parents[1]
 ARCH = "qwen2.5-3b"
 CASES = (f"{ARCH}:train_4k:8x1", f"{ARCH}:train_4k:4x2",
          f"{ARCH}:prefill_32k:8x1", f"{ARCH}:decode_32k:8x1")
+# the serve step on the model axis: the kv heads split, the slots split
+SERVE_TP_CASES = {"heads": f"{ARCH}:decode_32k:4x2",
+                  "seq": f"{ARCH}:decode_32k:2x4"}
 # the keys of a record of the JAX dry run (repro.launch.dryrun.run_combo)
 JAX_KEYS = {"arch", "shape", "mesh", "kind", "tag", "lower_s", "compile_s",
             "mem", "flops", "hbm_bytes", "xla_flops_looponce",
@@ -87,7 +97,7 @@ def int64_extra(lay) -> int:
 
 @pytest.fixture(scope="module")
 def jax_runs(tmp_path_factory):
-    return jax_cases(tmp_path_factory, CASES)
+    return jax_cases(tmp_path_factory, CASES + tuple(SERVE_TP_CASES.values()))
 
 
 def test_train_flops_args_and_collectives_match_jax(jax_runs, monkeypatch):
@@ -170,6 +180,40 @@ def test_serve_flops_match_jax(jax_runs, monkeypatch, case):
     assert rec["flops"] == jax_runs[case]["flops"]
     assert rec["collective_bytes"] == {"total": 0.0}
     assert rec["kind"] == case.split(":")[1].split("_")[0]
+
+
+def model_group_bytes(cfg, rows: int, M: int, layout: str):
+    """``(all-reduce, all-gather)`` bytes of one decode step's model group
+    on a rank of ``rows`` rows, in bf16 (``launch.dryrun``'s docstring):
+    the embedding's and each layer's attention output's and MLP's
+    all-reduces of ``[rows, 1, d_model]``; the logits' gather of every
+    rank's ``padded_vocab / M`` columns; in the sequence layout each
+    layer's gathers of the rank's query heads ``[rows, 1, heads / M,
+    head_dim]`` and of its partial softmax, ``m``, ``l`` and ``o`` of every
+    head ``[rows, heads, head_dim + 2]`` in f32."""
+    bf16, L, H, Dh = 2, cfg.n_layers, cfg.n_heads, cfg.hd
+    reduce = (1 + 2 * L) * rows * cfg.d_model * bf16
+    gather = M * rows * (cfg.padded_vocab // M) * bf16
+    if layout == "seq":
+        gather += L * M * (rows * (H // M) * Dh * bf16
+                           + rows * H * (Dh + 2) * 4)
+    return reduce, gather
+
+
+@pytest.mark.parametrize("layout", list(SERVE_TP_CASES))
+def test_serve_on_the_model_axis_holds_what_the_device_holds(
+        jax_runs, monkeypatch, layout):
+    case = SERVE_TP_CASES[layout]
+    rec, _ = port_case(monkeypatch, case)
+    _, _, data, M, _ = jside.case_overrides(configs, case)
+    rows = configs.INPUT_SHAPES["decode_32k"][1] // data
+    assert rec["rank_bytes"] - 4 * rows == jax_runs[case]["argument_bytes"]
+    assert rec["rank_bytes"] == rec["mem"]["argument_bytes"]
+    cfg = dryrun._apply_overrides(configs.get_config(ARCH))  # port_case's
+    reduce, gather = model_group_bytes(cfg, rows, M, layout)
+    coll = rec["rank_collective_bytes"]
+    assert (coll["all-reduce:model"], coll["all-gather:model"]) == (
+        reduce, gather)
 
 
 def test_the_cli_writes_caches_and_skips(tmp_path, capsys, monkeypatch):

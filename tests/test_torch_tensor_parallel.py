@@ -291,14 +291,41 @@ def _inputs():
             "wv1": torch.randn(E, 1, DH, generator=g) / 4,
             "wo": torch.randn(H, DH, E, generator=g) / 4,
             # a cross-attention source of another length than x's 5
-            "xkv": torch.randn(2, 7, E, generator=g)}
+            "xkv": torch.randn(2, 7, E, generator=g),
+            # one decode step: its query and new key and value, and a
+            # cache of 8 slots of 2 kv heads
+            "dq": torch.randn(2, 1, H, DH, generator=g),
+            "dk": torch.randn(2, 1, 2, DH, generator=g),
+            "dv": torch.randn(2, 1, 2, DH, generator=g),
+            "kc": torch.randn(2, 8, 2, DH, generator=g),
+            "vc": torch.randn(2, 8, 2, DH, generator=g)}
 
 
 def _layer_fns():
     """``{name: (fn(leaves, shard) -> output, {leaf: split dim or None},
     the logical axes split)}``: the layers under test, whole when
     ``shard`` is None and on the rank's blocks otherwise."""
+    from repro_torch.models.lm import write_kv
     from repro_torch.nn import layers as L
+
+    def decode(pos):
+        """One decode step at ``pos`` (forward only): the new key and value
+        written into slot ``pos % slots`` of a copy of the cache, then the
+        query over the filled slots and the output projection."""
+        def fn(w, shard):
+            with torch.no_grad():
+                kc, vc = w["kc"].clone(), w["vc"].clone()
+                slots = kc.shape[1] * (shard.size if shard is not None
+                                       and shard.splits("kv_seq") else 1)
+                at = torch.tensor(pos % slots, device=kc.device)
+                write_kv(kc, vc, w["dk"], w["dv"], at, shard)
+                ctx = L.attention_decode(
+                    w["dq"], kc, vc, torch.clamp(at.new_tensor(pos + 1),
+                                                 max=slots), shard=shard)
+                return L.attn_out({"wo": w["wo"]}, ctx, shard=shard)
+        return fn
+
+    slots = {"dq": 2, "kc": 1, "vc": 1, "dk": None, "dv": None, "wo": 0}
 
     def attention(kv, cross=False):
         def fn(w, shard):
@@ -333,6 +360,20 @@ def _layer_fns():
             attention("1", cross=True),
             {"wq": 1, "wk1": None, "wv1": None, "wo": 0, "xkv": None},
             {"heads"}),
+        # the serve step's attention: 6 of 8 slots filled, the rank's kv
+        # heads of the cache
+        "decode-kv-heads": (decode(5), {"dq": 2, "dk": 2, "dv": 2, "kc": 2,
+                                        "vc": 2, "wo": 0},
+                            {"heads", "kv_heads"}),
+        # the rank's 4 slots of both kv heads, 3 slots filled: rank 1's are
+        # all empty, and the query heads gathered
+        "decode-slots": (decode(2), slots, {"heads", "kv_seq"}),
+        # the same with the query heads whole on every rank
+        "decode-slots-heads-whole": (
+            decode(2), {**slots, "dq": None, "wo": None}, {"kv_seq"}),
+        # a ring that has wrapped: every slot filled, step 13 written into
+        # slot 5, rank 1's
+        "decode-ring": (decode(13), slots, {"heads", "kv_seq"}),
     }
 
 
@@ -355,13 +396,16 @@ def _layer_results(group=None, rank=0, device="cpu"):
                 x = x.narrow(d, rank * (x.shape[d] // 2), x.shape[d] // 2)
             w[leaf] = x.clone().requires_grad_(True)
         y = fn(w, shard)
-        cot = torch.linspace(-1, 1, y.numel()).reshape(y.shape).to(device)
-        live = {k: v for k, v in w.items() if v.requires_grad}
-        grads = torch.autograd.grad((y * cot).sum(), list(live.values()),
-                                    allow_unused=True)
+        grads = {}  # none for a forward-only layer (the decode step)
+        if y.requires_grad:
+            cot = torch.linspace(-1, 1, y.numel()).reshape(y.shape).to(device)
+            live = {k: v for k, v in w.items() if v.requires_grad}
+            grads = dict(zip(live, torch.autograd.grad(
+                (y * cot).sum(), list(live.values()), allow_unused=True),
+                strict=True))
         out[name] = {"y": y.detach(), "dims": dims,
                      "grads": {k: None if g is None else g.detach()
-                               for k, g in zip(live, grads, strict=True)},
+                               for k, g in grads.items()},
                      "traffic": None if shard is None else dict(shard.traffic)}
     return out
 
