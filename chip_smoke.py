@@ -274,16 +274,25 @@ Phases, each raising on failure (the script then exits non-zero):
               partial softmaxes the ranks combine) and at (2, 2) (1 kv
               head and 4 rows a rank), and deepseek-moe-16b at 1 of 28
               layers, batch 4, max_len 1024, at (1, 4) (4 of its 16 kv
-              heads a rank, each expert's width split), each through
-              serve.run(..., mesh=) from phase 14's weights and first
-              tokens (8 untimed, 64 timed greedy steps), recorded and held
-              against phase 14's one-card run (its twin): each step's
+              heads a rank, each expert's width split), zamba2-7b at
+              phase 14's 15 of 81 layers, batch 8, max_len 2048, at (1, 4)
+              (8 of its 32 kv heads, 28 of 112 SSM heads and a block of
+              1824 of 7296 conv channels a rank) and mamba2-780m at 24 of
+              48 layers, batch 8, max_len 2048, at (2, 2) (24 of 48 SSM
+              heads, 1664 of 3328 conv channels, 4 rows a rank), each
+              through serve.run(..., mesh=) from phase 14's weights and
+              first tokens (8 untimed, 64 timed greedy steps; the SSM
+              runs 8 timed), recorded and held against phase 14's
+              one-card run (its twin) over as many steps: each step's
               logits within rtol 1e-5 and a floor of 1e-5 of the step's
-              largest, and the final cache block's slots within the same,
-              up to a row's first token apart from the twin's (an MoE row
-              up to its first routing flip, a near-tie within 1e-5), pos
-              72, that first differing token at a near-tie of the twin's
-              top 2 (1e-3) or after a flip, each rank's parameter and
+              largest, and every block of the cache after those steps
+              within the same (the KV slots up to a row's first token
+              apart from the twin's, an MoE row up to its first routing
+              flip, a near-tie within 1e-5; the conv windows and SSM
+              states of the rows whose inputs were the twin's), pos
+              the steps taken, that first differing token at a near-tie
+              of the twin's top 2 (1e-3) or after a flip, each rank's
+              parameter and
               cache bytes those launch.dryrun.serve_count predicts; ms a
               step beside the twin's, the model group's collectives a
               step (count, bytes, host seconds over the untimed steps)
@@ -3308,11 +3317,14 @@ class _ServeRecorder:
     logits over the real vocabulary (copied on the device), the cache it
     returns (the last one kept), its ``shard`` and the bytes of the
     parameters it reads; the first ``comm_steps`` steps under ``comm``
-    (phase 15 (c)'s ``_TpCounted``)."""
+    (phase 15 (c)'s ``_TpCounted``); after each step count in ``keep`` a
+    copy of the cache on the device, by dotted path (``kept[steps]``)."""
 
-    def __init__(self, mod, vocab: int, comm=None, comm_steps: int = 0):
+    def __init__(self, mod, vocab: int, comm=None, comm_steps: int = 0,
+                 keep=()):
         self.mod, self.vocab, self.comm, self.comm_steps = mod, vocab, comm, comm_steps
         self.logits, self.cache, self.shard, self.param_bytes = [], None, None, 0
+        self.keep, self.kept = set(keep), {}
 
     def __enter__(self):
         self._step = self.mod.decode_step
@@ -3323,6 +3335,11 @@ class _ServeRecorder:
                 logits, cache = self._step(params, cfg, cache, tokens, **kw)
             self.logits.append(logits[:, 0, :self.vocab].clone())
             self.cache, self.shard = cache, kw.get("shard")
+            if len(self.logits) in self.keep:
+                from repro_torch.tree import tree_items
+
+                self.kept[len(self.logits)] = {k: x.clone()
+                                               for k, x in tree_items(cache)}
             self.param_bytes = _tree_bytes(params)
             return logits, cache
 
@@ -3338,15 +3355,17 @@ def _serve_twin(arch: str, params, res, rec: "_ServeRecorder", routes,
     """Phase 14's run of ``arch`` saved as the one-card twin of phase 15
     (c)'s serving runs under ``twin_dir``: the whole weights
     (``<arch>.serve.p0.pt``) and the served sequence, each step's logits,
-    the final cache and an MoE's routings (``<arch>.serve.twin.pt``), as
+    the cache by dotted path after each step count its serving runs hold
+    (``caches``) and an MoE's routings (``<arch>.serve.twin.pt``), as
     ``_ServeRecorder`` and ``_Routes`` recorded them in ``serve.run``."""
     from repro_torch.tree import tree_items
 
     t0 = time.perf_counter()
     torch.save({"seq": torch.cat([res.first, res.prompt, res.tokens], 1),
                 "logits": torch.stack(rec.logits, 1).cpu(),
-                "k": rec.cache["k"].cpu(), "v": rec.cache["v"].cpu(),
-                "pos": int(rec.cache["pos"]), "step_ms": step_ms,
+                "caches": {n: {k: x.cpu() for k, x in c.items()}
+                           for n, c in rec.kept.items()},
+                "step_ms": step_ms,
                 "routes": None if routes is None else {
                     "maps": [x.cpu() for x in routes.maps],
                     "probs": [x.cpu() for x in routes.probs]}},
@@ -3387,8 +3406,10 @@ def _serve_published(arch: str, run: dict, smi: str, twin_dir=None) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = _all_launches()
-    twin = twin_dir is not None and arch in {r["arch"] for r in TP_SERVE_RUNS.values()}
-    with (_ServeRecorder(mod, cfg.vocab) if twin else contextlib.nullcontext()) as rec, \
+    held = {_tp_serve_steps(r) for r in TP_SERVE_RUNS.values() if r["arch"] == arch}
+    twin = twin_dir is not None and bool(held)
+    with (_ServeRecorder(mod, cfg.vocab, keep=held) if twin
+          else contextlib.nullcontext()) as rec, \
             (_Routes() if twin and cfg.is_moe else contextlib.nullcontext()) as routes:
         res = serve.run(serve.parse_args([
             "--arch", arch, "--batch", str(B), "--prompt-len", str(SERVE_PROMPT),
@@ -3904,16 +3925,28 @@ TP_RUNS = {
 # phase 15 (c)'s serving runs, on the same 4 ranks after the training
 # runs: phase 14's model (its depth, batch and max_len, SERVE_RUNS) on a
 # (data, model) layout, held against phase 14's one-card run of the same
-# weights and first tokens (its twin). qwen2.5-3b's 2 kv heads stay whole
-# at M = 4 (the cache's slots split, 512 a rank) and split at M = 2;
-# deepseek-moe-16b's 16 split 4 a rank, its experts' width split.
+# weights and first tokens (its twin), over its first SERVE_PROMPT + new
+# steps (SERVE_NEW unless the run says). qwen2.5-3b's 2 kv heads
+# stay whole at M = 4 (the cache's slots split, 512 a rank) and split at
+# M = 2; deepseek-moe-16b's 16 split 4 a rank, its experts' width split;
+# zamba2-7b's 32 split 8 a rank and its mixers 4 ways (1824 of the 7296
+# conv channels, 28 of 112 SSM heads a rank); mamba2-780m's mixers 2 ways
+# (1664 of 3328 conv channels, 24 of 48 heads), 4 rows a dp group. The
+# SSM runs take 8 + 8 steps for the script's time limit.
 TP_SERVE_RUNS = {
     "qwen2.5-3b:seq": dict(arch="qwen2.5-3b", data=1, model=4, layout="seq"),
     "qwen2.5-3b:heads": dict(arch="qwen2.5-3b", data=2, model=2,
                              layout="heads"),
     "deepseek-moe-16b": dict(arch="deepseek-moe-16b", data=1, model=4,
                              layout="heads"),
+    "zamba2-7b": dict(arch="zamba2-7b", data=1, model=4, layout="heads",
+                      new=8),
+    "mamba2-780m": dict(arch="mamba2-780m", data=2, model=2, layout="ssm",
+                        new=8),
 }
+# the axes a serving run's layout splits, beside the SSD's channels and
+# heads for the SSM and hybrid families
+TP_SERVE_LAYOUTS = {"seq": {"kv_seq"}, "heads": {"kv_heads"}, "ssm": set()}
 TP_SERVE_RTOL = 1e-5  # and a floor of 1e-5 of the step's largest logit
 TP_SERVE_MARGIN = 1e-3  # tests/test_torch_serve.py's near-tie of the top 2
 TP_STEPS = 3
@@ -4259,6 +4292,46 @@ class _TpCounted:
         collectives._psum, collectives._gather = self._plain
 
 
+def _tp_serve_steps(run: dict) -> int:
+    """The greedy steps a serving run of phase 15 (c) takes and holds."""
+    return SERVE_PROMPT + run.get("new", SERVE_NEW)
+
+
+def _tp_serve_held(got, ref, axes, shard, index: int, rows: slice,
+                   first_diff, flips, steps: int):
+    """``(ref's block, the mask of its held entries)`` of one cache leaf:
+    the twin's whole leaf ``ref`` cut to the rank's rows and to its block
+    ``index`` of every axis the serving ``shard`` splits. A slot of the KV
+    cache is held up to a row's first token apart from the twin's and
+    before its first routing flip; a recurrent state (the conv window, the
+    SSM state) only where the row's inputs were the twin's at every
+    step."""
+    idx, slot_dim = [], None
+    for dim, name in enumerate(axes):
+        if name == "batch":
+            idx.append(rows)
+        elif name is not None and shard.splits(name):
+            n = got.shape[dim]
+            idx.append(slice(index * n, (index + 1) * n))
+        else:
+            idx.append(slice(None))
+        if name == "kv_seq":
+            slot_dim = dim
+    ref = ref[tuple(idx)]
+    b = list(axes).index("batch")
+    shape = [1] * got.dim()
+    shape[b] = got.shape[b]
+    if slot_dim is None:
+        keep = ((first_diff >= steps - 1) & (flips >= steps)).reshape(shape)
+    else:
+        first = idx[slot_dim].start or 0
+        slot = first + torch.arange(got.shape[slot_dim])
+        keep = (slot[None, :] <= first_diff[:, None]) & (slot[None, :] < flips[:, None])
+        shape[slot_dim] = got.shape[slot_dim]
+        keep = keep.reshape(shape)
+    return ref, keep.expand_as(got)
+
+
 def _tp_serve(rank: int, device: str, name: str, twin_dir: str) -> dict:
     """One serving run of phase 15 (c) on this gloo rank (see
     ``model_parallel_tp``): ``serve.run(..., mesh=)`` from the rank's
@@ -4268,16 +4341,21 @@ def _tp_serve(rank: int, device: str, name: str, twin_dir: str) -> dict:
     logits and each slot of the final cache block up to a row's first
     token that differs from the twin's (the inputs are the twin's up to
     there) and, for an MoE, before the row's first routing flip (a
-    near-tie, ``_route_flips``, or it raises); ``pos``; and the first
-    differing token at a near-tie of the twin's top 2 or after a flip."""
+    near-tie, ``_route_flips``, or it raises); each recurrent state of the
+    cache where its row's inputs were the twin's throughout
+    (``_tp_serve_held``); ``pos``; and the first differing token at a
+    near-tie of the twin's top 2 or after a flip. The run takes its first
+    ``_tp_serve_steps`` of the twin's steps."""
     import torch.distributed as dist
 
     from repro_torch import configs
     from repro_torch.launch import mesh, serve
     from repro_torch.models import get_family
+    from repro_torch.tree import tree_items
 
     run = TP_SERVE_RUNS[name]
     arch, W, M = run["arch"], run["data"], run["model"]
+    prompt, new = SERVE_PROMPT, run.get("new", SERVE_NEW)
     srv = SERVE_RUNS[arch]
     B, max_len = srv["batch"], srv["max_len"]
     cfg = configs.get_config(arch).replace(n_layers=srv["layers"])
@@ -4294,19 +4372,19 @@ def _tp_serve(rank: int, device: str, name: str, twin_dir: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     dist.barrier()
     comm = _TpCounted(groups.model_group)
-    with _ServeRecorder(mod, cfg.vocab, comm, SERVE_PROMPT) as rec, \
+    with _ServeRecorder(mod, cfg.vocab, comm, prompt) as rec, \
             (_Routes() if cfg.is_moe else contextlib.nullcontext()) as routes:
         res = serve.run(serve.parse_args([
-            "--arch", arch, "--batch", str(B), "--prompt-len", str(SERVE_PROMPT),
-            "--new-tokens", str(SERVE_NEW), "--max-len", str(max_len), "--device",
+            "--arch", arch, "--batch", str(B), "--prompt-len", str(prompt),
+            "--new-tokens", str(new), "--max-len", str(max_len), "--device",
             device]), params=p0, cfg=cfg, mesh=groups)
     peak = torch.cuda.max_memory_allocated()
     stages["serve"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     del p0
     shard, cache = rec.shard, rec.cache
-    seq, want = twin["seq"][rows], twin["logits"][rows]
-    T = want.shape[1]
+    T = prompt + new
+    seq, want = twin["seq"][rows, :T + 1], twin["logits"][rows, :T]
     served = torch.cat([res.prompt, res.tokens], 1)
     # each row's first step whose token differs from the twin's (T: none);
     # up to it the rank's inputs are the twin's
@@ -4339,26 +4417,26 @@ def _tp_serve(rank: int, device: str, name: str, twin_dir: str) -> dict:
             if bool(keep.any()):
                 err = max(err, diff[keep].max().item())
                 worst = max(worst, (diff / limit)[keep].max().item())
-        # the cache block against the twin's at the slots held (a ring would
-        # put position p at slot p % slots; these runs have none)
+        # every cache block against the twin's after the same steps, at the
+        # entries held (a ring would put position p at slot p % slots;
+        # these runs have none)
         if cfg.sliding_window:
             raise ValueError(f"{name}: the cache check reads slots as positions")
         cache_err, cache_ok = 0.0, True
-        first = groups.shard * cache["k"].shape[2] if shard.splits("kv_seq") else 0
-        for leaf in ("k", "v"):
-            ref = twin[leaf][:, rows]
-            if shard.splits("kv_seq"):
-                ref = ref[:, :, first:first + cache[leaf].shape[2]]
-            if shard.splits("kv_heads"):
-                K = cache[leaf].shape[3]
-                ref = ref[:, :, :, groups.shard * K:(groups.shard + 1) * K]
-            got = cache[leaf].cpu()
-            slot = (first + torch.arange(got.shape[2]))[None, :]
-            keep = (slot <= first_diff[:, None]) & (slot < flips[:, None])
-            keep = keep[None, :, :, None, None].expand_as(got)
+        axes = dict(tree_items(mod.cache_axes(cfg)))
+        refs = twin["caches"][T]
+        mine = dict(tree_items(cache))
+        cache_ok &= set(mine) == set(refs)
+        for leaf in sorted(set(mine) - {"pos"}):
+            got = mine[leaf].cpu()
+            ref, keep = _tp_serve_held(got, refs[leaf], axes[leaf], shard,
+                                       groups.shard, rows, first_diff, flips, T)
+            if got.shape != ref.shape:
+                cache_ok = False
+                continue
             diff = (got - ref).abs()[keep]
             limit = TP_SERVE_RTOL * (ref.abs()[keep] + ref.abs().max())
-            cache_ok &= got.shape == ref.shape and bool((diff <= limit).all())
+            cache_ok &= bool((diff <= limit).all())
             cache_err = max(cache_err, float(diff.max()) if diff.numel() else 0.0)
     # a row's first differing token: at a near-tie of the twin's top 2, or
     # after a routing flip
@@ -4368,6 +4446,7 @@ def _tp_serve(rank: int, device: str, name: str, twin_dir: str) -> dict:
                     for r, t in enumerate(first_diff))
     stages["check"] = time.perf_counter() - t0
     return {"split": sorted(shard.split), "rows": [rows.start, rows.stop],
+            "cache_leaves": len(mine) - 1,
             "step_ms": statistics.median(res.step_ms),
             "tokens_per_s": res.tokens_per_s, "peak_bytes": peak,
             "block_bytes": {"params": rec.param_bytes, "cache": _tree_bytes(cache)},
@@ -4379,9 +4458,9 @@ def _tp_serve(rank: int, device: str, name: str, twin_dir: str) -> dict:
             "tokens_ok": tokens_ok,
             "cache_ok": cache_ok, "cache_max_abs_err": cache_err,
             "pos": int(cache["pos"]), "steps": T,
-            "comm": {"calls": comm.calls / SERVE_PROMPT,
-                     "bytes": comm.bytes / SERVE_PROMPT,
-                     "seconds": comm.seconds / SERVE_PROMPT},
+            "comm": {"calls": comm.calls / prompt,
+                     "bytes": comm.bytes / prompt,
+                     "seconds": comm.seconds / prompt},
             "traffic": {k: v / T for k, v in shard.traffic.items()},
             "stages_s": stages}
 
@@ -4442,7 +4521,8 @@ def _tp_weights(arch: str, cfg, twin_dir=None):
     if twin_dir is None or not os.path.exists(path):
         return get_family(cfg).init(cfg, seed=0, device="cpu")
     saved = torch.load(path, mmap=True)
-    if saved["final_norm.scale"].shape != (cfg.d_model,) or (
+    if "layers.norm1.scale" not in saved or (
+            saved["final_norm.scale"].shape != (cfg.d_model,)) or (
             saved["layers.norm1.scale"].shape[0] < cfg.n_layers):
         return get_family(cfg).init(cfg, seed=0, device="cpu")
     # the layers cut into their own storage: torch.save writes a view's
@@ -4734,7 +4814,9 @@ def _tp_serve_report(name: str, rks: list, twin_dir: str, smi: str) -> dict:
     pred = dryrun.serve_count(cfg, "decode", srv["max_len"], srv["batch"],
                               {"data": W, "model": M})
     twin_ms = torch.load(f"{twin_dir}/{arch}.serve.twin.pt", mmap=True)["step_ms"]
-    want_split = {"seq": "kv_seq", "heads": "kv_heads"}[run["layout"]]
+    want_split = set(TP_SERVE_LAYOUTS[run["layout"]])
+    if cfg.family in ("ssm", "hybrid"):
+        want_split |= {"d_inner", "ssm_heads"}
     step_ms = statistics.median(rk["step_ms"] for rk in rks)
     r0 = rks[0]
     row = {"layers": cfg.n_layers, "workers": W, "shards": M,
@@ -4759,7 +4841,8 @@ def _tp_serve_report(name: str, rks: list, twin_dir: str, smi: str) -> dict:
         f"with a floor of {TP_SERVE_RTOL} of the step's largest (largest "
         f"|diff| {max(rk['max_abs_err'] for rk in rks):.3e}, at most "
         f"{max(rk['worst_share_of_allowed'] for rk in rks):.3f} of the allowed), "
-        f"cache blocks {'held' if all(rk['cache_ok'] for rk in rks) else 'APART'} "
+        f"cache blocks ({r0['cache_leaves']} leaves) "
+        f"{'held' if all(rk['cache_ok'] for rk in rks) else 'APART'} "
         f"(largest |diff| {max(rk['cache_max_abs_err'] for rk in rks):.3e}), pos "
         f"{[rk['pos'] for rk in rks]}; greedy tokens' first differences from "
         f"the twin {[rk['first_token_diffs'] for rk in rks]} of "
@@ -4769,7 +4852,7 @@ def _tp_serve_report(name: str, rks: list, twin_dir: str, smi: str) -> dict:
            f"{cfg.moe_top_k} gaps {[rk['tie_gaps'] for rk in rks]}"
            if cfg.is_moe else ""))
     log(f"tensor parallel serve {name}: {step_ms:.2f} ms a decode step (median "
-        f"over the ranks of each rank's median of {SERVE_NEW}, CUDA events; the "
+        f"over the ranks of each rank's median of {r0['steps'] - SERVE_PROMPT}, CUDA events; the "
         f"one-card twin {twin_ms:.2f} ms); the model group a step, rank 0: "
         f"{r0['comm']['calls']:.0f} collectives, {r0['comm']['bytes'] / 1e6:.3f} MB "
         f"returned, {1e3 * r0['comm']['seconds']:.2f} ms of host time with the card "
@@ -4783,8 +4866,8 @@ def _tp_serve_report(name: str, rks: list, twin_dir: str, smi: str) -> dict:
         + f" ({smi})")
     faults = []
     for r, rk in enumerate(rks):
-        if want_split not in rk["split"]:
-            faults.append(f"rank {r} splits {rk['split']}, not {want_split}")
+        if not want_split <= set(rk["split"]):
+            faults.append(f"rank {r} splits {rk['split']}, not {sorted(want_split)}")
         if (rk["block_bytes"]["params"] != pred["params_bytes"]
                 or rk["block_bytes"]["cache"] != pred["cache_bytes"]):
             faults.append(f"rank {r} holds {rk['block_bytes']}, count_serve "
@@ -4792,7 +4875,8 @@ def _tp_serve_report(name: str, rks: list, twin_dir: str, smi: str) -> dict:
         if rk["logits_beyond"] or 2 * rk["logits_held"] < rk["positions"]:
             faults.append(f"rank {r}: {rk['logits_beyond']} steps' logits apart, "
                           f"{rk['logits_held']} of {rk['positions']} held")
-        if not rk["cache_ok"] or rk["pos"] != rk["steps"]:
+        if (not rk["cache_ok"] or rk["pos"] != rk["steps"]
+                or rk["steps"] != _tp_serve_steps(run)):
             faults.append(f"rank {r}: cache held {rk['cache_ok']}, pos {rk['pos']}")
         if not rk["tokens_ok"]:
             faults.append(f"rank {r}: greedy tokens part from the twin's at "

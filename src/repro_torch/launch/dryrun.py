@@ -62,14 +62,17 @@ record has the JAX record's keys and the port's own:
   every rank, and ``all-gather:model`` is then the model group's gather
   of each split leaf's aggregate. For serving (``count_serve``), the
   rank's blocks of the parameters under ``nn.sharding.serve_rules``, the
-  cache block of its batch rows and its slots or kv heads, and its
-  tokens: what the JAX device's ``argument_size_in_bytes`` counts, but
-  for the int64 tokens' 4 B a row; ``all-reduce:model`` and
-  ``all-gather:model`` are the step's model-group collectives
-  (``models.lm``: per layer the attention output's and the MLP's or
-  MoE's all-reduces, in the sequence layout the query heads' and the
-  partial softmaxes' gathers; the embedding's all-reduce and the logits'
-  gather). A family that serves whole (``models.serve_parallel``), or
+  cache block of its batch rows and its slots or kv heads (and its
+  blocks of the SSD's conv channels and SSM heads), and its tokens: what
+  the JAX device's ``argument_size_in_bytes`` counts, but for the int64
+  tokens' 4 B a row; ``all-reduce:model`` and ``all-gather:model`` are
+  the step's model-group collectives (``models.lm``: per layer the
+  attention output's and the MLP's or MoE's all-reduces, in the sequence
+  layout the query heads' and the partial softmaxes' gathers; per mamba
+  block ``nn.ssd``'s gathers of ``zxbcdt`` and the conv output and its
+  all-reduces of the squares' sum and the output; the embedding's
+  all-reduce and the logits' gather). The encoder-decoder family, which
+  serves whole (``models.serve_parallel``), or
   any family with its module's ``TENSOR_PARALLEL`` emptied, holds the
   whole parameters and the cache of its rows;
 * ``fits``: whether ``peak_bytes`` fits one card's ``HBM_BYTES``.

@@ -27,10 +27,11 @@ Across ranks (``run(args, mesh=...)`` in each rank of a
 group's rows of the batch on its blocks of the parameters and the cache,
 laid out as the JAX dry run's ``lower_serve`` lays them out
 (``nn.sharding.serve_rules``): the kv heads split over the model axis
-where it divides them, else the cache's slots. The dense, MoE and VLM
-families serve so (``models.serve_parallel``); the SSM, hybrid and
-encoder-decoder families serve whole, and a model axis above 1 is
-refused for them. No flag chooses the layout, as in the JAX serve CLI.
+where it divides them, else the cache's slots, and the SSD mixers' conv
+windows and SSM states by their channels and heads. The dense, MoE, VLM,
+SSM and hybrid families serve so (``models.serve_parallel``); the
+encoder-decoder family serves whole, and a model axis above 1 is refused
+for it. No flag chooses the layout, as in the JAX serve CLI.
 """
 from __future__ import annotations
 

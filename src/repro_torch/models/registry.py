@@ -58,9 +58,9 @@ def serve_parallel(cfg: ModelConfig) -> bool:
     """Whether the serve step (``prefill``, ``init_cache``,
     ``decode_step``) runs on a rank's blocks over the model axis: the
     family is in its module's ``SERVE_PARALLEL`` (``models.lm``'s dense,
-    MoE and VLM decoders) and trains tensor parallel
-    (:func:`tensor_parallel`). The SSM, hybrid and encoder-decoder
-    families serve whole, and their decode steps refuse a shard."""
+    MoE and VLM decoders, ``models.ssm``'s SSM and hybrid models) and
+    trains tensor parallel (:func:`tensor_parallel`). The encoder-decoder
+    family serves whole, and its decode step refuses a shard."""
     return (tensor_parallel(cfg)
             and cfg.family in getattr(get_family(cfg), "SERVE_PARALLEL", ()))
 

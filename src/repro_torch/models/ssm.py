@@ -23,8 +23,17 @@ and ``"ssm_heads"`` (``nn.ssd``); the shared block's attention and MLP on
 its heads and columns, as ``models.lm``'s blocks (its gradient the sum
 of the rank's blocks over its ``n_groups`` applications); the embedding
 and the unembedding on its vocabulary rows, the logits gathered over the
-model group before the loss. The norms stay whole. Serving runs whole,
-on one card.
+model group before the loss. The norms stay whole.
+
+Serving shards too (the families of ``SERVE_PARALLEL``: both):
+``prefill``, ``init_cache`` and ``decode_step`` take a serving rank's
+``shard`` (``nn.sharding.serve_shard``), its parameter blocks and its
+cache laid out by ``nn.sharding.serve_rules``. Each mamba block's conv
+window holds the rank's contiguous block of the conv channels and its
+SSM state the rank's heads, and the decode step gathers activations
+(``nn.ssd``); the shared block's KV cache holds the rank's kv heads, or
+its slots of every kv head, and attends as ``models.lm``'s decode step
+does. The logits come out whole.
 
 Serving: the decode cache holds each mamba block's conv window and SSM
 state (``grouped.*`` on ``[n_groups, per_group, ...]``, ``trailing.*`` on
@@ -40,8 +49,8 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import (
-    _stack_layers, _unstack, attend, mask_pad_logits, run_block, token_nll,
-    write_kv)
+    _splits, _stack_layers, _unstack, attend, mask_pad_logits, run_block,
+    token_nll, write_kv)
 from repro_torch.nn import layers as L
 from repro_torch.nn import ssd
 from repro_torch.nn.sharding import prefix_axes
@@ -51,6 +60,9 @@ Params = Dict[str, Any]
 # the families of this module whose forward the trainer shards over the
 # model axis: both
 TENSOR_PARALLEL = frozenset({"ssm", "hybrid"})
+# the families whose serve step takes a model shard, where the family is
+# also in TENSOR_PARALLEL (models.registry.serve_parallel): both
+SERVE_PARALLEL = frozenset({"ssm", "hybrid"})
 
 
 def _plan(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -204,22 +216,29 @@ def loss_fn(params: Params, cfg: ModelConfig, batch, shard=None
 # serving
 # ---------------------------------------------------------------------------
 @torch.no_grad()
-def prefill(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
-    return forward(params, cfg, batch, mode="chunked")[0]
+def prefill(params: Params, cfg: ModelConfig, batch, shard=None) -> torch.Tensor:
+    """Logits of the prompt through the chunked scan and attention (the
+    cache is built by ``init_cache``, not here, as in the JAX package);
+    under a ``shard`` from the rank's blocks, the logits whole."""
+    return forward(params, cfg, batch, mode="chunked", shard=shard)[0]
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"
-               ) -> Dict:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda",
+               shard=None) -> Dict:
     """Zero decode state in the JAX tree: ``pos``; ``grouped.{conv,ssm}``
     on ``[n_groups, per_group, ...]`` and ``attn_k``, ``attn_v``
     ``[n_groups, B, max_len, kv_heads, head_dim]`` for the hybrid;
-    ``trailing.{conv,ssm}`` on ``[n_trailing, ...]``."""
+    ``trailing.{conv,ssm}`` on ``[n_trailing, ...]``. Under a serving
+    ``shard`` the rank's blocks: its block of the conv channels and its
+    SSM heads where ``"d_inner"`` is split, its slots where ``"kv_seq"``
+    is, its kv heads where ``"kv_heads"`` is."""
     n_groups, per_group, trailing = _plan(cfg)
     dt = cfg.torch_dtype
 
     def ssm_cache(*lead):
         one = ssd.ssd_init_cache(batch, cfg.d_inner, cfg.ssm_headdim,
-                                 cfg.ssm_state, "meta", dt)
+                                 cfg.ssm_state, "meta", dt,
+                                 shards=_splits(shard, "d_inner"))
         return {name: torch.zeros((*lead, *x.shape), dtype=dt, device=device)
                 for name, x in one.items()}
 
@@ -227,7 +246,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"
                                                 device=device)}
     if n_groups:
         cache["grouped"] = ssm_cache(n_groups, per_group)
-        kv = (n_groups, batch, max_len, cfg.eff_kv_heads, cfg.hd)
+        kv = (n_groups, batch, max_len // _splits(shard, "kv_seq"),
+              cfg.eff_kv_heads // _splits(shard, "kv_heads"), cfg.hd)
         cache["attn_k"] = torch.zeros(kv, dtype=dt, device=device)
         cache["attn_v"] = torch.zeros(kv, dtype=dt, device=device)
     if trailing:
@@ -257,11 +277,12 @@ def cache_axes(cfg: ModelConfig) -> Dict:
     return ax
 
 
-def _mamba_step(lp: Params, x: torch.Tensor, cfg: ModelConfig, conv, ssm_state
-                ) -> torch.Tensor:
-    """One mamba block's decode step; its conv window and SSM state
-    written in place."""
-    x, new = _mamba_block(lp, x, cfg, cache={"conv": conv, "ssm": ssm_state})
+def _mamba_step(lp: Params, x: torch.Tensor, cfg: ModelConfig, conv, ssm_state,
+                shard=None) -> torch.Tensor:
+    """One mamba block's decode step; its conv window and SSM state (the
+    rank's blocks under a ``shard``) written in place."""
+    x, new = _mamba_block(lp, x, cfg, cache={"conv": conv, "ssm": ssm_state},
+                          shard=shard)
     conv.copy_(new["conv"])
     ssm_state.copy_(new["ssm"])
     return x
@@ -274,12 +295,10 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
     blocks in the forward's order, each mamba block one step of its
     recurrence, each application of the shared block writing slot ``pos``
     of its KV cache; every cache tensor written in place, and the cache
-    returned with ``pos + 1``. A model ``shard`` is refused: the family
-    serves whole."""
-    if shard is not None:
-        raise ValueError(f"{cfg.name}: the {cfg.family} family serves whole, "
-                         "on one rank; its decode step takes no model shard")
-    x = L.embed(params["embed"], tokens, cfg.torch_dtype)
+    returned with ``pos + 1``. Under a serving ``shard`` the params and
+    the cache are the rank's blocks (module docstring) and the logits
+    whole."""
+    x = L.embed(params["embed"], tokens, cfg.torch_dtype, shard)
     pos = cache["pos"]
     positions = pos.reshape(1, 1)
     n_groups, per_group, trailing = _plan(cfg)
@@ -288,21 +307,24 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
         gc = cache["grouped"]
         for g, group in enumerate(_unstack(params["grouped"], n_groups)):
             for j, lp in enumerate(_unstack(group, per_group)):
-                x = _mamba_step(lp, x, cfg, gc["conv"][g, j], gc["ssm"][g, j])
+                x = _mamba_step(lp, x, cfg, gc["conv"][g, j], gc["ssm"][g, j],
+                                shard)
             h = L.rmsnorm(shared["norm1"], x, eps=cfg.norm_eps)
+            # the rank's query heads and its kv heads, or the whole kv
+            # heads, as in models.lm's decode step
             q, k, v = L.attn_qkv(shared["attn"], h)
             q = L.rope(q, positions, base=cfg.rope_base)
             k = L.rope(k, positions, base=cfg.rope_base)
             kc, vc = cache["attn_k"][g], cache["attn_v"][g]
-            write_kv(kc, vc, k, v, pos)
-            ctx = L.attention_decode(q, kc, vc, pos + 1)
-            x = x + L.attn_out(shared["attn"], ctx)
+            write_kv(kc, vc, k, v, pos, shard)
+            ctx = L.attention_decode(q, kc, vc, pos + 1, shard=shard)
+            x = x + L.attn_out(shared["attn"], ctx, shard=shard)
             h = L.rmsnorm(shared["norm2"], x, eps=cfg.norm_eps)
-            x = x + L.mlp(shared["mlp"], h, act=cfg.act)
+            x = x + L.mlp(shared["mlp"], h, act=cfg.act, shard=shard)
     if trailing:
         tc = cache["trailing"]
         for i, lp in enumerate(_unstack(params["trailing"], trailing)):
-            x = _mamba_step(lp, x, cfg, tc["conv"][i], tc["ssm"][i])
+            x = _mamba_step(lp, x, cfg, tc["conv"][i], tc["ssm"][i], shard)
     x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
-    logits = mask_pad_logits(L.unembed(params["embed"], x), cfg)
+    logits = mask_pad_logits(L.unembed(params["embed"], x, shard), cfg)
     return logits, {**cache, "pos": pos + 1}

@@ -217,7 +217,8 @@ def serve_shard(axes, specs, cache_axes, cache_specs, group, index: int,
     device), None at ``M = 1``: the logical axes that the parameter specs
     (``specs`` beside ``axes``, under :func:`serve_rules`) split, plus
     ``"kv_seq"`` where the cache specs split the slots. The kv heads
-    split with the query heads whole raises, as the trainer's
+    split with the query heads whole, or one of the SSD's ``"d_inner"``
+    and ``"ssm_heads"`` split without the other, raises, as the trainer's
     ``core.distributed.model_shard`` does."""
     from repro_torch.nn.tensor_parallel import ModelShard, split_axes
 
@@ -231,4 +232,8 @@ def serve_shard(axes, specs, cache_axes, cache_specs, group, index: int,
     if "kv_heads" in split and "heads" not in split:
         raise ValueError("the kv heads are split over the model axis but the "
                          "query heads are whole")
+    if ("d_inner" in split) != ("ssm_heads" in split):
+        raise ValueError("the SSD's 'd_inner' and 'ssm_heads' are not split "
+                         "together over the model axis; the mixer splits "
+                         "both or neither")
     return ModelShard(group, index, M, frozenset(split))

@@ -32,7 +32,22 @@ group summed. A layer's collectives, forward: all-gathers of the whole
 ``in_proj``, ``conv_w`` and ``conv_b``, and all-reduces of the squares'
 sum ``[B, S, 1]`` and of the output ``[B, S, E]``; backward: all-reduces
 of those three leaves' whole gradients, of the input's gradient ``[B, S,
-E]`` and of the squares' ``[B, S, 1]``. The decode step runs whole.
+E]`` and of the squares' ``[B, S, 1]``.
+
+The decode step under such a shard (serving, ``nn.sharding.serve_rules``)
+gathers activations, not weights: the rank's cache holds its contiguous
+block ``[r C/M, (r+1) C/M)`` of the conv window's ``C = d_inner + 2N``
+channels (split as ``conv_w`` and ``conv_b`` are) and its H/M heads of
+the SSM state. The rank multiplies the token by its ``in_proj`` block and
+gathers the group's columns into the whole ``zxbcdt`` row; runs the
+depthwise conv and ``silu`` on its conv block and gathers the whole conv
+output; takes ``x`` of its heads' channels, all of ``B`` and ``C``, and
+``dt`` and ``z`` of its heads from those, and steps the recurrence on its
+heads. The gated norm and ``out_proj`` are the forward's. A layer's
+collectives a step: all-gathers of ``zxbcdt`` ``[B, 1, 2 d_inner + 2N +
+H]`` and of the conv output ``[B, C]``, and all-reduces of the squares'
+sum ``[B, 1, 1]`` (float32) and of the output ``[B, 1, E]``; no weight
+moves.
 """
 from __future__ import annotations
 
@@ -216,6 +231,52 @@ def _rank_mixer(p: Params, d_inner: int, headdim: int, d_state: int,
             "conv_b": conv_cols(p["conv_b"])}
 
 
+def _whole(x: torch.Tensor, shard: TP.ModelShard) -> torch.Tensor:
+    """The model group's contiguous blocks of ``x``'s last dim, in shard
+    order, the same bits on every rank (forward only)."""
+    return torch.cat(TP.gather(x, shard).unbind(0), dim=-1)
+
+
+def _decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor], *,
+            d_inner: int, headdim: int, d_state: int,
+            shard: Optional[TP.ModelShard] = None):
+    """One decode step (S = 1) up to the gated norm: ``(z, y, new
+    cache)``, ``z`` and ``y`` ``[B, 1, width]`` over the rank's channels
+    (``width = d_inner / M``; all of them without a ``shard``). Under a
+    shard the weights and the cache are the rank's blocks and the step
+    gathers ``zxbcdt`` and the conv output (module docstring)."""
+    M, r = (1, 0) if shard is None else (shard.size, shard.index)
+    width, H = d_inner // M, d_inner // headdim // M
+    conv_dim = d_inner + 2 * d_state
+    block = conv_dim // M
+    if cache["conv"].shape[-1] != p["conv_w"].shape[-1] or (
+            p["conv_w"].shape[-1] * M != conv_dim):
+        raise ValueError(
+            f"the conv window's {cache['conv'].shape[-1]} channels and "
+            f"conv_w's {p['conv_w'].shape[-1]} are not one block of "
+            f"{conv_dim} in {M}")
+    zxbcdt = x @ p["in_proj"].to(x.dtype)  # [B, 1, in_proj's columns]
+    if shard is not None:
+        zxbcdt = _whole(zxbcdt, shard)
+    z = zxbcdt[..., r * width:(r + 1) * width]
+    xbc = zxbcdt[..., d_inner + r * block:d_inner + (r + 1) * block]
+    dt0 = d_inner + conv_dim + r * H
+    dt = zxbcdt[:, 0, dt0:dt0 + H]
+    win = torch.cat([cache["conv"], xbc], dim=1)  # [B, K, block]
+    conv = F.silu(torch.einsum("bkc,kc->bc", win, p["conv_w"].to(x.dtype))
+                  + p["conv_b"].to(x.dtype))
+    if shard is not None:
+        conv = _whole(conv, shard)  # [B, conv_dim]
+    Bsz = x.shape[0]
+    xh = conv[:, r * width:(r + 1) * width].reshape(Bsz, H, headdim)
+    Bm, Cm = conv[:, d_inner:d_inner + d_state], conv[:, d_inner + d_state:]
+    A = -torch.exp(p["A_log"].float())
+    dtp = _softplus(dt.float() + p["dt_bias"].float()).to(x.dtype)
+    y, h_new = ssd_decode_step(xh, dtp, A.to(x.dtype), Bm, Cm, cache["ssm"])
+    y = y + p["D"].to(x.dtype)[None, :, None] * xh
+    return z, y.reshape(Bsz, 1, width), {"conv": win[:, 1:], "ssm": h_new}
+
+
 def ssd_block_apply(
     p: Params,
     x: torch.Tensor,  # [B, S, E]
@@ -230,23 +291,25 @@ def ssd_block_apply(
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full mamba2 mixer. If ``cache`` is given, runs one decode step
     (S must be 1) and returns the updated cache. Under a ``shard`` that
-    splits ``"d_inner"`` the weights are the rank's blocks and the output
-    whole (module docstring)."""
+    splits ``"d_inner"`` the weights (and the cache) are the rank's blocks
+    and the output whole (module docstring)."""
     full = d_inner
     tp = shard is not None and shard.splits("d_inner")
-    if tp:
-        if cache is not None:
-            raise ValueError("the SSD decode step runs whole, on one card")
-        p = _rank_mixer(p, d_inner, headdim, d_state, shard)
-        x = TP.enter(x, shard)
-        d_inner //= shard.size
-    H = d_inner // headdim
-    zxbcdt = x @ p["in_proj"].to(x.dtype)
-    z, xbc, dt = torch.split(
-        zxbcdt, [d_inner, d_inner + 2 * d_state, H], dim=-1)
-    A = -torch.exp(p["A_log"].float())
-
-    if cache is None:
+    new_cache = None
+    if cache is not None:
+        z, y, new_cache = _decode(p, x, cache, d_inner=d_inner,
+                                  headdim=headdim, d_state=d_state,
+                                  shard=shard if tp else None)
+    else:
+        if tp:
+            p = _rank_mixer(p, d_inner, headdim, d_state, shard)
+            x = TP.enter(x, shard)
+            d_inner //= shard.size
+        H = d_inner // headdim
+        zxbcdt = x @ p["in_proj"].to(x.dtype)
+        z, xbc, dt = torch.split(
+            zxbcdt, [d_inner, d_inner + 2 * d_state, H], dim=-1)
+        A = -torch.exp(p["A_log"].float())
         xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
         xs, Bm, Cm = torch.split(xbc, [d_inner, d_state, d_state], dim=-1)
         Bsz, S, _ = x.shape
@@ -255,22 +318,6 @@ def ssd_block_apply(
         y, _ = ssd_scan_chunked(xh, dtp, A.to(x.dtype), Bm, Cm, chunk=chunk)
         y = y + p["D"].to(x.dtype)[None, None, :, None] * xh
         y = y.reshape(Bsz, S, d_inner)
-        new_cache = None
-    else:
-        # decode: S == 1
-        Bsz = x.shape[0]
-        win = torch.cat([cache["conv"], xbc], dim=1)  # [B, K, conv_dim]
-        conv_out = (torch.einsum("bkc,kc->bc", win, p["conv_w"].to(x.dtype))
-                    + p["conv_b"].to(x.dtype))[:, None, :]
-        xbc = F.silu(conv_out)
-        xs, Bm, Cm = torch.split(xbc, [d_inner, d_state, d_state], dim=-1)
-        xh = xs.reshape(Bsz, H, headdim)
-        dtp = _softplus(dt[:, 0].float() + p["dt_bias"].float()).to(x.dtype)
-        y, h_new = ssd_decode_step(xh, dtp, A.to(x.dtype), Bm[:, 0], Cm[:, 0],
-                                   cache["ssm"])
-        y = y + p["D"].to(x.dtype)[None, :, None] * xh
-        y = y.reshape(Bsz, 1, d_inner)
-        new_cache = {"conv": win[:, 1:], "ssm": h_new}
 
     # gated RMSNorm (the mean as the jitted reference takes it: the sum
     # times fl(1/d_inner), the sum over the whole width), then the
@@ -286,15 +333,16 @@ def ssd_block_apply(
 
 
 def ssd_init_cache(batch: int, d_inner: int, headdim: int, d_state: int,
-                   device, dtype: torch.dtype = torch.float32
+                   device, dtype: torch.dtype = torch.float32, shards: int = 1
                    ) -> Dict[str, torch.Tensor]:
     """Zero decode state: the conv window ``[B, K-1, conv_dim]`` and the
-    SSM state ``[B, H, P, N]``."""
+    SSM state ``[B, H, P, N]``; a serving rank's blocks of them (``conv_dim
+    / shards`` channels, ``H / shards`` heads) at ``shards`` > 1."""
     H = d_inner // headdim
     conv_dim = d_inner + 2 * d_state
     return {
-        "conv": torch.zeros((batch, CONV_K - 1, conv_dim), dtype=dtype,
-                            device=device),
-        "ssm": torch.zeros((batch, H, headdim, d_state), dtype=dtype,
+        "conv": torch.zeros((batch, CONV_K - 1, conv_dim // shards),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros((batch, H // shards, headdim, d_state), dtype=dtype,
                            device=device),
     }

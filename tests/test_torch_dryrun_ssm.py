@@ -18,19 +18,31 @@ one subprocess of 8 host devices, ``tests/_torch_dryrun_jax.py``).
 * ``argument_bytes`` equals ``argument_size_in_bytes`` but for the port's
   int64 tokens, labels and ``sent_idx``; the all-gather bytes equal the
   walker's, the all-reduce its 4 B.
+* The decode step on the model axis (``decode_32k`` on the smoke fields:
+  mamba2-780m at ``(2, 4)``, zamba2-7b at ``(4, 2)``, its 2 kv heads
+  split): the rank holds what the JAX device's ``argument_size_in_bytes``
+  counts, but for its int64 tokens' 4 B a row, and its model group's
+  bytes are the count written out from ``nn.ssd``'s and
+  ``launch.dryrun``'s docstrings.
 """
 import pytest
 
-from test_torch_dryrun import int64_extra, jax_cases, port_case
+from test_torch_dryrun import int64_extra, jax_cases, jside, port_case
+from repro_torch import configs
+from repro_torch.launch import dryrun
 from repro_torch.models import ssm
 
 ARCHS = ("mamba2-780m", "zamba2-7b")
 CASES = {arch: f"{arch}:train_4k:8x1" for arch in ARCHS}
+# the serve step on the model axis
+SERVE_TP_CASES = {"mamba2-780m": "mamba2-780m:decode_32k:2x4",
+                  "zamba2-7b": "zamba2-7b:decode_32k:4x2"}
 
 
 @pytest.fixture(scope="module")
 def jax_runs(tmp_path_factory):
-    return jax_cases(tmp_path_factory, list(CASES.values()))
+    return jax_cases(tmp_path_factory, [*CASES.values(),
+                                        *SERVE_TP_CASES.values()])
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -54,3 +66,39 @@ def test_train_step_matches_jax(jax_runs, monkeypatch, arch):
         want["collective_bytes"]["all-gather"])
     assert rec["collective_bytes"]["all-reduce"] == 4 == (
         want["collective_bytes"]["all-reduce"])
+
+
+def ssm_model_group_bytes(cfg, rows: int, M: int):
+    """``(all-reduce, all-gather)`` bytes of one decode step's model group
+    on a rank of ``rows`` rows, in bf16, with the kv heads split: per
+    mamba block the all-gathers of ``zxbcdt`` ``[rows, 1, 2 d_inner + 2N +
+    H]`` and of the conv output ``[rows, d_inner + 2N]`` and the
+    all-reduces of the squares' float32 ``[rows, 1, 1]`` and of the output
+    ``[rows, 1, d_model]``; per application of the shared block the
+    attention output's and the MLP's all-reduces; the embedding's
+    all-reduce and the logits' gather."""
+    bf16 = 2
+    n_groups, per_group, trailing = ssm._plan(cfg)
+    mamba = n_groups * per_group + trailing
+    H, C = cfg.d_inner // cfg.ssm_headdim, cfg.d_inner + 2 * cfg.ssm_state
+    act = rows * cfg.d_model * bf16
+    reduce = (1 + 2 * n_groups) * act + mamba * (rows * 4 + act)
+    gather = (M * rows * (cfg.padded_vocab // M) * bf16
+              + mamba * rows * (2 * cfg.d_inner + 2 * cfg.ssm_state + H + C)
+              * bf16)
+    return reduce, gather
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_on_the_model_axis_holds_what_the_device_holds(
+        jax_runs, monkeypatch, arch):
+    case = SERVE_TP_CASES[arch]
+    rec, _ = port_case(monkeypatch, case)
+    _, _, data, M, _ = jside.case_overrides(configs, case)
+    rows = configs.INPUT_SHAPES["decode_32k"][1] // data
+    assert rec["rank_bytes"] - 4 * rows == jax_runs[case]["argument_bytes"]
+    assert rec["rank_bytes"] == rec["mem"]["argument_bytes"]
+    cfg = dryrun._apply_overrides(configs.get_config(arch))  # port_case's
+    coll = rec["rank_collective_bytes"]
+    assert (coll["all-reduce:model"], coll["all-gather:model"]) == (
+        ssm_model_group_bytes(cfg, rows, M))

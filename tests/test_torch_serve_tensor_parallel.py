@@ -25,7 +25,10 @@ cache slots, ``nn.sharding.serve_rules``/``serve_shard`` and
 * ``serve.run(..., mesh=)`` on the 4 ranks at ``(2, 2)`` and ``(1, 4)``
   gives the one-process run's tokens, each rank its dp group's rows.
 * The dropless MoE routes each token alike whatever the grouping of the
-  rows; a family that serves whole refuses a shard and a model axis.
+  rows; the encoder-decoder family, which serves whole, refuses a shard
+  and a model axis; the SSM and hybrid families' serving shard splits
+  the SSD's channels and heads (their step:
+  ``tests/test_torch_serve_tensor_parallel_ssm.py``).
 
 The ranks start while the JAX subprocess compiles and take each case as
 its results appear. Every wait is bounded at 120 s (the JAX subprocess
@@ -343,7 +346,7 @@ def test_dropless_routing_ignores_the_grouping_of_rows():
         torch.testing.assert_close(got, whole, rtol=RTOL, atol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["whisper-tiny"])
 def test_families_that_serve_whole_refuse_a_shard(arch):
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh, serve
@@ -360,6 +363,29 @@ def test_families_that_serve_whole_refuse_a_shard(arch):
     with pytest.raises(ValueError, match="serves whole"):
         serve.run(serve.parse_args(["--arch", arch, "--smoke", "--device",
                                     "cpu"]), mesh=groups)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b"])
+def test_the_ssm_families_serve_on_their_blocks(arch):
+    """The SSM and hybrid families serve over the model axis: the serving
+    shard splits the SSD's channels and heads together, at published
+    widths and on the smoke fields; a shard that splits only one of them
+    is refused (``tests/test_torch_serve_tensor_parallel_ssm.py`` holds
+    the step against JAX)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import serve_parallel, ssm
+    from repro_torch.nn.sharding import serve_shard
+
+    for cfg in (get_config(arch), get_config(arch).smoke_variant()):
+        assert serve_parallel(cfg)
+        for M in (2, 4):
+            split = serve.serve_layout(cfg, ssm.init(cfg, device="meta"), B,
+                                       16, {"data": 1, "model": M})[2].split
+            assert {"d_inner", "ssm_heads", "vocab"} <= split, (cfg.name, M)
+    with pytest.raises(ValueError, match="both or neither"):
+        serve_shard({"w": ("d_inner",), "a": ("ssm_heads",)},
+                    {"w": ("model",), "a": (None,)}, {}, {}, None, 0, 2)
 
 
 def test_serve_shard_rules():

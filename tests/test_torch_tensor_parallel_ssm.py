@@ -17,7 +17,10 @@ under a ``ModelShard`` and the trainer's tensor-parallel path for
   its axes, the mixer is the whole composition of its pieces in bits.
 * ``core.distributed.model_shard`` refuses a plan that splits one of
   ``"d_inner"`` and ``"ssm_heads"`` without the other; the decode step
-  refuses a shard; the dry run (``launch.dryrun.count_layout``) counts
+  under a serving shard issues ``nn.ssd``'s docstring's collectives of
+  activations and gathers no weight, and refuses a cache that is not the
+  rank's block (its parity with JAX across ranks:
+  ``tests/test_torch_serve_tensor_parallel_ssm.py``); the dry run (``launch.dryrun.count_layout``) counts
   the tensor-parallel step's model-group bytes exactly, and less memory
   and fewer FLOPs than the whole forward at the same layout.
 * The trainer: mamba2-780m's smoke variant at ``(1, 4)`` and zamba2-7b's
@@ -545,20 +548,46 @@ def test_the_mixer_whole_is_unchanged(name):
     assert shard.traffic == {"all-reduce": 0, "all-gather": 0}
 
 
-def test_the_decode_step_refuses_a_shard():
-    """Serving runs whole: a decode step under a shard that splits the
-    mixer raises before any collective."""
+def test_the_decode_step_refuses_a_shard(monkeypatch):
+    """The decode step under a serving shard, counted on meta tensors
+    (``ModelShard`` without a group), rank 1 of each layer case's M: one
+    step issues exactly ``nn.ssd``'s docstring's collectives, all-gathers
+    of ``zxbcdt`` ``[B, 1, 2 d_inner + 2N + H]`` and of the conv output
+    ``[B, d_inner + 2N]`` and all-reduces of the squares' float32 ``[B, 1,
+    1]`` and of the output ``[B, 1, E]``, and gathers no weight
+    (``gather_leaf`` is never called); the new cache is the rank's blocks.
+    A shard whose cache is not the rank's block of the conv channels (the
+    whole window) is refused before any collective."""
     from repro_torch.nn import ssd
     from repro_torch.nn import tensor_parallel as TP
 
-    p, x, _ = _layer_inputs("smoke-m2")
-    kw = _layer_kw("smoke-m2")
-    cache = ssd.ssd_init_cache(LAYER_B, kw["d_inner"], kw["headdim"],
-                               kw["d_state"], "cpu")
-    shard = TP.ModelShard(None, 0, 2, frozenset({"d_inner", "ssm_heads"}))
-    with pytest.raises(ValueError, match="decode step runs whole"):
-        ssd.ssd_block_apply(p, x[:, :1], **kw, cache=cache, shard=shard)
-    assert shard.traffic == {"all-reduce": 0, "all-gather": 0}
+    def no_weight(*_):
+        raise AssertionError("the decode step gathered a weight")
+
+    monkeypatch.setattr(TP, "gather_leaf", no_weight)
+    for name, (E, d_inner, headdim, N, _, _, M) in LAYER_CASES.items():
+        p, _, _ = _layer_inputs(name)
+        kw = _layer_kw(name)
+        blocks = {k: _block(v, LEAF_DIMS[k], 1, M).to("meta")
+                  for k, v in p.items()}
+        x = torch.empty(LAYER_B, 1, E, device="meta")
+        cache = ssd.ssd_init_cache(LAYER_B, d_inner, headdim, N, "meta",
+                                   shards=M)
+        shard = TP.ModelShard(None, 1, M, frozenset({"d_inner", "ssm_heads"}))
+        out, new = ssd.ssd_block_apply(blocks, x, **kw, cache=cache,
+                                       shard=shard)
+        H, C = d_inner // headdim, d_inner + 2 * N
+        assert out.shape == (LAYER_B, 1, E), name
+        assert new["conv"].shape == (LAYER_B, ssd.CONV_K - 1, C // M), name
+        assert new["ssm"].shape == (LAYER_B, H // M, headdim, N), name
+        assert shard.traffic == {
+            "all-gather": 4 * LAYER_B * ((2 * d_inner + 2 * N + H) + C),
+            "all-reduce": 4 * LAYER_B * (1 + E)}, name
+        whole = ssd.ssd_init_cache(LAYER_B, d_inner, headdim, N, "meta")
+        shard = TP.ModelShard(None, 1, M, frozenset({"d_inner", "ssm_heads"}))
+        with pytest.raises(ValueError, match="not one block"):
+            ssd.ssd_block_apply(blocks, x, **kw, cache=whole, shard=shard)
+        assert shard.traffic == {"all-reduce": 0, "all-gather": 0}, name
 
 
 if __name__ == "__main__":
