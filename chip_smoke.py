@@ -277,12 +277,17 @@ Phases, each raising on failure (the script then exits non-zero):
               heads a rank, each expert's width split), zamba2-7b at
               phase 14's 15 of 81 layers, batch 8, max_len 2048, at (1, 4)
               (8 of its 32 kv heads, 28 of 112 SSM heads and a block of
-              1824 of 7296 conv channels a rank) and mamba2-780m at 24 of
+              1824 of 7296 conv channels a rank), mamba2-780m at 24 of
               48 layers, batch 8, max_len 2048, at (2, 2) (24 of 48 SSM
-              heads, 1664 of 3328 conv channels, 4 rows a rank), each
+              heads, 1664 of 3328 conv channels, 4 rows a rank), and
+              whisper-tiny whole, batch 8, max_len 448, at (2, 2) (3 of
+              its 6 kv heads a rank in the self and the cross cache, 4
+              rows a rank) and at (1, 4) (its kv heads whole, the self
+              cache's slots split, 112 a rank, the cross cache whole on
+              every rank, the MLP split 4 ways), each
               through serve.run(..., mesh=) from phase 14's weights and
               first tokens (8 untimed, 64 timed greedy steps; the SSM
-              runs 8 timed), recorded and held against phase 14's
+              runs 8 timed, the whisper runs 16), recorded and held against phase 14's
               one-card run (its twin) over as many steps: each step's
               logits within rtol 1e-5 and a floor of 1e-5 of the step's
               largest, and every block of the cache after those steps
@@ -296,7 +301,15 @@ Phases, each raising on failure (the script then exits non-zero):
               cache bytes those launch.dryrun.serve_count predicts; ms a
               step beside the twin's, the model group's collectives a
               step (count, bytes, host seconds over the untimed steps)
-              and each rank's peak printed; (d)
+              and each rank's peak printed. serve.run builds whisper's
+              cross cache from zero frames, as repro.launch.serve does, and
+              that cache is all zeros, so each whisper run also
+              teacher-forces the twin's tokens on its ranks from the
+              cross cache that build_cross_cache(..., shard) makes of
+              frames drawn from a seed (0.1 x a standard normal), held
+              against phase 14's one-card decode of the same frames and
+              tokens: each step's logits and every block of k, v, ck and
+              cv as above, and no rank's ck or cv all zero; (d)
               --mesh production at a world size of 4 exits non-zero with
               its message.
 16. dry run — launch/dryrun.py on the meta device, which makes no CUDA
@@ -3132,11 +3145,13 @@ def _serve_cache(mod, cfg, params, batch: int, max_len: int, frames, device):
     return cache
 
 
-def _forced(mod, cfg, params, cache, tokens: torch.Tensor) -> torch.Tensor:
-    """The logits ``[B, T, V]`` of T decode steps fed ``tokens [B, T]``."""
+def _forced(mod, cfg, params, cache, tokens: torch.Tensor, **kw) -> torch.Tensor:
+    """The logits ``[B, T, V]`` of T decode steps fed ``tokens [B, T]``
+    (``kw``: the serving shard), the cache's tensors written in place."""
     out = []
     for t in range(tokens.shape[1]):
-        logits, cache = mod.decode_step(params, cfg, cache, tokens[:, t:t + 1])
+        logits, cache = mod.decode_step(params, cfg, cache, tokens[:, t:t + 1],
+                                        **kw)
         out.append(logits[:, 0])
     return torch.stack(out, 1)
 
@@ -3325,11 +3340,16 @@ class _ServeRecorder:
         self.mod, self.vocab, self.comm, self.comm_steps = mod, vocab, comm, comm_steps
         self.logits, self.cache, self.shard, self.param_bytes = [], None, None, 0
         self.keep, self.kept = set(keep), {}
+        self.traffic0 = {}
 
     def __enter__(self):
         self._step = self.mod.decode_step
 
         def step(params, cfg, cache, tokens, **kw):
+            if not self.logits and kw.get("shard") is not None:
+                # what the shard counted before the first step (an
+                # encoder-decoder's cross cache)
+                self.traffic0 = dict(kw["shard"].traffic)
             counted = self.comm is not None and len(self.logits) < self.comm_steps
             with self.comm if counted else contextlib.nullcontext():
                 logits, cache = self._step(params, cfg, cache, tokens, **kw)
@@ -3373,6 +3393,32 @@ def _serve_twin(arch: str, params, res, rec: "_ServeRecorder", routes,
     torch.save({k: x.cpu() for k, x in tree_items(params)},
                f"{twin_dir}/{arch}.serve.p0.pt")
     return {"steps": len(rec.logits), "seconds": time.perf_counter() - t0}
+
+
+def _serve_twin_forced(arch: str, mod, cfg, params, res, steps: int,
+                       max_len: int, twin_dir: str) -> dict:
+    """The encoder-decoder twin's teacher-forced leg, saved under
+    ``twin_dir`` (``<arch>.serve.forced.pt``): frames drawn from
+    ``TP_SERVE_FRAMES_SEED`` (0.1 x a standard normal), the served
+    sequence's first ``steps`` tokens fed to as many decode steps from the
+    cross cache of those frames on the card, each step's logits over the
+    real vocabulary, and the cache's tensors after them."""
+    from repro_torch.tree import tree_items
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(TP_SERVE_FRAMES_SEED)
+    frames = (0.1 * torch.randn((res.first.shape[0], cfg.enc_seq, cfg.d_model),
+                                generator=gen)).to(cfg.torch_dtype)
+    tokens = torch.cat([res.first, res.prompt, res.tokens], 1)[:, :steps]
+    with torch.inference_mode():
+        cache = _serve_cache(mod, cfg, params, tokens.shape[0], max_len,
+                             frames.to(DEVICE), DEVICE)
+        logits = _forced(mod, cfg, params, cache, tokens.to(DEVICE))
+    torch.save({"frames": frames, "tokens": tokens,
+                "logits": logits[..., :cfg.vocab].cpu(),
+                "cache": {k: x.cpu() for k, x in tree_items(cache) if k != "pos"}},
+               f"{twin_dir}/{arch}.serve.forced.pt")
+    return {"steps": steps, "seconds": time.perf_counter() - t0}
 
 
 def _serve_published(arch: str, run: dict, smi: str, twin_dir=None) -> dict:
@@ -3425,6 +3471,9 @@ def _serve_published(arch: str, run: dict, smi: str, twin_dir=None) -> dict:
     if twin:
         out["tp_twin"] = _serve_twin(arch, params, res, rec, routes, step_ms, twin_dir)
         del rec, routes
+        if cfg.family == "encdec":
+            out["tp_twin"]["forced"] = _serve_twin_forced(
+                arch, mod, cfg, params, res, max(held), M, twin_dir)
     with torch.inference_mode():
         zeros = (torch.zeros((B, cfg.enc_seq, cfg.d_model), dtype=cfg.torch_dtype,
                              device=DEVICE) if cfg.family == "encdec" else None)
@@ -3931,8 +3980,11 @@ TP_RUNS = {
 # M = 2; deepseek-moe-16b's 16 split 4 a rank, its experts' width split;
 # zamba2-7b's 32 split 8 a rank and its mixers 4 ways (1824 of the 7296
 # conv channels, 28 of 112 SSM heads a rank); mamba2-780m's mixers 2 ways
-# (1664 of 3328 conv channels, 24 of 48 heads), 4 rows a dp group. The
-# SSM runs take 8 + 8 steps for the script's time limit.
+# (1664 of 3328 conv channels, 24 of 48 heads), 4 rows a dp group;
+# whisper-tiny's 6 kv heads split 3 a rank at M = 2 in both caches, and
+# stay whole at M = 4 (the self cache's 448 slots split, 112 a rank, the
+# cross cache whole on every rank). The SSM runs take 8 + 8 steps and the
+# whisper runs 8 + 16 for the script's time limit.
 TP_SERVE_RUNS = {
     "qwen2.5-3b:seq": dict(arch="qwen2.5-3b", data=1, model=4, layout="seq"),
     "qwen2.5-3b:heads": dict(arch="qwen2.5-3b", data=2, model=2,
@@ -3943,7 +3995,14 @@ TP_SERVE_RUNS = {
                       new=8),
     "mamba2-780m": dict(arch="mamba2-780m", data=2, model=2, layout="ssm",
                         new=8),
+    "whisper-tiny:heads": dict(arch="whisper-tiny", data=2, model=2,
+                               layout="heads", new=16),
+    "whisper-tiny:seq": dict(arch="whisper-tiny", data=1, model=4,
+                             layout="seq", new=16),
 }
+# the frames of the encoder-decoder runs' teacher-forced leg (serve.run's
+# zero frames give an all-zero cross cache)
+TP_SERVE_FRAMES_SEED = 15
 # the axes a serving run's layout splits, beside the SSD's channels and
 # heads for the SSM and hybrid families
 TP_SERVE_LAYOUTS = {"seq": {"kv_seq"}, "heads": {"kv_heads"}, "ssm": set()}
@@ -4305,7 +4364,8 @@ def _tp_serve_held(got, ref, axes, shard, index: int, rows: slice,
     cache is held up to a row's first token apart from the twin's and
     before its first routing flip; a recurrent state (the conv window, the
     SSM state) only where the row's inputs were the twin's at every
-    step."""
+    step; a cross cache (over ``enc_seq``), which no token writes,
+    throughout."""
     idx, slot_dim = [], None
     for dim, name in enumerate(axes):
         if name == "batch":
@@ -4321,7 +4381,9 @@ def _tp_serve_held(got, ref, axes, shard, index: int, rows: slice,
     b = list(axes).index("batch")
     shape = [1] * got.dim()
     shape[b] = got.shape[b]
-    if slot_dim is None:
+    if "enc_seq" in axes:
+        keep = torch.ones(shape, dtype=torch.bool)
+    elif slot_dim is None:
         keep = ((first_diff >= steps - 1) & (flips >= steps)).reshape(shape)
     else:
         first = idx[slot_dim].start or 0
@@ -4330,6 +4392,99 @@ def _tp_serve_held(got, ref, axes, shard, index: int, rows: slice,
         shape[slot_dim] = got.shape[slot_dim]
         keep = keep.reshape(shape)
     return ref, keep.expand_as(got)
+
+
+def _tp_serve_config(arch: str):
+    """Phase 14's config of ``arch``: its depth cut where ``SERVE_RUNS``
+    says."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    layers = SERVE_RUNS[arch].get("layers")
+    return cfg.replace(n_layers=layers) if layers else cfg
+
+
+def _tp_logits_held(steps: list, want: torch.Tensor, held: torch.Tensor,
+                    device: str) -> tuple:
+    """``(rows beyond, largest |diff|, its largest share of the allowed)``
+    of each step's logits ``steps[t] [n, V]`` against the twin's ``want[:,
+    t]`` at the rows ``held[:, t]``: rtol ``TP_SERVE_RTOL`` with a floor of
+    as much of the step's largest."""
+    err = worst = 0.0
+    beyond = 0
+    for t, got in enumerate(steps):
+        ref = want[:, t].to(device)
+        diff = (got - ref).abs()
+        limit = TP_SERVE_RTOL * (ref.abs() + ref.abs().amax(-1, keepdim=True))
+        keep = held[:, t].to(device)
+        beyond += int(((diff > limit).any(-1) & keep).sum())
+        if bool(keep.any()):
+            err = max(err, diff[keep].max().item())
+            worst = max(worst, (diff / limit)[keep].max().item())
+    return beyond, err, worst
+
+
+def _tp_cache_held(mine: dict, refs: dict, axes: dict, shard, index: int,
+                   rows: slice, first_diff, flips, steps: int) -> tuple:
+    """``(held, largest |diff|)`` of a rank's cache blocks ``mine`` (by
+    dotted path, ``pos`` aside) against the twin's whole leaves ``refs``
+    at the entries ``_tp_serve_held`` holds, to rtol ``TP_SERVE_RTOL``
+    with a floor of as much of the leaf's largest."""
+    err, ok = 0.0, set(mine) - {"pos"} == set(refs) - {"pos"}
+    for leaf in sorted(set(mine) - {"pos"}):
+        got = mine[leaf].cpu()
+        ref, keep = _tp_serve_held(got, refs[leaf], axes[leaf], shard, index,
+                                   rows, first_diff, flips, steps)
+        if got.shape != ref.shape:
+            ok = False
+            continue
+        diff = (got - ref).abs()[keep]
+        limit = TP_SERVE_RTOL * (ref.abs()[keep] + ref.abs().max())
+        ok &= bool((diff <= limit).all())
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+    return ok, err
+
+
+def _tp_serve_forced(arch: str, mod, cfg, p0, groups, device: str, rows: slice,
+                     batch: int, max_len: int, twin_dir: str) -> dict:
+    """An encoder-decoder run's teacher-forced leg on this rank: its blocks
+    of the weights, the cross cache that ``build_cross_cache(..., shard)``
+    makes of its rows of the twin's seeded frames, then the twin's tokens
+    fed to as many decode steps; each step's logits and every block of the
+    cache after them held against the twin's one-card leg
+    (``_serve_twin_forced``), and whether ``ck`` and ``cv`` hold a value
+    that is not zero."""
+    from repro_torch.launch import serve
+    from repro_torch.nn.sharding import shard_params
+    from repro_torch.tree import tree_items, tree_map
+
+    t0 = time.perf_counter()
+    twin = torch.load(f"{twin_dir}/{arch}.serve.forced.pt", mmap=True)
+    specs, _, shard = serve.serve_layout(
+        cfg, p0, batch, max_len, groups.mesh_shape, groups.axis_names,
+        groups.model_group, groups.shard)
+    params = tree_map(lambda x: x.to(device),
+                      shard_params(p0, specs, groups.shard, groups.model))
+    tokens = twin["tokens"][rows]
+    n, T = tokens.shape
+    with torch.inference_mode():
+        cache = mod.init_cache(cfg, n, max_len, device=device, shard=shard)
+        cache["ck"], cache["cv"] = mod.build_cross_cache(
+            params, cfg, twin["frames"][rows].to(device), shard=shard)
+        nonzero = {k: bool(cache[k].abs().amax() > 0) for k in ("ck", "cv")}
+        logits = _forced(mod, cfg, params, cache, tokens.to(device),
+                         shard=shard)[..., :cfg.vocab]
+        held = torch.ones((n, T), dtype=torch.bool)
+        beyond, err, worst = _tp_logits_held(list(logits.unbind(1)),
+                                             twin["logits"][rows], held, device)
+    full = torch.full((n,), T)
+    cache_ok, cache_err = _tp_cache_held(
+        dict(tree_items(cache)), twin["cache"], dict(tree_items(mod.cache_axes(cfg))),
+        shard, groups.shard, rows, full, full, T)
+    return {"steps": T, "cross_nonzero": nonzero, "logits_beyond": beyond,
+            "max_abs_err": err, "worst_share_of_allowed": worst,
+            "cache_ok": cache_ok, "cache_max_abs_err": cache_err,
+            "seconds": time.perf_counter() - t0}
 
 
 def _tp_serve(rank: int, device: str, name: str, twin_dir: str) -> dict:
@@ -4345,10 +4500,10 @@ def _tp_serve(rank: int, device: str, name: str, twin_dir: str) -> dict:
     cache where its row's inputs were the twin's throughout
     (``_tp_serve_held``); ``pos``; and the first differing token at a
     near-tie of the twin's top 2 or after a flip. The run takes its first
-    ``_tp_serve_steps`` of the twin's steps."""
+    ``_tp_serve_steps`` of the twin's steps. An encoder-decoder run then
+    adds its teacher-forced leg (``_tp_serve_forced``)."""
     import torch.distributed as dist
 
-    from repro_torch import configs
     from repro_torch.launch import mesh, serve
     from repro_torch.models import get_family
     from repro_torch.tree import tree_items
@@ -4358,7 +4513,7 @@ def _tp_serve(rank: int, device: str, name: str, twin_dir: str) -> dict:
     prompt, new = SERVE_PROMPT, run.get("new", SERVE_NEW)
     srv = SERVE_RUNS[arch]
     B, max_len = srv["batch"], srv["max_len"]
-    cfg = configs.get_config(arch).replace(n_layers=srv["layers"])
+    cfg = _tp_serve_config(arch)
     mod = get_family(cfg)
     groups = mesh.make_host_groups(model=M)
     t0 = time.perf_counter()
@@ -4380,6 +4535,11 @@ def _tp_serve(rank: int, device: str, name: str, twin_dir: str) -> dict:
             device]), params=p0, cfg=cfg, mesh=groups)
     peak = torch.cuda.max_memory_allocated()
     stages["serve"] = time.perf_counter() - t0
+    forced = None
+    if cfg.family == "encdec":
+        forced = _tp_serve_forced(arch, mod, cfg, p0, groups, device, rows, B,
+                                  max_len, twin_dir)
+        stages["forced"] = forced["seconds"]
     t0 = time.perf_counter()
     del p0
     shard, cache = rec.shard, rec.cache
@@ -4405,39 +4565,17 @@ def _tp_serve(rank: int, device: str, name: str, twin_dir: str) -> dict:
                                    f"serve tensor parallel {name}")
     held = ((torch.arange(T)[None, :] <= first_diff[:, None])
             & (torch.arange(T)[None, :] < flips[:, None]))
-    err = worst = 0.0  # the largest |diff|, and its largest share of the allowed
-    beyond = 0
     with torch.inference_mode():
-        for t in range(T):
-            got, ref = rec.logits[t], want[:, t].to(device)
-            diff = (got - ref).abs()
-            limit = TP_SERVE_RTOL * (ref.abs() + ref.abs().amax(-1, keepdim=True))
-            keep = held[:, t].to(device)
-            beyond += int(((diff > limit).any(-1) & keep).sum())
-            if bool(keep.any()):
-                err = max(err, diff[keep].max().item())
-                worst = max(worst, (diff / limit)[keep].max().item())
-        # every cache block against the twin's after the same steps, at the
-        # entries held (a ring would put position p at slot p % slots;
-        # these runs have none)
-        if cfg.sliding_window:
-            raise ValueError(f"{name}: the cache check reads slots as positions")
-        cache_err, cache_ok = 0.0, True
-        axes = dict(tree_items(mod.cache_axes(cfg)))
-        refs = twin["caches"][T]
-        mine = dict(tree_items(cache))
-        cache_ok &= set(mine) == set(refs)
-        for leaf in sorted(set(mine) - {"pos"}):
-            got = mine[leaf].cpu()
-            ref, keep = _tp_serve_held(got, refs[leaf], axes[leaf], shard,
-                                       groups.shard, rows, first_diff, flips, T)
-            if got.shape != ref.shape:
-                cache_ok = False
-                continue
-            diff = (got - ref).abs()[keep]
-            limit = TP_SERVE_RTOL * (ref.abs()[keep] + ref.abs().max())
-            cache_ok &= bool((diff <= limit).all())
-            cache_err = max(cache_err, float(diff.max()) if diff.numel() else 0.0)
+        beyond, err, worst = _tp_logits_held(rec.logits[:T], want, held, device)
+    # every cache block against the twin's after the same steps, at the
+    # entries held (a ring would put position p at slot p % slots; these
+    # runs have none)
+    if cfg.sliding_window:
+        raise ValueError(f"{name}: the cache check reads slots as positions")
+    mine = dict(tree_items(cache))
+    cache_ok, cache_err = _tp_cache_held(
+        mine, twin["caches"][T], dict(tree_items(mod.cache_axes(cfg))), shard,
+        groups.shard, rows, first_diff, flips, T)
     # a row's first differing token: at a near-tie of the twin's top 2, or
     # after a routing flip
     top2 = want.topk(2, dim=-1).values
@@ -4461,8 +4599,9 @@ def _tp_serve(rank: int, device: str, name: str, twin_dir: str) -> dict:
             "comm": {"calls": comm.calls / prompt,
                      "bytes": comm.bytes / prompt,
                      "seconds": comm.seconds / prompt},
-            "traffic": {k: v / T for k, v in shard.traffic.items()},
-            "stages_s": stages}
+            "traffic": {k: (v - rec.traffic0.get(k, 0)) / T
+                        for k, v in shard.traffic.items()},
+            "forced": forced, "stages_s": stages}
 
 
 def _nested(flat: dict) -> dict:
@@ -4803,14 +4942,15 @@ def _tp_serve_report(name: str, rks: list, twin_dir: str, smi: str) -> dict:
     the rank's blocks and model-group bytes at the run's layout; printed,
     then held: the layout's split axes, the blocks' bytes as predicted,
     every held step's logits, the cache blocks, ``pos`` and the greedy
-    tokens as ``_tp_serve`` judged them."""
-    from repro_torch import configs
+    tokens as ``_tp_serve`` judged them; for an encoder-decoder run, its
+    teacher-forced leg's logits and cache blocks and a cross cache that
+    is not all zero on any rank."""
     from repro_torch.launch import dryrun
 
     run = TP_SERVE_RUNS[name]
     arch, W, M = run["arch"], run["data"], run["model"]
     srv = SERVE_RUNS[arch]
-    cfg = configs.get_config(arch).replace(n_layers=srv["layers"])
+    cfg = _tp_serve_config(arch)
     pred = dryrun.serve_count(cfg, "decode", srv["max_len"], srv["batch"],
                               {"data": W, "model": M})
     twin_ms = torch.load(f"{twin_dir}/{arch}.serve.twin.pt", mmap=True)["step_ms"]
@@ -4864,6 +5004,21 @@ def _tp_serve_report(name: str, rks: list, twin_dir: str, smi: str) -> dict:
         f"{[round(rk['peak_bytes'] / 1e9, 3) for rk in rks]} GB; seconds, rank 0 "
         + ", ".join(f"{k} {v:.1f}" for k, v in r0["stages_s"].items())
         + f" ({smi})")
+    forced = [rk["forced"] for rk in rks]
+    if cfg.family == "encdec":
+        log(f"tensor parallel serve {name}: teacher-forced from frames drawn from "
+            f"seed {TP_SERVE_FRAMES_SEED}, {forced[0]['steps']} steps of the twin's "
+            "tokens from the cross cache build_cross_cache(..., shard) makes on each "
+            "rank, against the one-card leg: logits "
+            f"{sum(f['logits_beyond'] for f in forced)} rank-rows beyond (largest "
+            f"|diff| {max(f['max_abs_err'] for f in forced):.3e}, at most "
+            f"{max(f['worst_share_of_allowed'] for f in forced):.3f} of the "
+            f"allowed), cache blocks "
+            f"{'held' if all(f['cache_ok'] for f in forced) else 'APART'} (largest "
+            f"|diff| {max(f['cache_max_abs_err'] for f in forced):.3e}); ck and cv "
+            "not all zero on ranks "
+            f"{[r for r, f in enumerate(forced) if all(f['cross_nonzero'].values())]}"
+            f" ({smi})")
     faults = []
     for r, rk in enumerate(rks):
         if not want_split <= set(rk["split"]):
@@ -4883,6 +5038,11 @@ def _tp_serve_report(name: str, rks: list, twin_dir: str, smi: str) -> dict:
                           f"{rk['first_token_diffs']} with a clear margin")
         if rk["traffic"] != rks[0]["traffic"]:
             faults.append(f"rank {r} moved other bytes than rank 0")
+        f = rk["forced"]
+        if cfg.family == "encdec" and (
+                f is None or not all(f["cross_nonzero"].values())
+                or f["logits_beyond"] or not f["cache_ok"]):
+            faults.append(f"rank {r}'s teacher-forced leg from seeded frames: {f}")
     if faults:
         raise AssertionError(f"tensor parallel serve {name}: " + "; ".join(faults))
     return row

@@ -4,10 +4,12 @@
 
 Initialises a model from seed 0 (``--restore DIR`` then reads ``DIR/params``,
 written by either package's checkpoint store), builds its decode cache
-(for ``encdec`` the cross-attention cache of zero frames), and decodes
-``--batch`` rows token by token: ``--prompt-len`` untimed steps, then
-``--new-tokens`` timed ones, reporting tokens per second. Runs on
-``cuda`` unless ``--device cpu`` is given.
+(for ``encdec`` the cross-attention cache of zero frames, as
+``repro.launch.serve`` does: the seeded weights' LayerNorm biases are
+zero, so the encoder maps those frames to zeros and that cache is all
+zeros), and decodes ``--batch`` rows token by token: ``--prompt-len``
+untimed steps, then ``--new-tokens`` timed ones, reporting tokens per
+second. Runs on ``cuda`` unless ``--device cpu`` is given.
 
 What the steps feed is what the JAX driver's code feeds (its comment says
 "teacher forcing the prompt"; its loop does not): the first input is one
@@ -28,10 +30,12 @@ group's rows of the batch on its blocks of the parameters and the cache,
 laid out as the JAX dry run's ``lower_serve`` lays them out
 (``nn.sharding.serve_rules``): the kv heads split over the model axis
 where it divides them, else the cache's slots, and the SSD mixers' conv
-windows and SSM states by their channels and heads. The dense, MoE, VLM,
-SSM and hybrid families serve so (``models.serve_parallel``); the
-encoder-decoder family serves whole, and a model axis above 1 is refused
-for it. No flag chooses the layout, as in the JAX serve CLI.
+windows and SSM states by their channels and heads, and the
+encoder-decoder's cross-attention cache by its kv heads where the self
+cache splits them (its frames never split). Every family serves so
+(``models.serve_parallel``); a family left out of its module's
+``SERVE_PARALLEL`` would be refused a model axis above 1. No flag chooses
+the layout, as in the JAX serve CLI.
 """
 from __future__ import annotations
 
@@ -102,7 +106,7 @@ def serve_layout(cfg: ModelConfig, params, batch: int, max_len: int,
     ``index`` of its model ``group`` on ``mesh_shape`` (``group`` None:
     counted on the meta device), for ``batch`` rows and ``max_len`` steps
     under ``nn.sharding.serve_rules``. The shard is None at a model axis
-    of 1 and for a family that serves whole (``models.serve_parallel``)."""
+    of 1 and for a family outside ``models.serve_parallel``."""
     M = mesh_shape["model"]
     mod = get_family(cfg)
     rules = serve_rules(cfg, M)
@@ -142,9 +146,9 @@ def run(args: argparse.Namespace, params=None,
             raise ValueError(f"--batch {B} does not divide over {mesh.size} "
                              "dp groups")
         if mesh.model > 1 and not serve_parallel(cfg):
-            raise ValueError(f"{cfg.name}: the {cfg.family} family serves "
-                             "whole, on one rank, not over a model axis of "
-                             f"{mesh.model}")
+            raise ValueError(f"{cfg.name}: the {cfg.family} family does not "
+                             "serve on a rank's blocks, so not over a model "
+                             f"axis of {mesh.model}")
         n = B // mesh.size
         rows = slice(mesh.rank * n, (mesh.rank + 1) * n)
         specs, _, shard = serve_layout(
@@ -167,7 +171,8 @@ def run(args: argparse.Namespace, params=None,
         if cfg.family == "encdec":
             frames = torch.zeros((B, cfg.enc_seq, cfg.d_model),
                                  dtype=cfg.torch_dtype, device=args.device)
-            cache["ck"], cache["cv"] = mod.build_cross_cache(params, cfg, frames)
+            cache["ck"], cache["cv"] = mod.build_cross_cache(params, cfg, frames,
+                                                             **kw)
         tokens = first.to(args.device)
         prompt = []
         for _ in range(args.prompt_len):

@@ -28,26 +28,34 @@ summed over the group once. The embedding and the unembedding are
 vocabulary parallel, the logits gathered over the model group before the
 loss. The LayerNorms stay whole, equal in bits on every rank of a group.
 Under ``remat`` a block's forward collectives up to its last saved
-tensor run again in the backward, in the same order on every rank. Serving (``prefill``,
-``build_cross_cache``, ``init_cache``, ``decode_step``) runs whole, on
-one card.
+tensor run again in the backward, in the same order on every rank.
 
 Serving: ``build_cross_cache`` runs the encoder once and projects every
 decoder layer's cross-attention keys and values; the decode cache holds
 those (``ck``, ``cv`` over ``enc_seq``) beside the self-attention KV
 cache (``k``, ``v`` over ``max_len``), which ``decode_step`` writes in
-place.
+place. The family is in ``SERVE_PARALLEL``: ``prefill``,
+``build_cross_cache``, ``init_cache`` and ``decode_step`` take a serving
+``shard`` (``nn.sharding.serve_rules``), under which the rank holds its
+blocks of the parameters and of both caches, as the JAX dry run's
+``lower_serve`` lays them out. The self cache is ``models.lm``'s: the
+rank's kv heads where the model axis divides them, else its slots
+(``"kv_seq"``). The cross cache has no rule for its frames
+(``"enc_seq"``), so it splits by kv heads where the self cache does and
+is otherwise whole on every rank, the same bits on each: a rank computes
+its own block from the whole encoder output and gathers no cache.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Tuple
 
 import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import (
-    _norm, _norm_axes, _stack_layers, _unstack, attend, mask_pad_logits, run_block,
-    token_nll, write_kv)
+    _norm, _norm_axes, _splits, _stack_layers, _unstack, attend, mask_pad_logits,
+    run_block, token_nll, write_kv)
 from repro_torch.nn import layers as L
 from repro_torch.nn.sharding import prefix_axes
 
@@ -56,6 +64,8 @@ Params = Dict[str, Any]
 # the family of this module whose forward the trainer shards over the
 # model axis
 TENSOR_PARALLEL = frozenset({"encdec"})
+# the family of this module whose serve step runs on a rank's blocks
+SERVE_PARALLEL = frozenset({"encdec"})
 
 
 def _attn_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
@@ -197,30 +207,40 @@ def loss_fn(params: Params, cfg: ModelConfig, batch, shard=None
 # serving: self-attention KV cache beside the precomputed cross-attention KV
 # ---------------------------------------------------------------------------
 @torch.no_grad()
-def prefill(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
-    return forward(params, cfg, batch, mode="chunked")[0]
+def prefill(params: Params, cfg: ModelConfig, batch, shard=None) -> torch.Tensor:
+    """Logits of the prompt, the decoder's self-attention chunked; under a
+    serving ``shard`` from the rank's blocks, the logits whole."""
+    return forward(params, cfg, batch, mode="chunked", shard=shard)[0]
 
 
 @torch.no_grad()
-def build_cross_cache(params: Params, cfg: ModelConfig, frames: torch.Tensor
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+def build_cross_cache(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+                      shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(ck, cv)`` ``[n_layers, B, enc_seq, kv_heads, head_dim]``: the
     encoder once over ``frames``, then each decoder layer's
-    cross-attention ``wk`` and ``wv`` (no bias, as the JAX package)."""
-    enc_out = _encode(params, cfg, frames)
+    cross-attention ``wk`` and ``wv`` (no bias, as the JAX package).
+    Under a serving ``shard`` the encoder runs on the rank's blocks and
+    its output is whole; ``wk`` and ``wv`` are the rank's kv heads where
+    ``"kv_heads"`` is split, so the result is the rank's block of the
+    cache, else the whole cache."""
+    enc_out = _encode(params, cfg, frames, shard)
     cross = params["dec_layers"]["cross"]
     ck = torch.einsum("bse,lehd->lbshd", enc_out, cross["wk"].to(enc_out.dtype))
     cv = torch.einsum("bse,lehd->lbshd", enc_out, cross["wv"].to(enc_out.dtype))
     return ck, cv
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"
-               ) -> Dict:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda",
+               shard=None) -> Dict:
     """Zero ``k``, ``v`` ``[n_layers, B, max_len, kv_heads, head_dim]``,
     ``ck``, ``cv`` ``[n_layers, B, enc_seq, kv_heads, head_dim]`` (filled
-    from ``build_cross_cache``) and ``pos``."""
-    kv = (cfg.n_layers, batch, max_len, cfg.eff_kv_heads, cfg.hd)
-    ckv = (cfg.n_layers, batch, cfg.enc_seq, cfg.eff_kv_heads, cfg.hd)
+    from ``build_cross_cache``) and ``pos``. Under a serving ``shard`` the
+    rank's block: of ``k`` and ``v`` its slots where ``"kv_seq"`` is
+    split, of all four its kv heads where ``"kv_heads"`` is."""
+    kv_heads = cfg.eff_kv_heads // _splits(shard, "kv_heads")
+    kv = (cfg.n_layers, batch, max_len // _splits(shard, "kv_seq"), kv_heads,
+          cfg.hd)
+    ckv = (cfg.n_layers, batch, cfg.enc_seq, kv_heads, cfg.hd)
     dt = cfg.torch_dtype
     return {"k": torch.zeros(kv, dtype=dt, device=device),
             "v": torch.zeros(kv, dtype=dt, device=device),
@@ -247,29 +267,36 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict,
     """``tokens [B, 1]`` → ``(logits [B, 1, padded_vocab], cache)``: each
     decoder layer writes slot ``pos`` of its self-attention cache in place
     and attends to it, then its query (no RoPE, no bias) attends to all
-    ``enc_seq`` cross-attention keys. A model ``shard`` is refused: the
-    family serves whole."""
-    if shard is not None:
-        raise ValueError(f"{cfg.name}: the {cfg.family} family serves whole, "
-                         "on one rank; its decode step takes no model shard")
-    x = L.embed(params["embed"], tokens, cfg.torch_dtype)
+    ``enc_seq`` cross-attention keys. Under a serving ``shard`` the params
+    and both caches are the rank's blocks (module docstring) and the
+    logits whole. The self-attention is ``models.lm``'s; the
+    cross-attention reads the shard without ``"kv_seq"``, since every rank
+    holds every frame of the cross cache (where the query heads are split
+    and the kv heads whole, its queries are gathered over the group)."""
+    x = L.embed(params["embed"], tokens, cfg.torch_dtype, shard)
     pos = cache["pos"]
     positions = pos.reshape(1, 1)
+    cross_shard = (None if shard is None else
+                   dataclasses.replace(shard, split=shard.split - {"kv_seq"}))
     _, norm = _norm(cfg)
     for i, lp in enumerate(_unstack(params["dec_layers"], cfg.n_layers)):
         h = norm(lp["norm1"], x)
+        # the rank's query and kv heads, or the kv heads whole: local
+        # products with the weights' blocks, as in models.lm.decode_step
         q, k, v = L.attn_qkv(lp["self"], h)
         q = L.rope(q, positions, base=cfg.rope_base)
         k = L.rope(k, positions, base=cfg.rope_base)
         kc, vc = cache["k"][i], cache["v"][i]
-        write_kv(kc, vc, k, v, pos)
-        x = x + L.attn_out(lp["self"], L.attention_decode(q, kc, vc, pos + 1))
+        write_kv(kc, vc, k, v, pos, shard)
+        ctx = L.attention_decode(q, kc, vc, pos + 1, shard=shard)
+        x = x + L.attn_out(lp["self"], ctx, shard=shard)
         h = norm(lp["norm2"], x)
         q = torch.einsum("bse,ehd->bshd", h, lp["cross"]["wq"].to(h.dtype))
-        ctx = L.attention_decode(q, cache["ck"][i], cache["cv"][i], cfg.enc_seq)
-        x = x + L.attn_out(lp["cross"], ctx)
+        ctx = L.attention_decode(q, cache["ck"][i], cache["cv"][i], cfg.enc_seq,
+                                 shard=cross_shard)
+        x = x + L.attn_out(lp["cross"], ctx, shard=shard)
         h = norm(lp["norm3"], x)
-        x = x + L.mlp(lp["mlp"], h, act=cfg.act)
+        x = x + L.mlp(lp["mlp"], h, act=cfg.act, shard=shard)
     x = norm(params["final_norm"], x)
-    logits = mask_pad_logits(L.unembed(params["embed"], x), cfg)
+    logits = mask_pad_logits(L.unembed(params["embed"], x, shard), cfg)
     return logits, {**cache, "pos": pos + 1}

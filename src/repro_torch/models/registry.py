@@ -5,9 +5,9 @@ Every family module exposes ``init(cfg, *, seed, device)``,
 ``param_axes(cfg)`` (the logical axes of ``init``'s tree, which the JAX
 ``init`` returns beside the parameters; :func:`param_axes` here),
 ``loss_fn(params, cfg, batch) -> (loss, metrics)``, ``prefill(params,
-cfg, batch) -> logits``, ``init_cache(cfg, batch, max_len, *, device)``,
-``cache_axes(cfg)`` and ``decode_step(params, cfg, cache, tokens) ->
-(logits, cache)``. The ``dense``, ``moe`` and ``vlm`` families are
+cfg, batch, shard=None) -> logits``, ``init_cache(cfg, batch, max_len, *,
+device, shard=None)``, ``cache_axes(cfg)`` and ``decode_step(params, cfg,
+cache, tokens, shard=None) -> (logits, cache)``. The ``dense``, ``moe`` and ``vlm`` families are
 ``models.lm``, ``encdec`` is ``models.encdec``, ``ssm`` and ``hybrid``
 are ``models.ssm``.
 """
@@ -56,11 +56,14 @@ def tensor_parallel(cfg: ModelConfig) -> bool:
 
 def serve_parallel(cfg: ModelConfig) -> bool:
     """Whether the serve step (``prefill``, ``init_cache``,
-    ``decode_step``) runs on a rank's blocks over the model axis: the
-    family is in its module's ``SERVE_PARALLEL`` (``models.lm``'s dense,
-    MoE and VLM decoders, ``models.ssm``'s SSM and hybrid models) and
-    trains tensor parallel (:func:`tensor_parallel`). The encoder-decoder
-    family serves whole, and its decode step refuses a shard."""
+    ``decode_step``, and ``encdec.build_cross_cache``) runs on a rank's
+    blocks over the model axis: the family is in its module's
+    ``SERVE_PARALLEL`` (``models.lm``'s dense, MoE and VLM decoders,
+    ``models.ssm``'s SSM and hybrid models, ``models.encdec``'s
+    encoder-decoder: every family) and trains tensor parallel
+    (:func:`tensor_parallel`). ``launch.serve.run`` refuses a model axis
+    above 1 for a family left out of it; no family is, but the tests
+    empty a module's set to hold the refusal."""
     return (tensor_parallel(cfg)
             and cfg.family in getattr(get_family(cfg), "SERVE_PARALLEL", ()))
 

@@ -66,6 +66,7 @@ from test_torch_train import (
     _close,
     _jax_composed_train,
 )
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 JAX_RATE = jfp.ThroughputTable().fused_bps
 tcost, jcost = tcomm.cost, jd.comm.cost

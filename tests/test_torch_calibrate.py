@@ -37,6 +37,7 @@ import torch
 from repro_torch.comm import calibrate as tcal
 from repro_torch.comm.cost import AlphaBeta
 from repro_torch.launch.mesh import DpGroups
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 LENGTHS = (256, 4096)
 SMOKE = ["--smoke", "--seq", "16", "--device", "cpu", "--log-every", "1",

@@ -36,6 +36,7 @@ from repro_torch import checkpoint as ckpt
 from repro_torch import convert
 from repro_torch.checkpoint import store
 from repro_torch.tree import tree_items
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 RTOL = 1e-5
 BASE = ["--smoke", "--seq", "16", "--global-batch", "4", "--device", "cpu",

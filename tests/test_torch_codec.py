@@ -19,6 +19,7 @@ import torch
 
 from repro.comm import codec as jcodec
 from repro_torch.comm import codec as tcodec
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 NAMES = sorted(tcodec.CODECS)
 W = 3

@@ -20,6 +20,7 @@ from repro.core.sparsify import SparsifierConfig as JaxSparsifierConfig
 from repro_torch.comm.fastpath import FastpathCounts, candidate_budget
 from repro_torch.core import compact as tc
 from repro_torch.core.sparsify import SparsifierConfig
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 RTOL = 1e-6
 L, K, W = 3 * 8192 + 17, 40, 2

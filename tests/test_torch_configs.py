@@ -19,6 +19,7 @@ from repro import configs as jconfigs
 from repro.models import registry as jregistry
 from repro_torch import configs as tconfigs
 from repro_torch.models import encdec, get_family, input_specs, lm, make_batch, ssm
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 ARCHS = list(tconfigs.ARCHS)
 PROPERTIES = ("hd", "d_inner", "padded_vocab", "is_moe", "eff_heads",

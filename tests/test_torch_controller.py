@@ -35,6 +35,7 @@ from repro_torch.comm import controller as tctl
 from repro_torch.core import compact as tc
 from repro_torch.core import selectors as tsel
 from repro_torch.core import sparsify as tsp
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 
 def _bits(x):

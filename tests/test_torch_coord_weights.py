@@ -44,6 +44,7 @@ from repro_torch.convert import compact_state_from_jax, dense_state_from_jax
 from repro_torch.core import compact as tc
 from repro_torch.core import distributed as td
 from repro_torch.core import sparsify as tsp
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 
 def _bits(x):

@@ -18,6 +18,7 @@ from repro.comm import codec as jcodec
 from repro.comm import cost as jcost
 from repro_torch.comm import codec as tcodec
 from repro_torch.comm import cost as tcost
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 CODECS = sorted(tcodec.CODECS)
 COLLECTIVES = ["dense_allreduce", "sparse_allgather", "hierarchical"]

@@ -17,6 +17,7 @@ from repro_torch.kernels import fused_encode as fe
 from repro_torch.kernels import ops
 from repro_torch.kernels import regtopk_score as rs
 from repro_torch.kernels import threshold_topk as tt
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 KW = dict(omega=0.125, mu=1.0, q=1e9, m=16)
 SELECT_M = [1, 8, 16, 36, 128, 257, 512, 8192]  # the radix select at every depth

@@ -41,6 +41,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import _torch_dryrun_jax as jside  # noqa: E402

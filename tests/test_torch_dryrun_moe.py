@@ -28,6 +28,7 @@ import pytest
 
 from test_torch_dryrun import (input_specs_batch, int64_extra, jax_cases,
                                port_case, rows_bytes)
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 ARCHS = ("mixtral-8x7b", "deepseek-moe-16b")
 CASES = {arch: f"{arch}:train_4k:8x1" for arch in ARCHS}

@@ -18,6 +18,7 @@ from repro_torch import configs
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as meshlib
 from repro_torch.tree import tree_items
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 ARCHS = tuple(configs.ARCHS)
 MESHES = {"16x16": False, "2x16x16": True}

@@ -31,6 +31,7 @@ from test_torch_dryrun import int64_extra, jax_cases, jside, port_case
 from repro_torch import configs
 from repro_torch.launch import dryrun
 from repro_torch.models import ssm
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 ARCHS = ("mamba2-780m", "zamba2-7b")
 CASES = {arch: f"{arch}:train_4k:8x1" for arch in ARCHS}

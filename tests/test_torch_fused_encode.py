@@ -16,6 +16,7 @@ from repro.kernels import fused_encode as jfe
 from repro.kernels import ops as jops
 from repro_torch.kernels import fused_encode as tfe
 from repro_torch.kernels import ops as tops
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 RTOL = 1e-6
 OMEGA, MU, Q = 0.05, 1.0, 1e9

@@ -14,6 +14,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

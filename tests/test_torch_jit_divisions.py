@@ -30,6 +30,7 @@ from repro_torch.comm import controller as tctl
 from repro_torch.core import distributed as td
 from repro_torch.core.sparsify import SparsifierConfig
 from repro_torch.kernels.regtopk_score import const_div, ordered_mean
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 
 AXIS = "data"  # the workers' vmap axis, the JAX trainer's dp axis name

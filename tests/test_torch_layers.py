@@ -33,6 +33,7 @@ from repro.nn import layers as jL
 from repro_torch import configs as tconfigs
 from repro_torch.models import get_family
 from repro_torch.nn import layers as tL
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 RTOL = 1e-5
 

@@ -30,6 +30,7 @@ from repro_torch import convert
 from repro_torch.models import get_family
 from repro_torch.models import lm as tlm
 from repro_torch.tree import tree_items, tree_leaves
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 RTOL = 1e-5
 DECAY_RTOL = 1e-4  # the SSD's A_log and dt_bias gradients (module docstring)

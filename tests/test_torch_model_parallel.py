@@ -55,6 +55,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = dict(name="tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,

@@ -26,6 +26,7 @@ from repro.nn import moe as jmoe
 from repro_torch import convert
 from repro_torch.nn import moe as tmoe
 from repro_torch.tree import tree_items
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 RTOL = 1e-5
 D, F_, E = 32, 48, 4

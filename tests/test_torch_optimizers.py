@@ -32,6 +32,7 @@ from repro.optim import OptConfig as JaxOptConfig
 from repro.optim import make_optimizer as jax_make_optimizer
 from repro_torch.optim import OptConfig, make_optimizer
 from repro_torch.tree import tree_items
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 SHAPES = {"emb": (64, 16), "layers": {"w": (3, 16, 16), "b": (3, 16)}, "out": (16,)}
 STEPS = 5

@@ -30,6 +30,7 @@ from repro_torch.core import distributed as td
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import OptConfig, make_optimizer
 from repro_torch.tree import tree_items, tree_leaves
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 TINY = dict(name="tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
             head_dim=16, d_ff=128, vocab=256)

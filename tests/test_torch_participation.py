@@ -37,6 +37,7 @@ from repro.comm.codec import get_codec as jax_codec
 from repro_torch.comm import collectives as tcoll
 from repro_torch.comm import participation as tp
 from repro_torch.comm.codec import get_codec
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 NS = (2, 5, 8, 20)
 ROUNDS = range(41)

@@ -53,6 +53,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 ROOT = Path(__file__).resolve().parents[1]
 SHAPES = {"big": (3 * 8192 + 17,), "small": (4, 33)}

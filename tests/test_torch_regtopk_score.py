@@ -15,6 +15,7 @@ from repro.kernels import ops as jops
 from repro_torch.core.sparsify import DenseState, RegTopK, SparsifierConfig
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import regtopk_score as rs
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 RTOL = 1e-6
 OMEGA, MU, Q = 0.25, 1.5, 1e9

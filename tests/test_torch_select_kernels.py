@@ -20,6 +20,7 @@ from repro_torch.core import selectors as tsel
 from repro_torch.kernels import block_topk as bt
 from repro_torch.kernels import ops
 from repro_torch.kernels import threshold_topk as tt
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 TILE = 8192
 

@@ -43,6 +43,7 @@ from repro_torch import convert
 from repro_torch.launch import serve
 from repro_torch.models import get_family, lm
 from repro_torch.tree import tree_items
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 RTOL = 1e-5
 FORWARD_TOL = 2e-3  # tests/test_archs.py's decode-vs-forward tolerance

@@ -25,10 +25,12 @@ cache slots, ``nn.sharding.serve_rules``/``serve_shard`` and
 * ``serve.run(..., mesh=)`` on the 4 ranks at ``(2, 2)`` and ``(1, 4)``
   gives the one-process run's tokens, each rank its dp group's rows.
 * The dropless MoE routes each token alike whatever the grouping of the
-  rows; the encoder-decoder family, which serves whole, refuses a shard
-  and a model axis; the SSM and hybrid families' serving shard splits
-  the SSD's channels and heads (their step:
-  ``tests/test_torch_serve_tensor_parallel_ssm.py``).
+  rows; a family outside its module's ``SERVE_PARALLEL`` is refused a
+  model axis; the SSM and hybrid families' serving shard splits the
+  SSD's channels and heads (their step:
+  ``tests/test_torch_serve_tensor_parallel_ssm.py``), and the
+  encoder-decoder's its heads, kv heads or slots and both caches (its
+  step: ``tests/test_torch_serve_tensor_parallel_encdec.py``).
 
 The ranks start while the JAX subprocess compiles and take each case as
 its results appear. Every wait is bounded at 120 s (the JAX subprocess
@@ -45,6 +47,7 @@ import pytest
 import torch
 
 from test_torch_model_parallel import _flatten, _nest, _section
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 ROOT = Path(__file__).resolve().parents[1]
 B, STEPS, PROMPT, RTOL, MARGIN = 4, 12, 16, 1e-5, 1e-3
@@ -347,22 +350,70 @@ def test_dropless_routing_ignores_the_grouping_of_rows():
 
 
 @pytest.mark.parametrize("arch", ["whisper-tiny"])
-def test_families_that_serve_whole_refuse_a_shard(arch):
+def test_families_that_serve_whole_refuse_a_shard(monkeypatch, arch):
+    """A family left out of its module's ``SERVE_PARALLEL`` (emptied here,
+    as the dry run's tests empty ``TENSOR_PARALLEL``) has no serving shard,
+    and ``serve.run`` refuses it a model axis above 1."""
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh, serve
     from repro_torch.models import get_family, serve_parallel
-    from repro_torch.nn.tensor_parallel import ModelShard
 
     cfg = get_config(arch).smoke_variant()
-    assert not serve_parallel(cfg)
     mod = get_family(cfg)
-    shard = ModelShard(None, 0, 2, frozenset({"heads"}))
-    with pytest.raises(ValueError, match=f"{cfg.family} family serves whole"):
-        mod.decode_step(None, cfg, {}, None, shard=shard)
+    assert serve_parallel(cfg)
+    monkeypatch.setattr(mod, "SERVE_PARALLEL", frozenset())
+    assert not serve_parallel(cfg)
+    assert serve.serve_layout(cfg, mod.init(cfg, device="meta"), B, 16,
+                              {"data": 1, "model": 2})[2] is None
     groups = mesh.DpGroups(("data",), (1,), (None,), 0, 2, 0, None)
-    with pytest.raises(ValueError, match="serves whole"):
+    with pytest.raises(ValueError, match="does not serve on a rank's blocks"):
         serve.run(serve.parse_args(["--arch", arch, "--smoke", "--device",
                                     "cpu"]), mesh=groups)
+
+
+# whisper-tiny's serving layouts: (smoke, M, max_len) -> (the axes the
+# shard splits, query heads, self cache (slots, kv heads), cross cache kv
+# heads, MLP columns) a rank
+ENCDEC_LAYOUTS = {
+    (False, 2, 448): ({"heads", "kv_heads", "mlp", "vocab"}, 3, (448, 3), 3,
+                      768),
+    (False, 4, 448): ({"kv_seq", "mlp", "vocab"}, 6, (112, 6), 6, 384),
+    (False, 16, 32768): ({"kv_seq", "mlp", "vocab"}, 6, (2048, 6), 6, 96),
+    (True, 2, 16): ({"heads", "kv_heads", "mlp", "vocab"}, 2, (16, 1), 1, 128),
+    (True, 4, 16): ({"heads", "kv_seq", "mlp", "vocab"}, 1, (4, 2), 2, 64),
+}
+
+
+@pytest.mark.parametrize("layout", list(ENCDEC_LAYOUTS), ids=str)
+def test_the_encdec_family_serves_on_its_blocks(layout):
+    """whisper-tiny's serving shard splits, at published widths and on
+    the smoke fields, what the JAX serve rules split: the kv heads where
+    the model axis divides them (the cross cache with them), else the self
+    cache's slots, with the cross cache whole (its frames have no rule);
+    the MLP's columns and the vocabulary always, the query heads where the
+    axis divides them."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec, serve_parallel
+    from repro_torch.nn.sharding import shard_params
+
+    smoke, M, max_len = layout
+    split, heads, (slots, kv), cross_kv, mlp = ENCDEC_LAYOUTS[layout]
+    cfg = get_config("whisper-tiny")
+    cfg = cfg.smoke_variant() if smoke else cfg
+    assert serve_parallel(cfg)
+    meta = encdec.init(cfg, device="meta")
+    specs, _, shard = serve.serve_layout(cfg, meta, B, max_len,
+                                         {"data": 1, "model": M})
+    assert shard.split == split
+    blocks = shard_params(meta, specs, 0, M)["dec_layers"]
+    assert blocks["self"]["wq"].shape[2] == blocks["cross"]["wq"].shape[2] == heads
+    assert blocks["cross"]["wk"].shape[2] == cross_kv
+    assert blocks["mlp"]["wu"].shape[2] == mlp
+    cache = encdec.init_cache(cfg, B, max_len, device="meta", shard=shard)
+    assert cache["k"].shape[2:4] == cache["v"].shape[2:4] == (slots, kv)
+    assert cache["ck"].shape[2:4] == cache["cv"].shape[2:4] == (cfg.enc_seq,
+                                                                cross_kv)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b"])

@@ -37,6 +37,7 @@ import torch
 
 from test_torch_model_parallel import _flatten, _nest, _section
 from test_torch_serve_tensor_parallel import _close, _wait_for
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 ROOT = Path(__file__).resolve().parents[1]
 B, STEPS, PROMPT, RTOL, MARGIN = 4, 12, 16, 1e-5, 1e-3

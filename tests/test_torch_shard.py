@@ -32,6 +32,7 @@ the same way. Each process group starts from a file under ``tmp_path``
 import numpy as np
 import pytest
 import torch
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 L, K, SEED = 1000, 16, 3  # L >= 2^7: coo_idx_delta sends int16 deltas
 CODECS = ("coo_fp32", "coo_idx_delta", "bitmap_dense", "coo_q8")

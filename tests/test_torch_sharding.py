@@ -44,6 +44,7 @@ from repro_torch.launch import mesh as tmesh
 from repro_torch.models import get_family, param_axes
 from repro_torch.nn import sharding as tsh
 from repro_torch.tree import tree_items
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 ARCHS = tuple(jconfigs.ARCHS)
 MESHES = {

@@ -40,6 +40,7 @@ from repro_torch.comm.participation import Participation
 from repro_torch.convert import linreg_from_jax, sim_state_from_jax, sim_state_to_numpy
 from repro_torch.core import DistributedSim, SparsifierConfig
 from repro_torch.data.pipeline import linreg_grad_fn
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 KINDS = ["none", "topk", "regtopk", "hard_threshold", "coordtopk", "dgc"]
 TOY_X = np.array([[100.0, 1.0], [-100.0, 1.0]], np.float32)

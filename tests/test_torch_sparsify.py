@@ -29,6 +29,7 @@ from repro_torch.comm.collectives import COLLECTIVES, scatter_add_payloads
 from repro_torch.convert import dense_state_from_jax
 from repro_torch.core import selectors as tsel
 from repro_torch.core import sparsify as tsp
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 RTOL = 1e-5
 N, L = 3, 96

@@ -32,6 +32,7 @@ import torch
 
 from repro.nn import ssd as jssd
 from repro_torch.nn import ssd as tssd
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 RTOL = 1e-5
 DECODE_RTOL = 1e-4

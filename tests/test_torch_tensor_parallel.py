@@ -44,6 +44,7 @@ import pytest
 import torch
 
 from test_torch_model_parallel import _close, _flatten, _nest, _section
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 ROOT = Path(__file__).resolve().parents[1]
 SPARSITY, LR, STEPS, RTOL = 0.01, 1e-3, 3, 1e-5

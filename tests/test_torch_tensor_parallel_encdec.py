@@ -42,6 +42,7 @@ import pytest
 import torch
 
 from test_torch_model_parallel import _close, _flatten, _nest, _section
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "whisper-tiny"

@@ -47,6 +47,7 @@ from repro_torch.core.sparsify import SparsifierConfig
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import OptConfig, make_optimizer
 from repro_torch.tree import tree_items
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 RTOL = 1e-5
 TINY = dict(name="tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,

@@ -18,6 +18,7 @@ from repro_torch.core.sparsify import SparsifierConfig
 from repro_torch.optim import OptConfig, make_optimizer
 from repro_torch.tree import tree_items
 from test_torch_train import LR, RTOL, SPARSITY, STEPS, _close, _jax_composed_train
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 # the error state of the SSD's A_log and dt_bias leaves: their gradients
 # agree to rtol 1e-4 (see tests/test_torch_model.py)

@@ -12,6 +12,7 @@ import torch
 from repro_torch.comm.codec import CODECS, MAX_WIRE_LEN, get_codec
 from repro_torch.core import distributed as td
 from repro_torch.core.sparsify import SparsifierConfig
+import _torch_cores  # noqa: F401  (this worker's share of the cores)
 
 LONG = (3, 2**30)  # 3 * 2**30 elements: past 2**31
 S = 0.001
